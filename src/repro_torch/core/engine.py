@@ -1,0 +1,204 @@
+"""The bulk-synchronous move engine of the PyTorch port (``repro.core.engine``).
+
+``MoveEngine`` owns the round loop of Algorithm 2: a sweep is
+``gate_fraction`` gated rounds, and sweeps run until the sweep's total dQ is
+at most the tolerance or the iteration cap is reached.  A scanner backend
+supplies only the per-vertex best-move scan and a thin topology surface.
+JAX's ``lax.while_loop`` becomes a host loop that reads one scalar (the
+sweep's dQ) from the device per sweep.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.graph import segment_sum
+
+#: Knuth's multiplicative constant 2654435761 reinterpreted as int32.
+GATE_MUL = -1640531535
+#: Odd per-round Weyl increment (low bits of 2654435769).
+GATE_INC = 40503
+
+
+def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with two's-complement wraparound (defined behaviour,
+    where int32 tensor overflow in C++ would not be)."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
+
+
+def gate_hash(ids: torch.Tensor, round_ix) -> torch.Tensor:
+    """Cheap per-(vertex, round) hash — Weyl sequence on odd constants,
+    in int32 arithmetic that wraps (computed mod 2^32 in int64)."""
+    r = int(round_ix)
+    return _wrap_int32(ids.to(torch.int64) * GATE_MUL + r * GATE_INC)
+
+
+def round_gate(ids: torch.Tensor, round_ix, gate_fraction: int) -> torch.Tensor:
+    """Boolean mask selecting ~1/gate_fraction of ``ids`` this round."""
+    h = gate_hash(ids, round_ix)
+    return torch.abs(h >> 13) % gate_fraction == 0
+
+
+@dataclasses.dataclass
+class MoveState:
+    """Loop state of one local-moving phase.  ``comm``/``sigma`` are the
+    (sent + 1,) community state; ``iters`` is a host int; ``dq``/``dq_sum``
+    are 0-d float32 device tensors."""
+
+    comm: torch.Tensor
+    sigma: torch.Tensor
+    frontier: torch.Tensor
+    iters: int
+    dq: torch.Tensor
+    dq_sum: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Knobs of the round loop."""
+
+    max_iterations: int = 20
+    use_pruning: bool = True
+    gate_fraction: int = 2
+
+
+def gated_move_mask(best_c: torch.Tensor, best_dq: torch.Tensor,
+                    comm_l: torch.Tensor, sizes: torch.Tensor,
+                    frontier: torch.Tensor, sent: int,
+                    move_valid: Optional[torch.Tensor] = None,
+                    gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The engine's move decision from a scan result: the improvement test,
+    the singleton-swap guard (two singletons merge only towards the smaller
+    id), the frontier/validity masks and the round gate.  The fused kernel
+    (K1) must reproduce exactly this boolean."""
+    own_single = sizes[comm_l] == 1
+    tgt_single = sizes[torch.clamp(best_c, max=sent)] == 1
+    swap_blocked = own_single & tgt_single & (best_c > comm_l)
+    do_move = ((best_dq > 0.0) & (best_c != comm_l) & (best_c < sent)
+               & frontier & ~swap_blocked)
+    if move_valid is not None:
+        do_move = do_move & move_valid
+    if gate is not None:
+        do_move = do_move & gate
+    return do_move
+
+
+class MoveEngine:
+    """The one BSP round loop.  ``scanner`` supplies:
+
+    attributes ``sentinel``, ``local_ids``, ``k_local``, ``move_valid``,
+    ``frontier_valid``; methods ``scan(comm, sigma, frontier)``,
+    ``comm_local``, ``count_ones``, ``psum``, ``combine_sigma``,
+    ``gather_comm``, ``gather_mask``, ``mark_neighbors``; and optionally
+    ``decide_moves(comm, sigma, frontier, comm_l, sizes, round_ix)`` ->
+    (do_move, best_c, best_dq), which must equal ``scan`` +
+    ``gated_move_mask`` bit for bit (the fused ELL kernel supplies it).
+    """
+
+    def __init__(self, scanner, config: EngineConfig):
+        self.scanner = scanner
+        self.config = config
+
+    def one_round(self, st: MoveState, frontier0: torch.Tensor,
+                  round_ix: int) -> MoveState:
+        sc, cfg = self.scanner, self.config
+        sent = sc.sentinel
+        frontier = st.frontier if cfg.use_pruning else frontier0
+        comm_l = sc.comm_local(st.comm)
+
+        gate = (round_gate(sc.local_ids, round_ix, cfg.gate_fraction)
+                if cfg.gate_fraction > 1 else None)
+        sizes = sc.psum(segment_sum(sc.count_ones(comm_l), comm_l, sent + 1))
+
+        decide = getattr(sc, "decide_moves", None)
+        if decide is not None:
+            do_move, best_c, best_dq = decide(st.comm, st.sigma, frontier,
+                                              comm_l, sizes, round_ix)
+        else:
+            best_c, best_dq = sc.scan(st.comm, st.sigma, frontier)
+            do_move = gated_move_mask(best_c, best_dq, comm_l, sizes,
+                                      frontier, sent, sc.move_valid, gate)
+
+        dq = sc.psum(torch.sum(torch.where(do_move, best_dq, 0.0)))
+        moved_k = torch.where(do_move, sc.k_local, 0.0)
+        add = segment_sum(moved_k, torch.where(do_move, best_c, sent),
+                          sent + 1)
+        sub = segment_sum(moved_k, torch.where(do_move, comm_l, sent),
+                          sent + 1)
+        sigma = sc.combine_sigma(st.sigma, add, sub)
+        comm = sc.gather_comm(torch.where(do_move, best_c, comm_l))
+        moved_g = sc.gather_mask(do_move)
+
+        # Vertex pruning: processed vertices leave the frontier; neighbors
+        # of movers re-enter it.  Gated-out frontier vertices were never
+        # processed this round — keep them hot.
+        frontier_new = sc.mark_neighbors(moved_g) & sc.frontier_valid
+        if gate is not None:
+            frontier_new = frontier_new | (frontier & ~gate)
+        return MoveState(comm, sigma, frontier_new, st.iters, st.dq + dq,
+                         st.dq_sum + dq)
+
+    def run(self, comm0: torch.Tensor, sigma0: torch.Tensor,
+            frontier0: torch.Tensor, tolerance: float) -> MoveState:
+        """Algorithm 2: sweeps until total dQ <= tolerance or the cap.
+
+        The comparison is the reference's float32 one: the sweep's float32
+        dQ against the float32-rounded tolerance.
+        """
+        cfg = self.config
+        tol = float(torch.tensor(tolerance, dtype=torch.float32))
+        zero = torch.zeros((), dtype=torch.float32, device=comm0.device)
+        st = MoveState(comm0, sigma0, frontier0, 0, zero, zero)
+        dq = float("inf")          # the loop always runs at least one sweep
+        while st.iters < cfg.max_iterations and dq > tol:
+            st.dq = zero
+            base = st.iters * cfg.gate_fraction
+            for r in range(cfg.gate_fraction):
+                st = self.one_round(st, frontier0, base + r)
+            st.iters += 1
+            dq = float(st.dq)      # the sweep's one host sync
+        return st
+
+
+class ReplicatedScannerBase:
+    """Topology surface shared by the single-device backends (sort-reduce
+    and ELL): local layout == replicated layout, all collectives identity."""
+
+    def __init__(self, sentinel: int, n_valid: int, k: torch.Tensor):
+        self.sentinel = sentinel
+        self.local_ids = torch.arange(sentinel + 1, dtype=torch.int32,
+                                      device=k.device)
+        self.k_local = k
+        valid = self.local_ids < n_valid
+        self.move_valid: Optional[torch.Tensor] = valid
+        self.frontier_valid = valid
+        self._valid = valid
+        self._ones = valid.to(torch.int32)
+
+    def comm_local(self, comm: torch.Tensor) -> torch.Tensor:
+        return comm
+
+    def count_ones(self, comm_l: torch.Tensor) -> torch.Tensor:
+        return self._ones
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def combine_sigma(self, sigma, add, sub):
+        return sigma + add - sub
+
+    def gather_comm(self, comm_l: torch.Tensor) -> torch.Tensor:
+        return comm_l
+
+    def gather_mask(self, mask_l: torch.Tensor) -> torch.Tensor:
+        return mask_l
+
+    def scan(self, comm, sigma, frontier) -> Tuple[torch.Tensor, torch.Tensor]:
+        raise NotImplementedError
+
+    def mark_neighbors(self, moved: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError

@@ -1,0 +1,120 @@
+"""Sort-reduce scanner backend + single-device local-moving phase
+(``repro.core.local_move`` and ``repro.core.louvain._move_phase``).
+
+Every frontier vertex computes its best move against the same snapshot of
+(C, Sigma); all moves then apply at once (the engine's rounds).  The scan
+groups edge slots by (src, C[dst]) with one stable sort of a packed int64
+key — the counterpart of the reference's ``lexsort((C[dst], src))`` — and
+segment-sums the per-community weights K_{i->c}.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.core.engine import (EngineConfig, MoveEngine,
+                                     ReplicatedScannerBase)
+from repro_torch.core.graph import CSRGraph, segment_sum
+from repro_torch.core.modularity import delta_modularity
+
+_NEG_INF = float("-inf")
+
+
+def _scan_communities_slots(src, dst, w, comm):
+    """Group directed slots by (src, C[dst]) and compute K_{i->c} per slot.
+
+    Returns (order, s_src, s_c, k_i_to_c) in sorted slot order; self-loop
+    slots contribute 0.  The sort is stable, so each group sums its
+    weights in slot order, as the reference's stable lexsort does.
+    """
+    cdst = comm[dst]
+    key = src.to(torch.int64) * comm.shape[0] + cdst.to(torch.int64)
+    s_key, order = torch.sort(key, stable=True)
+    s_src = src[order]
+    s_c = cdst[order]
+    s_w = torch.where(s_src == dst[order], 0.0, w[order])
+    new_group = torch.ones_like(s_key, dtype=torch.bool)
+    new_group[1:] = s_key[1:] != s_key[:-1]
+    gid = torch.cumsum(new_group, 0) - 1
+    group_w = segment_sum(s_w, gid, src.shape[0])
+    return order, s_src, s_c, group_w[gid]
+
+
+def best_moves_slots(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
+                     comm: torch.Tensor, sigma: torch.Tensor, k: torch.Tensor,
+                     frontier: torch.Tensor, m: torch.Tensor,
+                     n_cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-vertex (best community, best dQ) from a directed-slot list.
+
+    The slot arrays may be the graph's full ``e_cap`` layout or any
+    order-preserving subset of it: a vertex whose live slots are all present
+    gets exactly the full-scan answer (same weights, added in the same
+    order).  Ties go to the smallest community id; a vertex with no
+    candidate gets (n_cap, -inf).
+    """
+    own = (comm[dst] == comm[src]) & (dst != src)
+    k_to_own = segment_sum(torch.where(own, w, 0.0), src, n_cap + 1)
+
+    _, s_src, s_c, k_i_to_c = _scan_communities_slots(src, dst, w, comm)
+    c_own = comm[s_src]
+    dq = delta_modularity(k_i_to_c, k_to_own[s_src], k[s_src], sigma[s_c],
+                          sigma[c_own], m)
+    valid = ((s_c != c_own) & (s_src != n_cap) & (s_c != n_cap)
+             & frontier[s_src])
+    dq = torch.where(valid, dq, _NEG_INF)
+
+    seg = s_src.to(torch.int64)
+    best_dq = torch.full((n_cap + 1,), _NEG_INF, dtype=torch.float32,
+                         device=dq.device)
+    best_dq.scatter_reduce_(0, seg, dq, "amax", include_self=True)
+    best_dq = torch.where(torch.isfinite(best_dq), best_dq, _NEG_INF)
+    is_best = (dq == best_dq[s_src]) & valid
+    # Empty segments keep the initial n_cap: the reference's clamp of
+    # segment_min's iinfo.max into the sentinel slot.
+    best_c = torch.full((n_cap + 1,), n_cap, dtype=torch.int32,
+                        device=dq.device)
+    best_c.scatter_reduce_(0, seg, torch.where(is_best, s_c, n_cap), "amin",
+                           include_self=True)
+    return best_c, best_dq
+
+
+def best_moves(graph: CSRGraph, comm, sigma, k, frontier, m):
+    """Per-vertex (best community, best dQ) from one snapshot (full scan)."""
+    return best_moves_slots(graph.src, graph.indices, graph.weights, comm,
+                            sigma, k, frontier, m, graph.n_cap)
+
+
+class SortReduceScanner(ReplicatedScannerBase):
+    """Engine backend: CSR sort-reduce scan on a single device."""
+
+    def __init__(self, graph: CSRGraph, k: torch.Tensor, m: torch.Tensor):
+        super().__init__(graph.n_cap, graph.n_valid, k)
+        self.graph = graph
+        self.m = m
+
+    def scan(self, comm, sigma, frontier):
+        return best_moves(self.graph, comm, sigma, self.k_local, frontier,
+                          self.m)
+
+    def mark_neighbors(self, moved: torch.Tensor) -> torch.Tensor:
+        g = self.graph
+        marked = segment_sum(moved[g.src].to(torch.int32), g.indices,
+                             g.n_cap + 1)
+        return marked > 0
+
+
+def move_phase(graph: CSRGraph, comm0, sigma0, frontier0, tolerance: float,
+               *, max_iterations: int = 20, use_pruning: bool = True,
+               gate_fraction: int = 2):
+    """One local-moving phase on the sort-reduce backend from an arbitrary
+    (C, Sigma, frontier) start; returns (comm, iters, dq_sum)."""
+    k = graph.vertex_weights()
+    m = graph.total_weight()
+    scanner = SortReduceScanner(graph, k, m)
+    engine = MoveEngine(scanner, EngineConfig(
+        max_iterations=max_iterations, use_pruning=use_pruning,
+        gate_fraction=gate_fraction))
+    st = engine.run(comm0, sigma0, frontier0, tolerance)
+    return st.comm, st.iters, st.dq_sum

@@ -1,0 +1,69 @@
+"""Synthetic graph generators of the PyTorch port (``repro.data.graphs``):
+R-MAT (web-like power-law) and SBM (planted communities).
+
+The random draws are the reference's own ``np.random.default_rng`` calls in
+the same order, so a seed gives byte-identical edges; the CSR is then built
+on ``device``.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+from repro_torch.core.graph import CSRGraph, build_csr, resolve_device
+
+
+def rmat_graph(scale: int, edge_factor: int = 8, a: float = 0.57,
+               b: float = 0.19, c: float = 0.19, seed: int = 0,
+               n_cap: int | None = None, e_cap: int | None = None,
+               device="cuda") -> CSRGraph:
+    """R-MAT generator (Graph500-style): 2^scale vertices, power-law
+    degrees, symmetrized and deduplicated, unit weights."""
+    dev = resolve_device(device)
+    n = 1 << scale
+    m = n * edge_factor
+    rng = np.random.default_rng(seed)
+    src = np.zeros(m, np.int64)
+    dst = np.zeros(m, np.int64)
+    for bit in range(scale):
+        r = rng.random(m)
+        go_right = (r > a + b) & (r <= a + b + c)
+        go_down = r > a + b + c
+        pick_b = (r > a) & (r <= a + b)
+        src += ((go_right | go_down).astype(np.int64)) << bit
+        dst += ((pick_b | go_down).astype(np.int64)) << bit
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    w = np.ones(len(src), np.float32)
+    return build_csr(src, dst, w, n, symmetrize=True, dedup=True,
+                     n_cap=n_cap, e_cap=e_cap, device=dev)
+
+
+def sbm_graph(n_communities: int, size: int, p_in: float, p_out: float,
+              seed: int = 0, device="cuda") -> Tuple[CSRGraph, np.ndarray]:
+    """Stochastic block model; returns (graph, true_membership)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    n = n_communities * size
+    labels = np.repeat(np.arange(n_communities), size)
+    src_l, dst_l = [], []
+    for cix in range(n_communities):
+        base = cix * size
+        tri = rng.random((size, size)) < p_in
+        iu = np.triu_indices(size, 1)
+        sel = tri[iu]
+        src_l.append(base + iu[0][sel])
+        dst_l.append(base + iu[1][sel])
+    n_cross = rng.binomial(n * (n - 1) // 2, p_out)
+    cs = rng.integers(0, n, n_cross)
+    cd = rng.integers(0, n, n_cross)
+    off = (labels[cs] != labels[cd]) & (cs != cd)
+    src_l.append(cs[off])
+    dst_l.append(cd[off])
+    src = np.concatenate(src_l)
+    dst = np.concatenate(dst_l)
+    w = np.ones(len(src), np.float32)
+    return build_csr(src, dst, w, n, symmetrize=True, dedup=True,
+                     device=dev), labels

@@ -33,6 +33,8 @@ def pytest_addoption(parser):
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: excluded from tier-1; run with --runslow")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
