@@ -14,7 +14,8 @@ each timed; any failure exits non-zero:
   4. run ``louvain()`` on an R-MAT graph at scale 22, edge factor 16
      (4,194,304 vertices, ~128M directed slots): the ELL path with the
      fused kernel K1 and the aggregation kernel K3, then the scan-only
-     kernel K2; every kernel of each path must have launched.
+     kernel K2, then the default ``louvain()`` (sort-reduce scan + K3);
+     every kernel of each path must have launched.
 
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, time, plain time and bound; the last line
@@ -78,10 +79,6 @@ def time_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 # ---------------------------------------------------------------------------
@@ -348,6 +345,11 @@ def phase_full(torch, kernels, args, dev, report):
             "a second run of the K1 path gives another membership")
     log("full", "the K1 and K2 paths, and a second K1 run, give equal "
         "memberships")
+    # The default configuration: the sort-reduce scan over every slot, K3.
+    res_d, _ = drive(LouvainConfig(), ("coarsen_groups",), "louvain()")
+    log("full", "louvain() membership equals the ELL paths': "
+        f"{np.array_equal(res.membership, res_d.membership)}")
+    del res_b, res_c, res_d
 
     # K1/K2 on the real tiles: round 0 (singletons) and the end of pass 0.
     widths = LouvainConfig().ell_widths
@@ -379,14 +381,23 @@ def phase_full(torch, kernels, args, dev, report):
     k2p = lambda: [ref.louvain_scan_ref(*x, m) for x in scan_all]
     times = {"louvain_fused": (time_ms(torch, k1, 10), time_ms(torch, k1p, 2)),
              "louvain_scan": (time_ms(torch, k2, 10), time_ms(torch, k2p, 2))}
-    # Least bytes: every input once, every output once; least operations:
-    # one compare and one add per (live candidate slot, slot of its row).
-    live = [((x[0] >= 0) & (x[0] != x[5])).sum().item() * x[0].shape[1]
-            for x in fused_all]
-    ops_count = 2 * sum(live)
-    b1 = sum(nbytes(*x) + x[0].shape[0] * 12 for x in fused_all) + 4
-    b2 = sum(nbytes(*x) + x[0].shape[0] * 8 for x in scan_all) + 4
+    # Least bytes, counted on this round's data: the id c of every ELL slot
+    # (it marks the padding, c = -1), w of every occupied slot (c >= 0),
+    # Sigma (K1: and |c|) of every candidate slot (c >= 0, c != c_own);
+    # the per-row inputs once (K1 24 B, K2 12 B), the outputs once (K1 12 B,
+    # K2 8 B), and m.  Least operations: one compare and one add per
+    # (candidate slot, slot of its row).
+    slots = sum(x[0].numel() for x in fused_all)
+    occupied = sum(int((x[0] >= 0).sum()) for x in fused_all)
+    cand = [int(((x[0] >= 0) & (x[0] != x[5])).sum()) for x in fused_all]
+    n_rows = sum(x[0].shape[0] for x in fused_all)
+    ops_count = 2 * sum(cv * x[0].shape[1] for cv, x in zip(cand, fused_all))
+    b1 = 4 * slots + 4 * occupied + 8 * sum(cand) + 36 * n_rows + 4
+    b2 = 4 * slots + 4 * occupied + 4 * sum(cand) + 20 * n_rows + 4
     bounds = {"louvain_fused": b1, "louvain_scan": b2}
+    log("full", f"ELL slots {slots}: occupied {occupied}, candidates "
+        f"{sum(cand)}, padding {1 - occupied / slots:.4f} of the slots; "
+        f"{n_rows} rows")
     log("full", f"one round over {len(blocks)} ELL blocks: K1 "
         f"{times['louvain_fused'][0]:.4f} ms (plain "
         f"{times['louvain_fused'][1]:.4f} ms), K2 "

@@ -18,7 +18,6 @@ from repro_torch.core.engine import (EngineConfig, MoveEngine,
                                      gated_move_mask, round_gate)
 from repro_torch.core.graph import CSRGraph, to_ell_blocks
 from repro_torch.core.local_move import SortReduceScanner, best_moves_slots
-from repro_torch.core.modularity import community_weights
 from repro_torch.kernels.louvain_scan import ops as scan_ops
 
 
@@ -117,35 +116,21 @@ class FusedELLScanner(ELLScanner):
         return do_move, best_c, best_dq
 
 
-def move_phase_ell(graph: CSRGraph, tolerance: float, *,
-                   max_iterations: int = 20, use_pruning: bool = True,
-                   gate_fraction: int = 2,
+def move_phase_ell(graph: CSRGraph, comm0, sigma0, frontier0,
+                   tolerance: float, *, max_iterations: int = 20,
+                   use_pruning: bool = True, gate_fraction: int = 2,
                    widths: Tuple[int, ...] = (16, 64, 256),
-                   comm0: torch.Tensor | None = None,
-                   sigma0: torch.Tensor | None = None,
-                   frontier0: torch.Tensor | None = None,
                    fused: bool = False):
-    """ELL-kernel local-moving phase: returns (comm, iters, dq_sum).
+    """ELL-kernel local-moving phase from a (C, Sigma, frontier) start;
+    returns (comm, iters, dq_sum).
 
     Buckets the graph once per phase, then runs the engine over the scan
     kernel (``fused=False``) or the fused kernel (``fused=True``) — the same
-    memberships either way.  ``comm0``/``sigma0``/``frontier0`` default to
-    the singleton start over all valid vertices.
+    memberships either way.
     """
     blocks, leftover = to_ell_blocks(graph, widths)
-    n_cap = graph.n_cap
     k = graph.vertex_weights()
     m = graph.total_weight()
-    valid = torch.arange(n_cap + 1, device=graph.device) < graph.n_valid
-    if comm0 is None:
-        comm0 = torch.arange(n_cap + 1, dtype=torch.int32,
-                             device=graph.device)
-        if sigma0 is None:
-            sigma0 = k               # singleton start: Sigma_c == K_i
-    elif sigma0 is None:
-        sigma0 = community_weights(graph, comm0)
-    frontier0 = valid if frontier0 is None else (frontier0 & valid)
-
     if fused:
         scanner = FusedELLScanner(graph, blocks, leftover, k, m,
                                   gate_fraction=gate_fraction)

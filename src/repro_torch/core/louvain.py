@@ -170,10 +170,10 @@ def louvain(graph: CSRGraph, config: LouvainConfig = LouvainConfig(), *,
                                        use_ell_kernel=config.use_ell_kernel)
         if backend in ("ell", "ell_fused"):
             comm, iters, dq_sum = move_phase_ell(
-                g, tol, max_iterations=config.max_iterations,
+                g, comm0, sigma0, frontier0, tol,
+                max_iterations=config.max_iterations,
                 use_pruning=config.use_pruning,
                 gate_fraction=config.gate_fraction, widths=config.ell_widths,
-                comm0=comm0, sigma0=sigma0, frontier0=frontier0,
                 fused=backend == "ell_fused")
         else:
             comm, iters, dq_sum = move_phase(

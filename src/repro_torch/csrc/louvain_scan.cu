@@ -23,15 +23,18 @@
 // |best community| as the min size over the slots holding it (a second
 // warp min) and applies the gated decision in registers.
 //
-// Bound on the card: bytes.  The function must read each slot's c, w,
-// Sigma (and |c| for K1) once — 12 B/slot for K2, 16 B/slot for K1 — plus
-// about 24 B per row, and write 8 or 12 B per row; at 3.35 TB/s that is
-// the least time.  The design reads every slot from device memory exactly
-// once, coalesced (lane-strided), and keeps the D x D compare in shared
-// memory and registers, so only the compare's instruction count can push
-// it above the bound, at the widest tiles (D = 256 is 64K compare-adds per
-// row).  Making it fast (a sort or hash of the D labels per row) is later
-// work.
+// Bound on the card: bytes.  The function must read the id c of every
+// slot (4 B; it marks the padding), w of every occupied slot (4 B), and
+// Sigma (K1: and |c|) of every candidate slot (c >= 0, c != c_own; 4 or
+// 8 B), plus 12 B (K2) or 24 B (K1) per row, and write 8 or 12 B per row;
+// at 3.35 TB/s that is the least time.  Padding (c = -1) is most of an
+// R-MAT graph's ELL slots, so the bound depends on the data.  The design
+// reads c and w of every slot once, coalesced (lane-strided), padding
+// included, and Sigma and |c| only at candidate slots; it keeps the D x D
+// compare in shared memory and registers, so the padding's w and the
+// compare's instruction count at the widest tiles (D = 256 is 64K
+// compare-adds per row) put it above the bound.  Making it fast (skipping
+// padded slots, a sort or hash of the D labels per row) is later work.
 //
 // Exactness hazards, which the plain PyTorch version (fused.py /
 // louvain_scan.py beside this file's wrappers) mirrors operation for

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable
 
 import torch
 
@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[str, Callable[..., int]] = {}
 
 
 def nvcc_path() -> str:
@@ -97,6 +98,18 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
         return lib
+
+
+def entry(name: str, symbol: str, argtypes) -> Callable[..., int]:
+    """The C entry point ``symbol`` of kernel source ``name``, bound once:
+    ``argtypes`` set, returning its ``cudaGetLastError()`` code."""
+    fn = _entries.get(symbol)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _entries[symbol] = fn
+    return fn
 
 
 def current_stream_handle(device) -> int:

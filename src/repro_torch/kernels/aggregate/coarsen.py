@@ -66,12 +66,8 @@ def coarsen_groups_ref(s_ci: torch.Tensor, s_cj: torch.Tensor,
 CHUNK_SLOTS = 2048
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.coarsen_groups_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 8)
-    fn.restype = ctypes.c_int
-    return fn
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+             + [ctypes.c_void_p] * 8)
 
 
 def coarsen_groups(s_ci: torch.Tensor, s_cj: torch.Tensor, s_w: torch.Tensor,
@@ -94,7 +90,7 @@ def coarsen_groups(s_ci: torch.Tensor, s_cj: torch.Tensor, s_w: torch.Tensor,
     if total + 1 >= 2 ** 31:
         raise ValueError(f"coarsen_groups takes fewer than 2^31 slots, "
                          f"got {total}")
-    fn = _bind(_build.load("coarsen"))
+    fn = _build.entry("coarsen", "coarsen_groups_launch", _ARGTYPES)
     n_chunks = (total + CHUNK_SLOTS) // CHUNK_SLOTS   # ceil((total+1)/chunk)
     int_scratch = torch.empty(3 * n_chunks, dtype=torch.int32, device=dev)
     float_scratch = torch.empty(2 * n_chunks, dtype=torch.float32, device=dev)

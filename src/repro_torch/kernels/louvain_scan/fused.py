@@ -8,8 +8,9 @@ Replaces the TPU kernel ``louvain_fused_pallas`` of
 with its whole decision made: the improvement test, the singleton-swap guard
 (|best community| as a masked row-min over the pre-gathered slot sizes), the
 in-kernel Weyl round gate and the frontier mask.  Bound on the card: bytes —
-16 B per slot (c, w, Sigma, |c|) plus ~28 B per row read once and 12 B per
-row written, at 3.35 TB/s; the kernel reads each slot once and decides in
+c at every slot, w at every occupied slot, Sigma and |c| at every candidate
+slot, 24 B per row read once and 12 B per row written, at 3.35 TB/s; the
+kernel reads c and w of every slot once, padding included, and decides in
 registers (see the source's header for its design and exactness hazards).
 """
 
@@ -66,12 +67,8 @@ def louvain_fused_ref(c_nbr, w_nbr, sigma_nbr, size_nbr, k_i, c_own,
     return bc[:, 0], bdq[:, 0], do_move[:, 0].to(torch.int32)
 
 
-def _bind_fused(lib: ctypes.CDLL):
-    fn = lib.louvain_fused_launch
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+_FUSED_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def louvain_fused(c_nbr, w_nbr, sigma_nbr, size_nbr, k_i, c_own, sigma_own,
@@ -99,7 +96,8 @@ def louvain_fused(c_nbr, w_nbr, sigma_nbr, size_nbr, k_i, c_own, sigma_own,
     out_c = torch.empty(r, dtype=torch.int32, device=dev)
     out_dq = torch.empty(r, dtype=torch.float32, device=dev)
     out_mv = torch.empty(r, dtype=torch.int32, device=dev)
-    fn = _bind_fused(_build.load("louvain_scan"))
+    fn = _build.entry("louvain_scan", "louvain_fused_launch",
+                      _FUSED_ARGTYPES)
     err = fn(c_nbr.data_ptr(), w_nbr.data_ptr(), sigma_nbr.data_ptr(),
              size_nbr.data_ptr(), k_i.data_ptr(), c_own.data_ptr(),
              sigma_own.data_ptr(), size_own.data_ptr(), rows.data_ptr(),

@@ -4,10 +4,11 @@ version (``dense_scan_tile``) and the wrapper of its CUDA kernel
 
 Replaces the TPU kernel ``louvain_scan_pallas`` of
 ``src/repro/kernels/louvain_scan/louvain_scan.py`` (body ``_scan_kernel`` over
-``dense_scan_tile``).  Bound on the card: bytes — 12 B per slot (c, w, Sigma)
-plus ~20 B per row read once and 8 B per row written, at 3.35 TB/s.  The
-kernel reads each slot from device memory once and keeps the pairwise
-compare in shared memory (one warp per row); see the source's header.
+``dense_scan_tile``).  Bound on the card: bytes — c at every slot, w at every
+occupied slot, Sigma at every candidate slot, 12 B per row read once and
+8 B per row written, at 3.35 TB/s.  The kernel reads c and w of every slot
+from device memory once, padding included, and keeps the pairwise compare
+in shared memory (one warp per row); see the source's header.
 
 Per row r (one vertex i), inputs pre-masked (dead slots: c = -1, w = 0):
   K_{i->c_d} = sum_e w[r,e] * [c[r,e] == c[r,d]]
@@ -91,12 +92,8 @@ def _scalar_m(m: torch.Tensor, device) -> torch.Tensor:
     return m.contiguous()
 
 
-def _bind_scan(lib: ctypes.CDLL):
-    fn = lib.louvain_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+_SCAN_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+                  + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
 
 
 def louvain_scan(c_nbr, w_nbr, sigma_nbr, k_i, c_own, sigma_own,
@@ -118,7 +115,7 @@ def louvain_scan(c_nbr, w_nbr, sigma_nbr, k_i, c_own, sigma_own,
     m = _scalar_m(m, dev)
     out_c = torch.empty(r, dtype=torch.int32, device=dev)
     out_dq = torch.empty(r, dtype=torch.float32, device=dev)
-    fn = _bind_scan(_build.load("louvain_scan"))
+    fn = _build.entry("louvain_scan", "louvain_scan_launch", _SCAN_ARGTYPES)
     err = fn(c_nbr.data_ptr(), w_nbr.data_ptr(), sigma_nbr.data_ptr(),
              k_i.data_ptr(), c_own.data_ptr(), sigma_own.data_ptr(),
              m.data_ptr(), r, d, out_c.data_ptr(), out_dq.data_ptr(),

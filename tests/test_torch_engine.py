@@ -25,6 +25,7 @@ from repro_torch.core.ell_move import (ELLScanner, FusedELLScanner,
                                        move_phase_ell)
 from repro_torch.core.graph import build_csr, to_ell_blocks
 from repro_torch.core.local_move import best_moves, move_phase
+from repro_torch.core.louvain import singleton_init
 from repro_torch.data import rmat_graph as trmat
 
 I32_MIN, I32_MAX = -2 ** 31, 2 ** 31 - 1
@@ -134,8 +135,8 @@ def test_move_phase_matches_reference(gate_fraction, use_pruning):
     # The ELL scanners run the same sweep (narrow widths force hub rows
     # onto the sort-reduce fallback).
     for fused in (False, True):
-        ec, eit, _ = move_phase_ell(tg, 0.01, widths=(4, 8), fused=fused,
-                                    **kw)
+        ec, eit, _ = move_phase_ell(tg, *singleton_init(tg), 0.01,
+                                    widths=(4, 8), fused=fused, **kw)
         np.testing.assert_array_equal(ec.numpy(), tc.numpy())
         assert eit == tit
 
