@@ -8,14 +8,20 @@ each timed; any failure exits non-zero:
 
   1. build the CUDA kernels (one nvcc per source, started together) and
      print each kernel's ``-Xptxas -v`` report and the card's power limit;
-  2. hold each kernel (K1, K2, K3) against its plain PyTorch version on the
-     card, on random tiles and on the real tiles of phase 4's graph;
-  3. reproduce the committed ``single__sbm`` and ``ell__sbm`` goldens;
+  2. hold each kernel (K1, K2, K3, K4) against its plain PyTorch version on
+     the card, on random inputs and on the real inputs of phases 4 and 5;
+  3. reproduce the committed ``single__sbm``, ``ell__sbm`` and
+     ``dynamic__sbm_stream`` goldens (the last with K4 on every batch);
   4. run ``louvain()`` on an R-MAT graph at scale 22, edge factor 16
      (4,194,304 vertices, ~128M directed slots): the ELL path with the
      fused kernel K1 and the aggregation kernel K3, then the scan-only
      kernel K2, then the default ``louvain()`` (sort-reduce scan + K3);
-     every kernel of each path must have launched.
+     every kernel of each path must have launched;
+  5. stream 8 edge batches of 1e-4 |E| (80% inserts of held-out edges, 20%
+     deletions) through ``louvain_dynamic()`` on phase 4's graph, applied
+     by the batch-apply kernel K4; the final graph must equal the host CSR
+     of the final edge set and a run with the sort backend, and Q must stay
+     within 1% of a cold ``louvain()`` on the final graph.
 
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, time, plain time and bound; the last line
@@ -51,7 +57,15 @@ KERNELS = {
                      "src/repro/kernels/louvain_scan/louvain_scan.py:90"),
     "coarsen_groups": ("src/repro_torch/csrc/coarsen.cu",
                        "src/repro/kernels/aggregate/coarsen.py:113"),
+    "resolve_groups": ("src/repro_torch/csrc/batch_apply.cu",
+                       "src/repro/kernels/batch_apply/resolve.py:134"),
 }
+
+#: Phase 5: the batch mix of the DF-Louvain dynamic evaluation (Sahu,
+#: arXiv 2404.19634: 80% insertions, 20% deletions) at a batch size of
+#: 1e-4 |E|, with 1e-3 |E| of the undirected edges held out to insert.
+STREAM_BATCHES = 8
+STREAM_B_CAP = 8192
 
 
 def log(phase: str, msg: str) -> None:
@@ -158,6 +172,22 @@ def compare_scan(torch, kernels, scan_ins, fused_ins, m, round_ix: int,
     return err
 
 
+def kernel_entry(name: str, launches: int, err: float, ms: float,
+                 plain_ms: float, bound_bytes: int, ops: int) -> dict:
+    """One kernel's entry of the ``kernels`` line: its bound is the larger
+    of its least bytes at the HBM rate and its operations at the float32
+    rate.  No single PyTorch call computes any of these functions, so no
+    library time."""
+    t_bytes = bound_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    source, replaces = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
 # ---------------------------------------------------------------------------
 # Phases.
 # ---------------------------------------------------------------------------
@@ -218,7 +248,52 @@ def phase_kernels_random(torch, kernels, dev):
                 f"K3 differs from its plain version on {total} slots")
         log("kernels", f"K3: exact on {total} sorted slots "
             f"({int(got[0].sum())} groups)")
+
+    from repro_torch.kernels.batch_apply import resolve
+    for total, n_ids, dead, long_group in (
+            (0, 4, 0, 0), (2047, 300, 0, 0), (2048, 300, 100, 0),
+            (2049, 300, 0, 2049), (300001, 30, 0, 0),
+            (300001, 700, 30000, 5000), (1000003, 3000, 0, 70000)):
+        args = resolve_slots(rng, total, n_ids, dead, long_group)
+        t = [torch.from_numpy(x).to(dev) for x in args]
+        got = resolve.resolve_groups(*t, sent=n_ids)
+        want = resolve.resolve_groups_ref(*t, sent=n_ids)
+        torch.cuda.synchronize()
+        require(same_records(torch, got, want),
+                f"K4 differs from its plain version on {total} slots")
+        log("kernels", f"K4: bit for bit on {total} sorted slots "
+            f"({n_ids} ids, {dead} dead, a group of {long_group}; "
+            f"{int(got[0].sum())} kept, {int(got[5].sum())} changed)")
     return err
+
+
+def resolve_slots(rng, total: int, n_ids: int, dead: int, long_group: int):
+    """A (src, dst)-sorted batch-apply slot list: per key an optional
+    existing slot, then batch slots; one key repeated ``long_group`` times;
+    ``dead`` trailing sentinel slots; float weights, a quarter of them 0."""
+    live = total - dead
+    keys = np.sort(rng.integers(0, n_ids * n_ids, live - long_group))
+    mid = keys[len(keys) // 2] if len(keys) else 1
+    keys = np.sort(np.concatenate([keys, np.full(long_group, mid)]))
+    first = np.ones(live, bool)
+    first[1:] = keys[1:] != keys[:-1]
+    batch = ~first | (rng.random(live) < 0.3)
+    w = np.where(rng.random(live) < 0.25, 0.0,
+                 rng.choice([0.25, 3.0, 1.0, 0.7], live))
+    return ((np.concatenate([keys // n_ids, np.full(dead, n_ids)])
+             .astype(np.int32)),
+            (np.concatenate([keys % n_ids, np.full(dead, n_ids)])
+             .astype(np.int32)),
+            np.concatenate([w, np.zeros(dead)]).astype(np.float32),
+            np.concatenate([batch, rng.random(dead) < 0.5]))
+
+
+def same_records(torch, got, want) -> bool:
+    """K4's six records equal, the weights bit for bit."""
+    return (all(a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in zip(got, want))
+            and torch.equal(got[4].view(torch.int32),
+                            want[4].view(torch.int32)))
 
 
 def phase_goldens(torch, dev):
@@ -236,6 +311,23 @@ def phase_goldens(torch, dev):
                 f"{cfg.scan_backend} use_ell_kernel={cfg.use_ell_kernel}")
     log("goldens", f"single__sbm and ell__sbm reproduced element for element "
         f"({len(cases)} configurations)")
+
+    from repro_torch import louvain_dynamic, sbm_edge_stream
+    from repro_torch.kernels.batch_apply import resolve
+    for scan_backend in ("full", "compact", "auto"):
+        init, batches = sbm_edge_stream(device=dev)
+        resolve.resolve_groups.launches = 0
+        res = louvain_dynamic(init, batches,
+                              config=LouvainConfig(scan_backend=scan_backend))
+        launches = resolve.resolve_groups.launches
+        require(np.array_equal(res.membership, gold["dynamic__sbm_stream"]),
+                f"dynamic__sbm_stream not reproduced with scan_backend="
+                f"{scan_backend}")
+        require(launches == len(batches),
+                f"K4 launched {launches} times over {len(batches)} batches")
+        log("goldens", f"dynamic__sbm_stream reproduced with scan_backend="
+            f"{scan_backend}: K4 launched {launches} times, first-pass "
+            f"scanners {[s.scan_backend for s in res.batch_stats]}")
 
 
 def check_result(torch, res, n: int, what: str) -> None:
@@ -460,16 +552,174 @@ def phase_full(torch, kernels, args, dev, report):
                 "coarsen_groups": counts_a["coarsen_groups"]}
     errs = {"louvain_fused": err, "louvain_scan": err,
             "coarsen_groups": k3_err}
-    for name, (source, replaces) in KERNELS.items():
-        t_bytes = bounds[name] / HBM_BYTES_PER_S * 1e3
-        t_ops = op_counts[name] / FP32_OPS_PER_S * 1e3
-        report.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errs[name], "ms": times[name][0],
-            "plain_ms": times[name][1], "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
+    for name in bounds:
+        report.append(kernel_entry(name, launches[name], errs[name],
+                                   *times[name], bounds[name],
+                                   op_counts[name]))
+    return g
+
+
+def host_final_csr(g, us_h, ud_h, final):
+    """(indptr, keys) of the final edge set, computed on the host: phase
+    4's graph is the full set in CSR order (checked), and the final set
+    drops the directed slots of every undirected edge not in ``final``."""
+    n_cap, e = g.n_cap, g.e_valid
+    full_keys = (g.src[:e].cpu().numpy().astype(np.int64) * (n_cap + 1)
+                 + g.indices[:e].cpu().numpy())
+    require(bool(np.all(np.diff(full_keys) > 0)),
+            "phase 4's graph is not a strictly sorted CSR")
+    out = np.nonzero(~final)[0]
+    u, v = us_h[out].astype(np.int64), ud_h[out].astype(np.int64)
+    drop_keys = np.concatenate([u * (n_cap + 1) + v, v * (n_cap + 1) + u])
+    at = np.searchsorted(full_keys, drop_keys)
+    require(bool(np.all(full_keys[at] == drop_keys)),
+            "a held-out or deleted edge is not in phase 4's graph")
+    drop = np.zeros(e, bool)
+    drop[at] = True
+    keys = full_keys[~drop]
+    counts = np.bincount(keys // (n_cap + 1), minlength=n_cap)
+    indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return indptr, keys
+
+
+def phase_stream(torch, g, dev, report):
+    from repro_torch import (build_csr, louvain, louvain_dynamic,
+                             make_edge_batch, membership_modularity)
+    from repro_torch.core.delta import sorted_batch_slots
+    from repro_torch.kernels.aggregate import coarsen
+    from repro_torch.kernels.batch_apply import resolve
+
+    t = time.perf_counter()
+    n, e, n_cap = g.n_valid, g.e_valid, g.n_cap
+    src, dst = g.src[:e], g.indices[:e]
+    und = src < dst
+    us, ud = src[und], dst[und]
+    n_und = us.numel()
+    n_hold = n_und // 1000
+    b_size = n_und // 10000
+    n_ins = b_size * 4 // 5
+    n_del = b_size - n_ins
+    require(b_size <= STREAM_B_CAP and STREAM_BATCHES * n_ins <= n_hold,
+            "stream sizes out of range")
+    rng = np.random.default_rng(13)
+    pick = rng.choice(n_und, n_hold + STREAM_BATCHES * n_del, replace=False)
+    hold, dele = pick[:n_hold], pick[n_hold:]
+    keep = torch.ones(n_und, dtype=torch.bool, device=dev)
+    keep[torch.from_numpy(hold).to(dev)] = False
+    init = build_csr(us[keep], ud[keep],
+                     torch.ones(n_und - n_hold, dtype=torch.float32,
+                                device=dev),
+                     n, e_cap=e + 2 * STREAM_B_CAP, symmetrize=True,
+                     dedup=False, device=dev)
+    us_h, ud_h = us.cpu().numpy(), ud.cpu().numpy()
+    del src, dst, und, us, ud, keep
+    batches = []
+    final = np.ones(n_und, bool)
+    final[hold] = False
+    for i in range(STREAM_BATCHES):
+        ins = hold[i * n_ins:(i + 1) * n_ins]
+        de = dele[i * n_del:(i + 1) * n_del]
+        final[ins] = True
+        final[de] = False
+        idx = np.concatenate([ins, de])
+        w = np.concatenate([np.ones(n_ins), np.zeros(n_del)])
+        perm = rng.permutation(len(idx))
+        batches.append(make_edge_batch(us_h[idx[perm]], ud_h[idx[perm]],
+                                       w[perm], n_cap, b_cap=STREAM_B_CAP,
+                                       device=dev))
+    torch.cuda.synchronize()
+    log("stream", f"{n_und} undirected edges, {n_hold} held out; initial "
+        f"graph {init.e_valid} directed slots at e_cap {init.e_cap}; "
+        f"{STREAM_BATCHES} batches of {b_size} entries ({n_ins} inserts, "
+        f"{n_del} deletions), b_cap {STREAM_B_CAP}; set up in "
+        f"{time.perf_counter() - t:.2f} s")
+    cold = louvain(init)
+    log("stream", f"cold louvain() on the initial graph: {cold.n_passes} "
+        f"passes, {cold.n_communities} communities, "
+        f"{cold.total_seconds:.3f} s")
+
+    def stream(apply_backend):
+        resolve.resolve_groups.launches = 0
+        coarsen.coarsen_groups.launches = 0
+        res = louvain_dynamic(init, batches, prev=cold.membership,
+                              apply_backend=apply_backend)
+        return res, (resolve.resolve_groups.launches,
+                     coarsen.coarsen_groups.launches)
+
+    res, (k4_launches, k3_launches) = stream("auto")
+    for i, st in enumerate(res.batch_stats):
+        log("stream", f"batch {i}: apply_seconds {st.apply_seconds:.6f} "
+            f"update_seconds {st.update_seconds:.6f} touched {st.n_touched} "
+            f"frontier {st.frontier_size} (fraction "
+            f"{st.frontier_fraction:.6f}) scan_backend {st.scan_backend} "
+            f"communities {st.n_communities}")
+    log("stream", f"louvain_dynamic (K4): {res.total_seconds:.3f} s, "
+        f"updates_per_second {res.updates_per_second:.4f}, launches K4 "
+        f"{k4_launches} K3 {k3_launches}")
+    require(k4_launches == STREAM_BATCHES,
+            f"K4 launched {k4_launches} times over {STREAM_BATCHES} batches")
+
+    res_s, (k4_sort, _) = stream("sort")
+    mean_apply = [np.mean([x.apply_seconds for x in r.batch_stats])
+                  for r in (res_s, res)]
+    log("stream", f"louvain_dynamic (sort apply): {res_s.total_seconds:.3f} "
+        f"s, updates_per_second {res_s.updates_per_second:.4f}; mean "
+        f"apply_seconds {mean_apply[0]:.6f} (K4 stream {mean_apply[1]:.6f})")
+    require(k4_sort == 0, "the sort apply launched K4")
+    fin, fin_s = res.graph, res_s.graph
+    require(all(torch.equal(getattr(fin, k), getattr(fin_s, k))
+                for k in ("indptr", "indices", "weights", "src"))
+            and fin.e_valid == fin_s.e_valid,
+            "the K4 and sort streams end in different graphs")
+    require(np.array_equal(res.membership, res_s.membership),
+            "the K4 and sort streams end in different memberships")
+
+    indptr, keys = host_final_csr(g, us_h, ud_h, final)
+    e_f = fin.e_valid
+    got_keys = (fin.src[:e_f].cpu().numpy().astype(np.int64) * (n_cap + 1)
+                + fin.indices[:e_f].cpu().numpy())
+    require(e_f == len(keys) and np.array_equal(got_keys, keys)
+            and np.array_equal(fin.indptr.cpu().numpy(), indptr)
+            and bool((fin.weights[:e_f] == 1).all())
+            and bool((fin.weights[e_f:] == 0).all())
+            and bool((fin.src[e_f:] == n_cap).all()),
+            "the streamed graph differs from the host CSR of the final "
+            "edge set")
+    log("stream", f"final graph ({e_f} directed slots) equals the host CSR "
+        f"of the final edge set and the sort stream's; memberships equal")
+
+    static = louvain(fin)
+    q_dyn = membership_modularity(fin, res.membership)
+    q_static = membership_modularity(fin, static.membership)
+    log("stream", f"Q streamed {q_dyn:.6f}, cold louvain() on the final "
+        f"graph {q_static:.6f} ({static.total_seconds:.3f} s)")
+    require(q_dyn >= q_static - 0.01 * abs(q_static),
+            f"streamed Q {q_dyn} more than 1% below the cold {q_static}")
+    del res_s, fin_s, static
+
+    # K4 on the first batch's real sorted slot list.
+    slots = sorted_batch_slots(init, batches[0])
+    got = resolve.resolve_groups(*slots, sent=n_cap)
+    want = resolve.resolve_groups_ref(*slots, sent=n_cap)
+    torch.cuda.synchronize()
+    require(same_records(torch, got, want),
+            "K4 differs from its plain version on the first batch")
+    total = slots[0].numel()
+    k4_err = float((got[4] - want[4]).abs().max())
+    log("kernels", f"K4 first batch: bit for bit on {total} sorted slots, "
+        f"{int(got[0].sum())} kept, {int(got[5].sum())} changed")
+    del got, want
+    ms = time_ms(torch, lambda: resolve.resolve_groups(*slots, sent=n_cap),
+                 10)
+    plain_ms = time_ms(torch, lambda: resolve.resolve_groups_ref(
+        *slots, sent=n_cap), 3)
+    sort_ms = time_ms(torch, lambda: sorted_batch_slots(init, batches[0]), 3)
+    bound_bytes = 13 * total + 18 * (total + 1)
+    log("stream", f"K4 on {total} slots: {ms:.4f} ms (plain "
+        f"{plain_ms:.4f} ms); least bytes {bound_bytes}; the slot list's "
+        f"build and stable key sort before it: {sort_ms:.4f} ms")
+    report.append(kernel_entry("resolve_groups", k4_launches, k4_err, ms,
+                               plain_ms, bound_bytes, total))
 
 
 def main() -> int:
@@ -493,13 +743,16 @@ def main() -> int:
     dev = torch.device("cuda")
     report = []
     t_all = time.perf_counter()
+    state = {}
     try:
         for name, fn in (("build", lambda: phase_build(torch)),
                          ("kernels", lambda: phase_kernels_random(
                              torch, kernels, dev)),
                          ("goldens", lambda: phase_goldens(torch, dev)),
-                         ("full", lambda: phase_full(torch, kernels, args,
-                                                     dev, report))):
+                         ("full", lambda: state.update(g=phase_full(
+                             torch, kernels, args, dev, report))),
+                         ("stream", lambda: phase_stream(
+                             torch, state.pop("g"), dev, report))):
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize()

@@ -1,5 +1,6 @@
-"""GVE-Louvain in PyTorch: the static single-device pass loop, with the ELL
-move kernels (K1, K2) and the aggregation kernel (K3) hand-written in CUDA
+"""GVE-Louvain in PyTorch: the single-device pass loop and the streaming
+entry point ``louvain_dynamic``, with the ELL move kernels (K1, K2), the
+aggregation kernel (K3) and the batch-apply kernel (K4) hand-written in CUDA
 for Hopper (``repro_torch/csrc``).
 
 Entry points run on the card unless the caller asks for the CPU
@@ -7,11 +8,16 @@ Entry points run on the card unless the caller asks for the CPU
 PyTorch version instead.  This package imports neither JAX nor ``repro``.
 """
 
+from repro_torch.core.delta import EdgeBatch, apply_edge_batch, make_edge_batch
+from repro_torch.core.dynamic import (BatchUpdateStats, DynamicResult,
+                                      louvain_dynamic)
 from repro_torch.core.graph import CSRGraph, build_csr, from_networkx
 from repro_torch.core.louvain import (LouvainConfig, LouvainResult, PassStats,
                                       louvain, membership_modularity)
-from repro_torch.data.graphs import rmat_graph, sbm_graph
+from repro_torch.data.graphs import rmat_graph, sbm_edge_stream, sbm_graph
 
-__all__ = ["CSRGraph", "LouvainConfig", "LouvainResult", "PassStats",
-           "build_csr", "from_networkx", "louvain", "membership_modularity",
-           "rmat_graph", "sbm_graph"]
+__all__ = ["BatchUpdateStats", "CSRGraph", "DynamicResult", "EdgeBatch",
+           "LouvainConfig", "LouvainResult", "PassStats", "apply_edge_batch",
+           "build_csr", "from_networkx", "louvain", "louvain_dynamic",
+           "make_edge_batch", "membership_modularity", "rmat_graph",
+           "sbm_edge_stream", "sbm_graph"]

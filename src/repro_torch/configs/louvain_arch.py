@@ -15,12 +15,34 @@ SCAN_BACKENDS = ("auto", "full", "compact", "ell", "ell_fused")
 #: covers at most this fraction of the vertices.
 AUTO_COMPACT_MAX_FRONTIER_FRAC = 0.10
 
-#: Compact work-buffer capacity as a fraction of ``e_cap``.
+#: Compact work-buffer capacity as a fraction of ``e_cap``.  Frontier edge
+#: slots beyond the cap make the round fall back to the full scan, so this
+#: bounds compact-scan memory, not correctness.
 COMPACT_WORK_FRAC = 0.25
 
-#: Accepted values of ``LouvainConfig.agg_backend``.  ``"kernel"`` is the
-#: hand-written aggregation kernel (the reference calls it ``"pallas"``).
+#: Work-buffer floor — tiny graphs keep a sortable minimum.
+COMPACT_WORK_MIN = 64
+
+
+def compact_work_cap(e_cap: int, frac: float = COMPACT_WORK_FRAC) -> int:
+    """Work-buffer capacity of the compacted scanner on ``e_cap``."""
+    return max(1, min(int(e_cap), max(COMPACT_WORK_MIN, int(e_cap * frac))))
+
+
+#: Accepted values of ``LouvainConfig.agg_backend`` and of the batch-apply
+#: ``backend``.  ``"kernel"`` is the hand-written kernel (K3 and K4; the
+#: reference calls it ``"pallas"``), ``"sort"`` the torch chain (the
+#: reference's ``"sort"`` and ``"xla"``).
 AGG_BACKENDS = ("auto", "sort", "kernel")
+
+
+def _resolve_kernel_backend(backend: str, device, knob: str) -> str:
+    if backend not in AGG_BACKENDS:
+        raise ValueError(f"{knob} must be one of {AGG_BACKENDS}; "
+                         f"got {backend!r}")
+    if backend == "auto":
+        return "kernel" if torch.device(device).type == "cuda" else "sort"
+    return backend
 
 
 def resolve_agg_backend(backend: str, device: torch.device) -> str:
@@ -31,12 +53,16 @@ def resolve_agg_backend(backend: str, device: torch.device) -> str:
     version on a CPU tensor).  ``"auto"`` picks the kernel on a CUDA device
     and the sort chain on the CPU.
     """
-    if backend not in AGG_BACKENDS:
-        raise ValueError(f"agg_backend must be one of {AGG_BACKENDS}; "
-                         f"got {backend!r}")
-    if backend == "auto":
-        return "kernel" if torch.device(device).type == "cuda" else "sort"
-    return backend
+    return _resolve_kernel_backend(backend, device, "agg_backend")
+
+
+def resolve_apply_backend(backend: str, device: torch.device) -> str:
+    """Map the batch-apply ``backend`` knob the same way: ``"kernel"`` is the
+    CUDA kernel K4 (its plain version on a CPU tensor), ``"sort"`` the
+    torch segment-reduction chain, ``"auto"`` the kernel on a CUDA device
+    and the sort chain on the CPU — by the tensors' device, never by
+    whether the kernel builds."""
+    return _resolve_kernel_backend(backend, device, "apply backend")
 
 
 def resolve_scan_backend(backend: str, *, use_ell_kernel: bool = False,

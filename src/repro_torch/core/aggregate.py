@@ -17,7 +17,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.graph import CSRGraph, segment_sum
+from repro_torch.core.graph import CSRGraph, scatter_slots, segment_sum
 from repro_torch.kernels.aggregate.coarsen import coarsen_groups
 
 
@@ -38,20 +38,6 @@ def renumber_communities(comm: torch.Tensor, n_valid: int,
     return torch.where(valid, new_id[cs], n_cap), n_comms
 
 
-def _scatter_groups(pos, src, dst, w, n_cap: int, e_cap: int):
-    """Coarse slot buffers from one record per live group at ``pos``
-    (``e_cap`` is the scratch position of every other record)."""
-    dev = src.device
-    pos = pos.to(torch.int64)
-    coarse_src = torch.full((e_cap + 1,), n_cap, dtype=torch.int32,
-                            device=dev).scatter_(0, pos, src)[:e_cap]
-    coarse_dst = torch.full((e_cap + 1,), n_cap, dtype=torch.int32,
-                            device=dev).scatter_(0, pos, dst)[:e_cap]
-    coarse_w = torch.zeros(e_cap + 1, dtype=torch.float32,
-                           device=dev).scatter_(0, pos, w)[:e_cap]
-    return coarse_src, coarse_dst, coarse_w
-
-
 def aggregate_graph(graph: CSRGraph, comm: torch.Tensor, n_comms: int,
                     backend: str = "sort") -> CSRGraph:
     """Algorithm 3 as sort-reduce; returns the coarse graph at equal
@@ -70,7 +56,7 @@ def aggregate_graph(graph: CSRGraph, comm: torch.Tensor, n_comms: int,
         # One record per live group, at the dense position the sort path
         # uses (live groups precede sentinel padding in sort order).
         pos = torch.where(emit, gpos, e_cap)
-        coarse_src, coarse_dst, coarse_w = _scatter_groups(
+        coarse_src, coarse_dst, coarse_w = scatter_slots(
             pos, torch.where(emit, g_src, n_cap),
             torch.where(emit, g_dst, n_cap), torch.where(emit, g_w, 0.0),
             n_cap, e_cap)
@@ -83,7 +69,7 @@ def aggregate_graph(graph: CSRGraph, comm: torch.Tensor, n_comms: int,
         # position gid; sentinel-src groups (padding) go to the scratch slot.
         live = new_group & (s_ci != n_cap)
         pos = torch.where(live, gid, e_cap)
-        coarse_src, coarse_dst, coarse_w = _scatter_groups(
+        coarse_src, coarse_dst, coarse_w = scatter_slots(
             pos, s_ci, s_cj, group_w[gid], n_cap, e_cap)
     else:
         raise ValueError(f"unknown aggregation backend: {backend!r}")

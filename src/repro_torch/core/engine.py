@@ -5,7 +5,8 @@
 at most the tolerance or the iteration cap is reached.  A scanner backend
 supplies only the per-vertex best-move scan and a thin topology surface.
 JAX's ``lax.while_loop`` becomes a host loop that reads one scalar (the
-sweep's dQ) from the device per sweep.
+sweep's dQ) from the device per sweep.  The streaming seed-frontier policy
+(``affected_frontier``) lives here too, as in the reference.
 """
 
 from __future__ import annotations
@@ -202,3 +203,57 @@ class ReplicatedScannerBase:
 
     def mark_neighbors(self, moved: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+
+# ---------------------------------------------------------------------------
+# Delta screening — the streaming seed-frontier policy.
+# ---------------------------------------------------------------------------
+
+#: ``screening="auto"`` uses per-vertex flags while the touched set stays at
+#: or below n_valid / AUTO_SCREEN_TOUCHED_DENOM, and the community-granular
+#: set for bulkier batches.
+AUTO_SCREEN_TOUCHED_DENOM = 16
+
+
+def affected_frontier(touched: torch.Tensor, membership: torch.Tensor,
+                      n_valid: int, mode: str = "community") -> torch.Tensor:
+    """(cap + 1,) bool seed frontier from a touched-vertex mask.
+
+    ``membership`` is (cap + 1,) community ids with the sentinel slot = cap.
+    ``"community"``: touched endpoints plus ALL members of their current
+    communities; ``"vertex"``: only the touched endpoints; ``"auto"``:
+    vertex granularity when |touched| <= n_valid /
+    ``AUTO_SCREEN_TOUCHED_DENOM``, community above — a device-side select,
+    so a stream loop does not wait on the device for it.
+    """
+    cap = membership.shape[0] - 1
+    valid = torch.arange(cap + 1, device=membership.device) < n_valid
+    fv = touched & valid
+    if mode == "vertex":
+        return fv
+    if mode not in ("community", "auto"):
+        raise ValueError(f"unknown screening mode: {mode!r}")
+    comm = torch.where(valid, torch.clamp(membership, max=cap), cap)
+    # Mark affected communities, then pull every member of a marked one.
+    mark = torch.zeros(cap + 1, dtype=torch.bool, device=membership.device)
+    mark[torch.where(fv, comm, cap).to(torch.int64)] = True
+    mark[cap] = False
+    fc = (touched | mark[comm.to(torch.int64)]) & valid
+    if mode == "community":
+        return fc
+    small = fv.sum() * AUTO_SCREEN_TOUCHED_DENOM <= n_valid
+    return torch.where(small, fv, fc)
+
+
+def normalize_screening(screening) -> Optional[str]:
+    """Map a ``screening`` argument to a frontier mode:
+    ``True`` -> ``"community"``, ``False``/``None`` -> ``None`` (warm start
+    over all vertices), ``"community"``/``"vertex"``/``"auto"`` unchanged."""
+    if screening is True:
+        return "community"
+    if screening in (False, None):
+        return None
+    if screening in ("community", "vertex", "auto"):
+        return screening
+    raise ValueError(f"screening must be bool, 'community', 'vertex' or "
+                     f"'auto'; got {screening!r}")

@@ -52,6 +52,24 @@ def segment_sum(values: torch.Tensor, segments: torch.Tensor,
     return out.to(values.dtype)
 
 
+def scatter_slots(pos: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                  w: torch.Tensor, sent: int, cap: int):
+    """(cap,) slot buffers (src, dst, w) from records scattered to ``pos``.
+
+    Position ``cap`` is the scratch slot of every record that is not kept
+    (dropped with it); slots nobody writes stay padding ``(sent, sent, 0)``.
+    """
+    pos = pos.to(torch.int64)
+    dev = src.device
+    out_src = torch.full((cap + 1,), sent, dtype=torch.int32,
+                         device=dev).scatter_(0, pos, src)[:cap]
+    out_dst = torch.full((cap + 1,), sent, dtype=torch.int32,
+                         device=dev).scatter_(0, pos, dst)[:cap]
+    out_w = torch.zeros(cap + 1, dtype=torch.float32,
+                        device=dev).scatter_(0, pos, w)[:cap]
+    return out_src, out_dst, out_w
+
+
 @dataclasses.dataclass
 class CSRGraph:
     """Padded CSR graph; all tensors live on one device.

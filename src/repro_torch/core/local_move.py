@@ -1,5 +1,6 @@
-"""Sort-reduce scanner backend + single-device local-moving phase
-(``repro.core.local_move`` and ``repro.core.louvain._move_phase``).
+"""Sort-reduce scanner backends (full and frontier-compacted) + the
+single-device local-moving phase (``repro.core.local_move`` and
+``repro.core.louvain._move_phase``).
 
 Every frontier vertex computes its best move against the same snapshot of
 (C, Sigma); all moves then apply at once (the engine's rounds).  The scan
@@ -16,7 +17,7 @@ import torch
 
 from repro_torch.core.engine import (EngineConfig, MoveEngine,
                                      ReplicatedScannerBase)
-from repro_torch.core.graph import CSRGraph, segment_sum
+from repro_torch.core.graph import CSRGraph, scatter_slots, segment_sum
 from repro_torch.core.modularity import delta_modularity
 
 _NEG_INF = float("-inf")
@@ -86,6 +87,50 @@ def best_moves(graph: CSRGraph, comm, sigma, k, frontier, m):
                             sigma, k, frontier, m, graph.n_cap)
 
 
+def gather_frontier_slots(graph: CSRGraph, frontier: torch.Tensor,
+                          work_cap: int):
+    """Compact the frontier vertices' edge slots into a (work_cap,) buffer.
+
+    Order-preserving: slot i of the output is the i-th edge slot (in CSR
+    order) whose src is in the frontier, so the sort-reduce results are
+    bit-identical to the full scan.  Slots past ``work_cap`` are dropped and
+    ``overflow`` (a 0-d bool tensor) reports whether any were.
+
+    Returns (src, dst, w, overflow) with dead slots = (n_cap, n_cap, 0).
+    """
+    n_cap = graph.n_cap
+    src, dst, w = graph.src, graph.indices, graph.weights
+    in_f = frontier[src]                       # pad slots: frontier[n_cap]=F
+    rank = torch.cumsum(in_f, 0) - 1
+    keep = in_f & (rank < work_cap)
+    out_src, out_dst, out_w = scatter_slots(
+        torch.where(keep, rank, work_cap), torch.where(keep, src, n_cap),
+        torch.where(keep, dst, n_cap), torch.where(keep, w, 0.0), n_cap,
+        work_cap)
+    return out_src, out_dst, out_w, in_f.sum() > work_cap
+
+
+def compact_best_moves(graph: CSRGraph, comm, sigma, k, frontier, m,
+                       work_cap: int):
+    """Frontier-proportional best-move scan with measured-overflow fallback.
+
+    Scans only the frontier vertices' edge slots, gathered into a
+    ``(work_cap,)`` buffer; when they exceed the cap, the full scan runs
+    instead.  The reference's ``lax.cond`` is a host branch here: one sync
+    per round.  Returns (best_c, best_dq, overflowed); the first two are
+    bit-identical to ``best_moves`` either way.
+    """
+    c_src, c_dst, c_w, overflow = gather_frontier_slots(graph, frontier,
+                                                        work_cap)
+    overflowed = bool(overflow)
+    if overflowed:
+        best_c, best_dq = best_moves(graph, comm, sigma, k, frontier, m)
+    else:
+        best_c, best_dq = best_moves_slots(c_src, c_dst, c_w, comm, sigma, k,
+                                           frontier, m, graph.n_cap)
+    return best_c, best_dq, overflowed
+
+
 class SortReduceScanner(ReplicatedScannerBase):
     """Engine backend: CSR sort-reduce scan on a single device."""
 
@@ -105,14 +150,43 @@ class SortReduceScanner(ReplicatedScannerBase):
         return marked > 0
 
 
+class CompactSortReduceScanner(SortReduceScanner):
+    """Engine backend: frontier-compacted CSR sort-reduce scan.
+
+    Same topology surface as ``SortReduceScanner``; per round it scans only
+    the CURRENT frontier's edge slots (``compact_best_moves``), falling back
+    to the full scan when they overflow ``work_cap``.  Results are
+    bit-identical to the full scan; the work is frontier-proportional.
+    """
+
+    def __init__(self, graph: CSRGraph, k: torch.Tensor, m: torch.Tensor,
+                 work_cap: int):
+        super().__init__(graph, k, m)
+        if not 0 < work_cap:
+            raise ValueError(f"work_cap must be positive, got {work_cap}")
+        self.work_cap = int(min(work_cap, graph.e_cap))
+
+    def scan(self, comm, sigma, frontier):
+        best_c, best_dq, _ = compact_best_moves(
+            self.graph, comm, sigma, self.k_local, frontier, self.m,
+            self.work_cap)
+        return best_c, best_dq
+
+
 def move_phase(graph: CSRGraph, comm0, sigma0, frontier0, tolerance: float,
                *, max_iterations: int = 20, use_pruning: bool = True,
-               gate_fraction: int = 2):
+               gate_fraction: int = 2, work_cap: int = 0):
     """One local-moving phase on the sort-reduce backend from an arbitrary
-    (C, Sigma, frontier) start; returns (comm, iters, dq_sum)."""
+    (C, Sigma, frontier) start; returns (comm, iters, dq_sum).
+
+    ``work_cap > 0`` runs the frontier-compacted scanner with that
+    work-buffer capacity (bit-identical results, frontier-proportional
+    work); 0 is the full ``e_cap`` scan.
+    """
     k = graph.vertex_weights()
     m = graph.total_weight()
-    scanner = SortReduceScanner(graph, k, m)
+    scanner = (CompactSortReduceScanner(graph, k, m, work_cap) if work_cap
+               else SortReduceScanner(graph, k, m))
     engine = MoveEngine(scanner, EngineConfig(
         max_iterations=max_iterations, use_pruning=use_pruning,
         gate_fraction=gate_fraction))

@@ -3,11 +3,13 @@
 paper's defaults (MAX_PASSES=10, MAX_ITERATIONS=20, initial tolerance 0.01,
 TOLERANCE_DROP=10, aggregation tolerance 0.8, vertex pruning on).
 
-This slice is the cold-start, ``refine="none"`` path on one device: the
-singleton start, local-moving on the sort-reduce scanner (``"full"``) or the
-ELL kernels (``"ell"``, ``"ell_fused"``), renumber-and-fold, aggregation by
-the sort chain or the kernel K3, and the capacity ladder.  It runs on the
-device of the graph it is given.
+This is the ``refine="none"`` path on one device: the singleton or warm
+start (``init_membership``/``init_frontier``, which ``core/dynamic.py``
+builds on), local-moving on the sort-reduce scanner (``"full"``), its
+frontier-compacted form (``"compact"``) or the ELL kernels (``"ell"``,
+``"ell_fused"``), renumber-and-fold, aggregation by the sort chain or the
+kernel K3, and the capacity ladder.  It runs on the device of the graph it
+is given.
 """
 
 from __future__ import annotations
@@ -20,14 +22,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs.louvain_arch import (COMPACT_WORK_FRAC,
+                                              compact_work_cap,
                                               resolve_agg_backend,
                                               resolve_coarse_capacity,
                                               resolve_scan_backend)
 from repro_torch.core.aggregate import aggregate_graph, renumber_communities
 from repro_torch.core.ell_move import move_phase_ell
+from repro_torch.core.engine import affected_frontier
 from repro_torch.core.graph import CSRGraph, rebucket_capacity
 from repro_torch.core.local_move import move_phase
-from repro_torch.core.modularity import modularity
+from repro_torch.core.modularity import community_weights, modularity
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +52,7 @@ class LouvainConfig:
     use_ell_kernel: bool = False      # ELL scan kernels for the move phase
     ell_widths: tuple = (16, 64, 256)
     track_modularity: bool = False    # record Q after every pass
-    #: "auto" | "full" | "ell" | "ell_fused" ("compact" is not ported yet).
+    #: "auto" | "full" | "compact" | "ell" | "ell_fused".
     scan_backend: str = "auto"
     compact_cap_frac: float = COMPACT_WORK_FRAC
     #: "auto" | "sort" | "kernel" ("auto": the kernel on CUDA, else sort).
@@ -69,10 +73,6 @@ class LouvainConfig:
         if self.refine != "none":
             raise ValueError(f"refine must be 'none' or 'leiden', "
                              f"got {self.refine!r}")
-        if self.scan_backend == "compact":
-            raise NotImplementedError(
-                "scan_backend='compact' is not ported yet (ROADMAP Queue 1 "
-                "item 7a, the compact scanner)")
 
 
 @dataclasses.dataclass
@@ -87,6 +87,8 @@ class PassStats:
     frontier_size: Optional[int] = None
     n_cap: Optional[int] = None          # capacities the pass ran at
     e_cap: Optional[int] = None
+    #: Scanner the pass ran with ("full" | "compact" | "ell" | "ell_fused").
+    scan_backend: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -112,12 +114,43 @@ def pad_membership(mem, n_cap: int) -> np.ndarray:
     return out
 
 
+def screened_frontier(touched: torch.Tensor, membership: torch.Tensor,
+                      n_valid: int, mode: str = "community") -> torch.Tensor:
+    """Delta-screened seed frontier from a touched-vertex mask: the
+    engine-level ``affected_frontier`` under the reference's name."""
+    return affected_frontier(touched, membership, n_valid, mode)
+
+
 def singleton_init(graph: CSRGraph):
     """(comm0, sigma0, frontier0) of the cold singleton start."""
     n_cap = graph.n_cap
     comm0 = torch.arange(n_cap + 1, dtype=torch.int32, device=graph.device)
     sigma0 = graph.vertex_weights()
     frontier0 = torch.arange(n_cap + 1, device=graph.device) < graph.n_valid
+    return comm0, sigma0, frontier0
+
+
+def warm_init(graph: CSRGraph, membership: torch.Tensor,
+              frontier: Optional[torch.Tensor] = None):
+    """(comm0, sigma0, frontier0) resuming from ``membership``.
+
+    ``membership`` holds (n_cap,) or (n_cap + 1,) community ids in vertex-id
+    space.  Invalid vertex slots become the sentinel; a valid vertex whose
+    previous id is >= n_cap (one that entered through an edge insert) gets
+    its own singleton.  ``sigma0`` is recomputed from the CURRENT graph, so
+    a warm start stays exact after edge-batch updates.  ``frontier``
+    optionally seeds delta screening.
+    """
+    n_cap = graph.n_cap
+    dev = graph.device
+    idx = torch.arange(n_cap + 1, dtype=torch.int32, device=dev)
+    valid = idx < graph.n_valid
+    mem = torch.cat([membership[:n_cap].to(device=dev, dtype=torch.int32),
+                     torch.full((1,), n_cap, dtype=torch.int32, device=dev)])
+    assigned = torch.where(mem < n_cap, mem, idx)
+    comm0 = torch.where(valid, assigned, n_cap)
+    sigma0 = community_weights(graph, comm0)
+    frontier0 = valid if frontier is None else (frontier[: n_cap + 1] & valid)
     return comm0, sigma0, frontier0
 
 
@@ -143,14 +176,17 @@ def louvain(graph: CSRGraph, config: LouvainConfig = LouvainConfig(), *,
     """Run GVE-Louvain on the graph's device; returns the flat membership
     of the original vertices, per-pass stats and the dendrogram levels.
 
+    ``init_membership`` warm-starts the FIRST pass from a previous partition
+    ((n,), (n_cap,) or (n_cap + 1,) community ids) instead of singletons;
+    ``init_frontier`` restricts that pass's seed frontier to a boolean
+    vertex mask (delta screening, see ``core/dynamic.py``), with or without
+    a warm membership.  Later passes restart from singletons on the coarse
+    graph.  With an active seed frontier, ``scan_backend="auto"`` scans
+    through the frontier-compacted scanner when |F|/n <= 10%.
+
     Memberships equal the reference's ``louvain()`` element for element on
-    every scanner and aggregation backend.  Warm starts
-    (``init_membership``/``init_frontier``) are not ported yet.
+    every scanner and aggregation backend.
     """
-    if init_membership is not None or init_frontier is not None:
-        raise NotImplementedError(
-            "warm starts (init_membership/init_frontier) are not ported yet "
-            "(ROADMAP Queue 1 item 7a, warm starts)")
     t_start = time.perf_counter()
     dev = graph.device
     n_cap = graph.n_cap
@@ -163,11 +199,44 @@ def louvain(graph: CSRGraph, config: LouvainConfig = LouvainConfig(), *,
     agg_backend = resolve_agg_backend(config.agg_backend, dev)
     levels: List[np.ndarray] = []
 
+    warm = None            # (comm0, sigma0, frontier0) of pass 0
+    frontier_size0 = None
+    fr = None
+    if init_frontier is not None:
+        # Device-resident frontiers (delta screening) stay on the device.
+        fr = torch.as_tensor(init_frontier, device=dev).to(torch.bool)
+        if fr.shape[0] < n_cap + 1:
+            fr = torch.cat([fr, torch.zeros(n_cap + 1 - fr.shape[0],
+                                            dtype=torch.bool, device=dev)])
+        fr = fr[: n_cap + 1]
+    if init_membership is not None:
+        mem = np.asarray(init_membership, dtype=np.int32)
+        if len(mem) < n_cap + 1:   # pad (n,) / (n_cap,) inputs to capacity
+            mem = np.concatenate(
+                [mem, np.full(n_cap + 1 - len(mem), n_cap, np.int32)])
+        warm = warm_init(g, torch.from_numpy(mem), fr)
+    elif fr is not None:
+        # A screened frontier over a cold singleton start is honoured too.
+        comm0, sigma0, frontier0_all = singleton_init(g)
+        warm = (comm0, sigma0, fr & frontier0_all)
+    if warm is not None:
+        frontier_size0 = int(warm[2].sum())
+
     for p in range(config.max_passes):
         t0 = time.perf_counter()
-        comm0, sigma0, frontier0 = singleton_init(g)
+        if p == 0 and warm is not None:
+            comm0, sigma0, frontier0 = warm
+            pass_frontier = frontier_size0
+        else:
+            comm0, sigma0, frontier0 = singleton_init(g)
+            pass_frontier = None
+        # A screened frontier is active only on pass 0 with init_frontier;
+        # warm-only starts re-scan all vertices, so compaction buys nothing.
+        frontier_frac = (frontier_size0 / max(n, 1)
+                         if p == 0 and fr is not None else None)
         backend = resolve_scan_backend(config.scan_backend,
-                                       use_ell_kernel=config.use_ell_kernel)
+                                       use_ell_kernel=config.use_ell_kernel,
+                                       frontier_frac=frontier_frac)
         if backend in ("ell", "ell_fused"):
             comm, iters, dq_sum = move_phase_ell(
                 g, comm0, sigma0, frontier0, tol,
@@ -180,7 +249,9 @@ def louvain(graph: CSRGraph, config: LouvainConfig = LouvainConfig(), *,
                 g, comm0, sigma0, frontier0, tol,
                 max_iterations=config.max_iterations,
                 use_pruning=config.use_pruning,
-                gate_fraction=config.gate_fraction)
+                gate_fraction=config.gate_fraction,
+                work_cap=(compact_work_cap(g.e_cap, config.compact_cap_frac)
+                          if backend == "compact" else 0))
         _sync(dev)
         t1 = time.perf_counter()
 
@@ -217,8 +288,10 @@ def louvain(graph: CSRGraph, config: LouvainConfig = LouvainConfig(), *,
             dq_sum=float(dq_sum), seconds=time.perf_counter() - t0,
             phase_seconds={"local_move": t1 - t0, "other": t2 - t1,
                            "aggregate": agg_s},
-            modularity=q_now, frontier_size=n_verts,
-            n_cap=pass_caps[0], e_cap=pass_caps[1]))
+            modularity=q_now,
+            frontier_size=(pass_frontier if pass_frontier is not None
+                           else n_verts),
+            n_cap=pass_caps[0], e_cap=pass_caps[1], scan_backend=backend))
         if converged or low_shrink:
             break
         tol = tol / config.tolerance_drop            # line 13

@@ -1,5 +1,5 @@
 """Synthetic graph generators of the PyTorch port."""
 
-from repro_torch.data.graphs import rmat_graph, sbm_graph
+from repro_torch.data.graphs import rmat_graph, sbm_edge_stream, sbm_graph
 
-__all__ = ["rmat_graph", "sbm_graph"]
+__all__ = ["rmat_graph", "sbm_edge_stream", "sbm_graph"]

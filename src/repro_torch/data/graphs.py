@@ -1,5 +1,6 @@
 """Synthetic graph generators of the PyTorch port (``repro.data.graphs``):
-R-MAT (web-like power-law) and SBM (planted communities).
+R-MAT (web-like power-law) and SBM (planted communities), and the held-out
+SBM edge stream of the streaming goldens.
 
 The random draws are the reference's own ``np.random.default_rng`` calls in
 the same order, so a seed gives byte-identical edges; the CSR is then built
@@ -67,3 +68,33 @@ def sbm_graph(n_communities: int, size: int, p_in: float, p_out: float,
     w = np.ones(len(src), np.float32)
     return build_csr(src, dst, w, n, symmetrize=True, dedup=True,
                      device=dev), labels
+
+
+def sbm_edge_stream(device="cuda"):
+    """The held-out SBM edge stream of the reference's streaming goldens
+    (``dynamic__sbm_stream``): ``sbm_graph(8, 16, 0.4, 0.01, seed=2)`` with
+    40 of its undirected edges held out (``default_rng(0)``) and streamed
+    back as 8 insert batches of capacity 8.  Returns (initial graph,
+    batches); the initial graph has ``e_cap`` = the full graph's + 8."""
+    from repro_torch.core.delta import make_edge_batch
+    dev = resolve_device(device)
+    full, _ = sbm_graph(8, 16, 0.4, 0.01, seed=2, device=dev)
+    e = full.e_valid
+    src = full.src[:e].cpu().numpy()
+    dst = full.indices[:e].cpu().numpy()
+    w = full.weights[:e].cpu().numpy()
+    und = src < dst
+    us, ud, uw = src[und], dst[und], w[und]
+    rng = np.random.default_rng(0)
+    hold = rng.choice(len(us), 40, replace=False)
+    keep = np.ones(len(us), bool)
+    keep[hold] = False
+    init = build_csr(np.concatenate([us[keep], ud[keep]]),
+                     np.concatenate([ud[keep], us[keep]]),
+                     np.concatenate([uw[keep], uw[keep]]), full.n_valid,
+                     e_cap=e + 8, device=dev)
+    batches = [make_edge_batch(us[hold[i::8]], ud[hold[i::8]],
+                               uw[hold[i::8]], init.n_cap, b_cap=8,
+                               device=dev)
+               for i in range(8)]
+    return init, batches

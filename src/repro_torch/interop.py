@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.delta import EdgeBatch
 from repro_torch.core.graph import CSRGraph, resolve_device
 from repro_torch.core.louvain import LouvainConfig
 
@@ -26,6 +27,19 @@ def graph_from_numpy(indptr, indices, weights, src, n_valid, e_valid,
                     weights=put(weights, np.float32),
                     src=put(src, np.int32), n_valid=int(n_valid),
                     e_valid=int(e_valid))
+
+
+def edge_batch_from_numpy(src, dst, weight, b_valid,
+                          device="cuda") -> EdgeBatch:
+    """An ``EdgeBatch`` from the JAX ``EdgeBatch``'s buffers as numpy arrays
+    (same capacity, same padding)."""
+    dev = resolve_device(device)
+
+    def put(x, dtype):
+        return torch.from_numpy(np.array(x, dtype=dtype)).to(dev)
+
+    return EdgeBatch(src=put(src, np.int32), dst=put(dst, np.int32),
+                     weight=put(weight, np.float32), b_valid=int(b_valid))
 
 
 def config_from_dict(fields: dict) -> LouvainConfig:

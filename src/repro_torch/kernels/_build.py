@@ -25,7 +25,8 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 #: One shared library per source.
-SOURCES = {"louvain_scan": "louvain_scan.cu", "coarsen": "coarsen.cu"}
+SOURCES = {"louvain_scan": "louvain_scan.cu", "coarsen": "coarsen.cu",
+           "batch_apply": "batch_apply.cu"}
 
 #: ``--fmad=false`` is part of the kernels' exactness contract (see the
 #: sources); ``--use_fast_math`` must never be added.

@@ -1,7 +1,8 @@
 """Rules the PyTorch port keeps: it imports neither JAX, nor the JAX package
 ``repro``, nor networkx; its entry points run on the card unless the caller
-asks for the CPU, and raise without one; options outside the ported slice
-raise ``NotImplementedError``."""
+asks for the CPU, and raise without one; options outside the ported slices
+raise ``NotImplementedError`` (options a later slice ported run and equal
+the reference)."""
 
 import ast
 import dataclasses
@@ -16,10 +17,12 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch import LouvainConfig, build_csr, louvain, sbm_graph
-from repro_torch.interop import config_from_dict
+from repro_torch import (LouvainConfig, apply_edge_batch, build_csr, louvain,
+                         louvain_dynamic, make_edge_batch, sbm_graph)
+from repro_torch.interop import config_from_dict, graph_from_numpy
 
-from repro.core.louvain import LouvainConfig as JConfig
+from repro.core.louvain import LouvainConfig as JConfig, louvain as jlouvain
+from repro.data import sbm_graph as jsbm_graph
 
 PORT_DIR = os.path.dirname(repro_torch.__file__)
 SRC_DIR = os.path.dirname(PORT_DIR)
@@ -48,7 +51,10 @@ def test_every_module_imports_with_jax_blocked():
 def test_no_forbidden_import_anywhere_in_the_port():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PORT_DIR)
              for f in fs if f.endswith(".py")]
-    assert len(files) >= 15
+    assert len(files) >= 19
+    for module in ("core/delta.py", "core/dynamic.py",
+                   "kernels/batch_apply/resolve.py"):
+        assert os.path.join(PORT_DIR, module) in files
     files.append(os.path.join(os.path.dirname(SRC_DIR), "chip_smoke.py"))
     for path in files:
         tree = ast.parse(open(path).read(), path)
@@ -71,9 +77,17 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
                   symmetrize=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sbm_graph(2, 4, 0.5, 0.1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_edge_batch([0], [1], [1.0], 8)
     g, _ = sbm_graph(2, 4, 0.5, 0.1, device="cpu")
     assert g.device.type == "cpu"
     assert louvain(g).membership.shape == (8,)
+    batch = make_edge_batch([0], [5], [2.0], g.n_cap, device="cpu")
+    assert batch.src.device.type == "cpu"
+    g2, touched = apply_edge_batch(g, batch, grow=True)
+    assert touched.device.type == "cpu" and bool(touched[0])
+    dyn = louvain_dynamic(g, [batch])
+    assert dyn.membership.shape == (8,) and dyn.graph.device.type == "cpu"
 
 
 def test_config_keeps_the_reference_fields_and_defaults():
@@ -84,21 +98,45 @@ def test_config_keeps_the_reference_fields_and_defaults():
     assert cfg.agg_backend == "kernel"
 
 
+def _jax_and_port_sbm():
+    jg, _ = jsbm_graph(4, 8, 0.5, 0.02, seed=1)
+    tg = graph_from_numpy(np.asarray(jg.indptr), np.asarray(jg.indices),
+                          np.asarray(jg.weights), np.asarray(jg.src),
+                          int(jg.n_valid), int(jg.e_valid), device="cpu")
+    return jg, tg
+
+
 @pytest.mark.parametrize("kwargs", [{"refine": "leiden"},
                                     {"scan_backend": "compact"}])
 def test_options_outside_the_slice_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LouvainConfig(**kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        config_from_dict(kwargs)
+    """Leiden refinement still raises, naming its ROADMAP item; the compact
+    scanner, ported since, is accepted and runs like the reference."""
+    if kwargs == {"refine": "leiden"}:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            LouvainConfig(**kwargs)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            config_from_dict(kwargs)
+        return
+    assert config_from_dict(kwargs) == LouvainConfig(**kwargs)
+    jg, tg = _jax_and_port_sbm()
+    frontier = np.arange(tg.n_cap + 1) % 12 == 0
+    want = jlouvain(jg, JConfig(**kwargs), init_frontier=frontier)
+    got = louvain(tg, LouvainConfig(**kwargs), init_frontier=frontier)
+    np.testing.assert_array_equal(got.membership, want.membership)
+    assert got.passes[0].scan_backend == "compact"
 
 
 @pytest.mark.parametrize("kwargs", [{"init_membership": np.zeros(8, int)},
                                     {"init_frontier": np.ones(8, bool)}])
 def test_warm_starts_raise(kwargs):
-    g, _ = sbm_graph(2, 4, 0.5, 0.1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        louvain(g, **kwargs)
+    """Warm starts were outside the first slice and raised; they are ported
+    now, so the same calls run and equal the reference's."""
+    jg, tg = _jax_and_port_sbm()
+    want = jlouvain(jg, **kwargs)
+    got = louvain(tg, **kwargs)
+    np.testing.assert_array_equal(got.membership, want.membership)
+    assert ([p.frontier_size for p in got.passes]
+            == [p.frontier_size for p in want.passes])
 
 
 def test_sharded_only_fields_are_accepted_and_ignored():
