@@ -9,14 +9,19 @@ each timed; any failure exits non-zero:
   1. build the CUDA kernels (one nvcc per source, started together) and
      print each kernel's ``-Xptxas -v`` report and the card's power limit;
   2. hold each kernel (K1, K2, K3, K4) against its plain PyTorch version on
-     the card, on random inputs and on the real inputs of phases 4 and 5;
+     the card, bit for bit: K1/K2 on random CSR buckets (degrees 0 to 256,
+     self-loop rows, one-community rows, exact ties, integer and float
+     weights), K3/K4 on random sorted slot lists, then all four on the real
+     inputs of phases 4 and 5;
   3. reproduce the committed ``single__sbm``, ``ell__sbm`` and
      ``dynamic__sbm_stream`` goldens (the last with K4 on every batch);
   4. run ``louvain()`` on an R-MAT graph at scale 22, edge factor 16
      (4,194,304 vertices, ~128M directed slots): the ELL path with the
      fused kernel K1 and the aggregation kernel K3, then the scan-only
      kernel K2, then the default ``louvain()`` (sort-reduce scan + K3);
-     every kernel of each path must have launched;
+     every kernel of each path must have launched, and all give one
+     membership; then K1/K2 per round against their bounds and the round's
+     breakdown;
   5. stream 8 edge batches of 1e-4 |E| (80% inserts of held-out edges, 20%
      deletions) through ``louvain_dynamic()`` on phase 4's graph, applied
      by the batch-apply kernel K4; the final graph must equal the host CSR
@@ -96,80 +101,103 @@ def time_ms(torch, fn, iters: int, warmup: int = 1) -> float:
 
 
 # ---------------------------------------------------------------------------
-# Phase 2 inputs: random tiles with ties, dead slots, all-dead and pad rows.
+# Phase 2 inputs: random CSR buckets with ties, self loops, dead slots and
+# pad rows.
 # ---------------------------------------------------------------------------
 
-def random_tiles(torch, rng, n_rows: int, d: int, integer_w: bool,
-                 sentinel: int, dev):
-    n_ids = max(4, d // 4)
-    c = rng.integers(0, n_ids, (n_rows, d)).astype(np.int32)
-    dead = rng.random((n_rows, d)) < 0.3
-    dead[n_rows // 4: n_rows // 4 + 8] = True          # all-dead rows
-    dead[-8:] = True                                   # pad rows
-    c[dead] = -1
+#: Degrees every random CSR holds (three rows each, where they fit).
+SPECIAL_DEGREES = (0, 1, 16, 17, 32, 33, 64, 65, 256)
+
+
+def random_csr(torch, rng, n: int, max_deg: int, integer_w: bool, dev):
+    """A random CSR of ``n`` vertices (``n_cap = n + 8``), its per-vertex
+    state and its degrees.  Rows hit every degree of ``SPECIAL_DEGREES`` up
+    to ``max_deg``; vertex 0 and 1 hold only self loops, vertex 2 only
+    neighbours of one community, vertex 3 an exact dQ tie between two
+    communities; 1% of the slots hold the sentinel column (dead)."""
+    n_cap = n + 8
+    n_ids = max(8, n // 6)
+    lo = rng.random(n) < 0.7
+    deg = np.where(lo, rng.integers(0, 17, n),
+                   rng.integers(min(17, max_deg), max_deg + 1, n))
+    special = [d for d in SPECIAL_DEGREES if d <= max_deg]
+    deg[8:8 + 3 * len(special)] = np.repeat(special, 3)
+    deg[0], deg[2], deg[3] = 16, min(max_deg, 200), 2
+    deg[1] = 65 if max_deg >= 65 else max_deg
+    comm = np.arange(n_cap + 1, dtype=np.int32)
+    comm[:n] = rng.integers(0, n_ids, n)
+    indptr = np.zeros(n_cap + 1, np.int64)
+    indptr[1:n + 1] = np.cumsum(deg)
+    indptr[n + 1:] = indptr[n]
+    cols = rng.integers(0, n, int(indptr[n])).astype(np.int32)
+    for v in (0, 1):
+        cols[indptr[v]:indptr[v + 1]] = v
+    members = np.flatnonzero(comm[:n] == comm[5])
+    cols[indptr[2]:indptr[3]] = rng.choice(members, deg[2])
+    a, b = (np.flatnonzero(comm[:n] == c)[0]
+            for c in np.unique(comm[10:n])[:2])
+    cols[indptr[3]:indptr[4]] = [a, b]
+    comm[3] = n_ids
+    cols[rng.random(len(cols)) < 0.01] = n_cap
     if integer_w:
-        w = rng.integers(1, 4, (n_rows, d)).astype(np.float32)
+        w = rng.integers(1, 4, len(cols)).astype(np.float32)
     else:
-        w = (rng.random((n_rows, d)) + 0.05).astype(np.float32)
-    w[dead] = 0.0
-    sig_tab = rng.integers(1, 60, n_ids).astype(np.float32)
-    size_tab = rng.integers(1, 3, n_ids).astype(np.int32)
-    live = c >= 0
-    sigma_nbr = np.where(live, sig_tab[np.maximum(c, 0)], 0).astype(np.float32)
-    size_nbr = np.where(live, size_tab[np.maximum(c, 0)], 0).astype(np.int32)
-    c_own = rng.integers(0, n_ids, (n_rows, 1)).astype(np.int32)
-    k_i = rng.integers(1, 20, (n_rows, 1)).astype(np.float32)
-    sigma_own = (sig_tab[c_own[:, 0]][:, None] + k_i).astype(np.float32)
-    size_own = size_tab[c_own[:, 0]][:, None].astype(np.int32)
-    rows = rng.integers(-2 ** 31, 2 ** 31 - 1, (n_rows, 1)).astype(np.int32)
-    rows[-8:] = sentinel
-    front = rng.integers(0, 2, (n_rows, 1)).astype(np.int32)
-    front[-8:] = 0
+        w = (rng.random(len(cols)) + 0.05).astype(np.float32)
+    w[indptr[3]:indptr[4]] = 2.0
+    sigma = (rng.integers(1, 4, n_cap + 1) * 4).astype(np.float32)
+    sigma[comm[b]] = sigma[comm[a]]
+    sizes = np.where(rng.random(n_cap + 1) < 0.7, 1, 2).astype(np.int32)
+    k = rng.integers(1, 6, n_cap + 1).astype(np.float32)
+    front = rng.random(n_cap + 1) < 0.7
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-    scan_ins = [t(x) for x in (c, w, sigma_nbr, k_i, c_own, sigma_own)]
-    fused_ins = [t(x) for x in (c, w, sigma_nbr, size_nbr, k_i, c_own,
-                                sigma_own, size_own, rows, front)]
-    m = torch.tensor(float(rng.integers(200, 900)), dtype=torch.float32,
+    csr = (t(indptr.astype(np.int32)), t(cols), t(w))
+    state = dict(comm=t(comm), sigma=t(sigma), sizes=t(sizes), k=t(k),
+                 front=t(front))
+    m = torch.tensor(float(rng.integers(40, 900)), dtype=torch.float32,
                      device=dev)
-    return scan_ins, fused_ins, m
+    return csr, state, deg, m
 
 
-def compare_scan(torch, kernels, scan_ins, fused_ins, m, round_ix: int,
-                 gate_fraction: int, sentinel: int, exact: bool):
-    """K1 and K2 against their plain versions on one tile; returns the
-    largest |dQ| difference over rows where both are finite."""
-    ops, ref, fused_mod = kernels
-    got = ops.louvain_scan(*scan_ins, m)
-    want = ref.louvain_scan_ref(*scan_ins, m)
-    fgot = ops.louvain_fused(*fused_ins, m, round_ix,
-                             gate_fraction=gate_fraction, sentinel=sentinel)
-    fwant = fused_mod.louvain_fused_ref(*fused_ins, m, round_ix,
-                                        gate_fraction=gate_fraction,
-                                        sentinel=sentinel)
+def bucket_rows(torch, rng, deg, n_cap: int, lo: int, hi: int, dev):
+    """Vertices of degree in (lo, hi] (isolated ones too when lo == 0) in
+    random order, then 7 pad rows."""
+    sel = np.flatnonzero((deg <= hi) & ((deg > lo) | (lo == 0)))
+    rows = np.concatenate([rng.permutation(sel), np.full(7, n_cap)])
+    return torch.from_numpy(rows.astype(np.int32)).to(dev)
+
+
+def run_k1_k2(ops, rows, csr, st, m, width: int, round_ix: int,
+              gate_fraction: int, sentinel: int, plain: bool):
+    """(K2 best_c, K2 best_dq, K1 best_c, K1 best_dq, K1 do_move) of one
+    bucket, from the kernels or from their plain versions."""
+    scan = ops.louvain_scan_rows_ref if plain else ops.louvain_scan
+    fuse = ops.louvain_fused_rows_ref if plain else ops.louvain_fused
+    got = scan(rows, *csr, st["comm"], st["sigma"], st["k"], m, width=width)
+    fgot = fuse(rows, *csr, st["comm"], st["sigma"], st["sizes"], st["k"],
+                st["front"], m, round_ix, width=width,
+                gate_fraction=gate_fraction, sentinel=sentinel)
+    return list(got) + list(fgot)
+
+
+def compare_rows(torch, ops, rows, csr, st, m, width: int, round_ix: int,
+                 gate_fraction: int, sentinel: int, what: str):
+    """K1 and K2 against their plain versions on one bucket, bit for bit;
+    returns (the largest |dQ| difference, the kernels' outputs)."""
+    got = run_k1_k2(ops, rows, csr, st, m, width, round_ix, gate_fraction,
+                    sentinel, plain=False)
+    want = run_k1_k2(ops, rows, csr, st, m, width, round_ix, gate_fraction,
+                     sentinel, plain=True)
     torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        require(a.dtype == b.dtype and torch.equal(a, b),
+                f"{'K2' if i < 2 else 'K1'} differs from its plain version "
+                f"({what}, output {i})")
     err = 0.0
-    for a, b in ((got[1], want[1]), (fgot[1], fwant[1])):
+    for a, b in ((got[1], want[1]), (got[3], want[3])):
         fin = torch.isfinite(a) & torch.isfinite(b)
-        require(torch.equal(torch.isfinite(a), torch.isfinite(b)),
-                "K1/K2: rows with a candidate differ from the plain version")
         if bool(fin.any()):
             err = max(err, float((a[fin] - b[fin]).abs().max()))
-    if exact:
-        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-                "K2 differs from its plain version")
-        require(all(torch.equal(x, y) for x, y in zip(fgot, fwant)),
-                "K1 differs from its plain version")
-    else:
-        # Float weights: the kernel mirrors the plain arithmetic, so agree
-        # to 1e-6 relative at least, and on ids wherever dQ agrees exactly.
-        fin = torch.isfinite(want[1])
-        scale = float(want[1][fin].abs().max()) if bool(fin.any()) else 0.0
-        require(err <= 1e-6 * scale,
-                f"K1/K2 dQ off by {err} on float weights")
-        same = got[1] == want[1]
-        require(torch.equal(got[0][same], want[0][same]),
-                "K2 ids differ where dQ agrees")
-    return err
+    return err, got
 
 
 def kernel_entry(name: str, launches: int, err: float, ms: float,
@@ -213,22 +241,26 @@ def phase_build(torch):
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
 
-def phase_kernels_random(torch, kernels, dev):
+def phase_kernels_random(torch, ops, dev):
     rng = np.random.default_rng(12)
-    sentinel = 1 << 20
     err = 0.0
-    for d, n_rows in ((16, 4096), (64, 2048), (256, 512)):
+    for lo, hi, n in ((0, 16, 20000), (16, 64, 12000), (64, 256, 6000),
+                      (0, 256, 6000)):
         for integer_w in (True, False):
             for gf in (1, 2, 4):
-                scan_ins, fused_ins, m = random_tiles(
-                    torch, rng, n_rows, d, integer_w, sentinel, dev)
+                csr, st, deg, m = random_csr(torch, rng, n, hi, integer_w,
+                                             dev)
+                n_cap = st["comm"].numel() - 1
+                rows = bucket_rows(torch, rng, deg, n_cap, lo, hi, dev)
                 round_ix = int(rng.integers(0, 1 << 30))
-                err = max(err, compare_scan(
-                    torch, kernels, scan_ins, fused_ins, m, round_ix, gf,
-                    sentinel, exact=integer_w))
-        log("kernels", f"K1/K2 d={d}: {n_rows} rows x 6 tiles, exact on "
-            f"integer weights, max |dQ - plain| {err:.3e} on float weights "
-            f"(gate_fraction 1/2/4)")
+                e, _ = compare_rows(torch, ops, rows, csr, st, m, hi,
+                                    round_ix, gf, n_cap,
+                                    f"random rows of degree ({lo}, {hi}]")
+                err = max(err, e)
+        log("kernels", f"K1/K2 width {hi}, degrees ({lo}, {hi}]: "
+            f"{rows.numel()} rows x 6 random CSRs (integer and float "
+            f"weights, gate_fraction 1/2/4) bit for bit; max |dQ - plain| "
+            f"{err:.3e}")
 
     from repro_torch.kernels.aggregate import coarsen
     for total, n_ids in ((0, 4), (5000, 30), (300001, 700)):
@@ -360,9 +392,10 @@ def modularity64(torch, g, membership) -> float:
     return internal / (2 * m) - float(((sig / (2 * m)) ** 2).sum())
 
 
-def real_tile_state(torch, g, membership=None):
-    """(comm, sigma, sizes, front) of the first round (singletons) or of the
-    end of pass 0 (``membership``)."""
+def real_state(torch, g, membership=None):
+    """The per-vertex state K1/K2 read in the first round (singletons) or at
+    the end of pass 0 (``membership``): comm, sigma, sizes, k and front
+    (every valid vertex: the first round's frontier & move-valid)."""
     from repro_torch.core.graph import segment_sum
     from repro_torch.core.modularity import community_weights
     dev, n_cap = g.device, g.n_cap
@@ -376,15 +409,63 @@ def real_tile_state(torch, g, membership=None):
             membership.astype(np.int32)).to(dev)
         sigma = community_weights(g, comm)
     sizes = segment_sum(valid.to(torch.int32), comm, n_cap + 1)
-    return comm, sigma, sizes, valid
+    return dict(comm=comm, sigma=sigma, sizes=sizes, k=g.vertex_weights(),
+                front=valid)
 
 
-def phase_full(torch, kernels, args, dev, report):
+def scan_work(torch, g, buckets, comm, best_c):
+    """(least bytes of K1, of K2, least operations) of one round of K1/K2
+    over ``buckets``, counted on this state's data, and the counts behind
+    them.  Bytes: indices and weights of every CSR slot of the bucketed
+    rows (8 B; a self loop must be read to be skipped), each row id and
+    each of the rows' indptr entries, comm of every vertex read (live
+    neighbours and rows), sigma of every own and candidate community, k
+    per row (K1: front per row, 1 B, and sizes of every own and chosen
+    community), m, and the outputs (K2 8 B, K1 12 B per row), each once.
+    Operations: one add per live slot and one Eq. 2 (7 float operations)
+    per distinct (row, candidate community).  ``best_c`` are K1's per-row
+    answers (``n_cap`` = none)."""
+    n_cap = g.n_cap
+    rows = torch.cat([r for _, r in buckets]).long()
+    real = rows[rows < n_cap]
+    beg = g.indptr[real].long()
+    deg = g.indptr[real + 1].long() - beg
+    n_slots = int(deg.sum())
+    row_of = torch.repeat_interleave(real, deg)
+    first = torch.cumsum(deg, 0) - deg
+    slot = (torch.repeat_interleave(beg - first, deg)
+            + torch.arange(n_slots, device=g.device))
+    cols = g.indices[slot].long()
+    live = (cols != n_cap) & (cols != row_of)
+    c = comm[cols].long()
+    cand = live & (c != comm[row_of].long())
+    del slot, first
+    own = comm[rows].long()
+
+    def distinct(*xs):
+        return int(torch.unique(torch.cat(xs)).numel())
+
+    found = best_c.long()[best_c < n_cap]
+    counts = dict(rows=rows.numel(), slots=n_slots, live=int(live.sum()),
+                  candidates=int(cand.sum()),
+                  indptr=distinct(real, real + 1),
+                  comm=distinct(cols[live], rows),
+                  sigma=distinct(c[cand], own),
+                  k=distinct(rows), sizes=distinct(own, found),
+                  pairs=distinct(row_of[cand] * (n_cap + 1) + c[cand]))
+    common = (8 * counts["slots"] + 4 * counts["rows"]
+              + 4 * counts["indptr"] + 4 * counts["comm"]
+              + 4 * counts["sigma"] + 4 * counts["k"] + 4)
+    b2 = common + 8 * counts["rows"]
+    b1 = common + counts["k"] + 4 * counts["sizes"] + 12 * counts["rows"]
+    return b1, b2, counts["live"] + 7 * counts["pairs"], counts
+
+
+def phase_full(torch, ops, args, dev, report):
     from repro_torch import LouvainConfig, louvain, membership_modularity
     from repro_torch import rmat_graph
-    from repro_torch.core.graph import to_ell_blocks
+    from repro_torch.core.graph import ell_bucket_rows
     from repro_torch.kernels.aggregate import coarsen
-    ops, ref, fused_mod = kernels
     launch_fns = {"louvain_fused": ops.louvain_fused,
                   "louvain_scan": ops.louvain_scan,
                   "coarsen_groups": coarsen.coarsen_groups}
@@ -438,85 +519,98 @@ def phase_full(torch, kernels, args, dev, report):
     log("full", "the K1 and K2 paths, and a second K1 run, give equal "
         "memberships")
     # The default configuration: the sort-reduce scan over every slot, K3.
+    # The R-MAT weights are integers, so every sum order is exact and the
+    # memberships must agree.
     res_d, _ = drive(LouvainConfig(), ("coarsen_groups",), "louvain()")
-    log("full", "louvain() membership equals the ELL paths': "
-        f"{np.array_equal(res.membership, res_d.membership)}")
+    require(np.array_equal(res.membership, res_d.membership),
+            "the default louvain() and the ELL paths give different "
+            "memberships")
+    log("full", "louvain() membership equals the ELL paths'")
     del res_b, res_c, res_d
 
-    # K1/K2 on the real tiles: round 0 (singletons) and the end of pass 0.
+    # K1/K2 on the real rows: round 0 (singletons) and the end of pass 0.
     widths = LouvainConfig().ell_widths
-    blocks, leftover = to_ell_blocks(g, widths)
-    k, m, n_cap = g.vertex_weights(), g.total_weight(), g.n_cap
+    rows_all, leftover = ell_bucket_rows(g, widths)
+    buckets = list(zip(widths, rows_all))
+    m, n_cap = g.total_weight(), g.n_cap
+    csr = (g.indptr, g.indices, g.weights)
     err = 0.0
     for label, mem in (("round 0", None), ("end of pass 0", res.levels[0])):
-        comm, sigma, sizes, front = real_tile_state(torch, g, mem)
-        for b in blocks:
-            scan_ins = ops.prepare_ell_inputs(b, comm, sigma, k, n_cap)
-            fused_ins = ops.prepare_fused_inputs(b, comm, sigma, sizes, k,
-                                                 front, n_cap)
-            err = max(err, compare_scan(torch, kernels, scan_ins, fused_ins,
-                                        m, 1, 2, n_cap, exact=True))
-        log("kernels", f"K1/K2 {label}: exact on ELL rows "
-            f"{[b.rows.numel() for b in blocks]} at widths {list(widths)}")
+        st = real_state(torch, g, mem)
+        best = []
+        for width, rows in buckets:
+            e_k, got = compare_rows(torch, ops, rows, csr, st, m, width, 1,
+                                    2, n_cap, f"{label}, width {width}")
+            err = max(err, e_k)
+            best.append(got[2])
+        log("kernels", f"K1/K2 {label}: bit for bit on the rows "
+            f"{[r.numel() for _, r in buckets]} of widths {list(widths)}")
+        if mem is None:
+            st0, best0 = st, torch.cat(best)
 
-    comm, sigma, sizes, front = real_tile_state(torch, g)
-    fused_all = [ops.prepare_fused_inputs(b, comm, sigma, sizes, k, front,
-                                          n_cap) for b in blocks]
-    scan_all = [ops.prepare_ell_inputs(b, comm, sigma, k, n_cap)
-                for b in blocks]
-    k1 = lambda: [ops.louvain_fused(*x, m, 1, gate_fraction=2,
-                                    sentinel=n_cap) for x in fused_all]
-    k1p = lambda: [fused_mod.louvain_fused_ref(*x, m, 1, gate_fraction=2,
-                                               sentinel=n_cap)
-                   for x in fused_all]
-    k2 = lambda: [ops.louvain_scan(*x, m) for x in scan_all]
-    k2p = lambda: [ref.louvain_scan_ref(*x, m) for x in scan_all]
-    times = {"louvain_fused": (time_ms(torch, k1, 10), time_ms(torch, k1p, 2)),
-             "louvain_scan": (time_ms(torch, k2, 10), time_ms(torch, k2p, 2))}
-    # Least bytes, counted on this round's data: the id c of every ELL slot
-    # (it marks the padding, c = -1), w of every occupied slot (c >= 0),
-    # Sigma (K1: and |c|) of every candidate slot (c >= 0, c != c_own);
-    # the per-row inputs once (K1 24 B, K2 12 B), the outputs once (K1 12 B,
-    # K2 8 B), and m.  Least operations: one compare and one add per
-    # (candidate slot, slot of its row).
-    slots = sum(x[0].numel() for x in fused_all)
-    occupied = sum(int((x[0] >= 0).sum()) for x in fused_all)
-    cand = [int(((x[0] >= 0) & (x[0] != x[5])).sum()) for x in fused_all]
-    n_rows = sum(x[0].shape[0] for x in fused_all)
-    ops_count = 2 * sum(cv * x[0].shape[1] for cv, x in zip(cand, fused_all))
-    b1 = 4 * slots + 4 * occupied + 8 * sum(cand) + 36 * n_rows + 4
-    b2 = 4 * slots + 4 * occupied + 4 * sum(cand) + 20 * n_rows + 4
+    st = st0
+
+    def k1(launch=ops.louvain_fused, plain=False):
+        fn = ops.louvain_fused_rows_ref if plain else launch
+        return [fn(rows, *csr, st["comm"], st["sigma"], st["sizes"],
+                   st["k"], st["front"], m, 1, width=w, gate_fraction=2,
+                   sentinel=n_cap) for w, rows in buckets]
+
+    def k1_one(width, rows):
+        return ops.launch_louvain_fused(
+            rows, *csr, st["comm"], st["sigma"], st["sizes"], st["k"],
+            st["front"], m, 1, width=width, gate_fraction=2, sentinel=n_cap)
+
+    def k2(launch=ops.louvain_scan, plain=False):
+        fn = ops.louvain_scan_rows_ref if plain else launch
+        return [fn(rows, *csr, st["comm"], st["sigma"], st["k"], m, width=w)
+                for w, rows in buckets]
+
+    times = {"louvain_fused": (time_ms(torch, k1, 10),
+                               time_ms(torch, lambda: k1(plain=True), 2)),
+             "louvain_scan": (time_ms(torch, k2, 10),
+                              time_ms(torch, lambda: k2(plain=True), 2))}
+    t_launch = {"louvain_fused": time_ms(
+                    torch, lambda: k1(ops.launch_louvain_fused), 10),
+                "louvain_scan": time_ms(
+                    torch, lambda: k2(ops.launch_louvain_scan), 10)}
+    per_bucket = [time_ms(torch, lambda w=w, rows=rows: k1_one(w, rows), 10)
+                  for w, rows in buckets]
+    b1, b2, ops_count, counts = scan_work(torch, g, buckets, st["comm"],
+                                          best0)
     bounds = {"louvain_fused": b1, "louvain_scan": b2}
-    log("full", f"ELL slots {slots}: occupied {occupied}, candidates "
-        f"{sum(cand)}, padding {1 - occupied / slots:.4f} of the slots; "
-        f"{n_rows} rows")
-    log("full", f"one round over {len(blocks)} ELL blocks: K1 "
-        f"{times['louvain_fused'][0]:.4f} ms (plain "
+    log("full", f"round 0 over the {len(buckets)} buckets: "
+        + json.dumps(counts))
+    log("full", f"one round over {len(buckets)} buckets: K1 "
+        f"{times['louvain_fused'][0]:.4f} ms (launches alone, no error-flag "
+        f"read: {t_launch['louvain_fused']:.4f} ms; plain "
         f"{times['louvain_fused'][1]:.4f} ms), K2 "
-        f"{times['louvain_scan'][0]:.4f} ms (plain "
+        f"{times['louvain_scan'][0]:.4f} ms (launches alone "
+        f"{t_launch['louvain_scan']:.4f} ms; plain "
         f"{times['louvain_scan'][1]:.4f} ms); least bytes K1 {b1} K2 {b2}, "
-        f"least operations {ops_count}")
+        f"least operations {ops_count}; K1 launches alone per bucket "
+        + json.dumps({w: round(t, 4) for (w, _), t in zip(buckets,
+                                                          per_bucket)}))
 
     # Where one fused round's time goes (round 0 of pass 0).
     from repro_torch.core.ell_move import FusedELLScanner
     from repro_torch.core.engine import EngineConfig, MoveEngine, MoveState
-    scanner = FusedELLScanner(g, blocks, leftover, k, m, gate_fraction=2)
+    scanner = FusedELLScanner(g, buckets, leftover, st["k"], m,
+                              gate_fraction=2)
     engine = MoveEngine(scanner, EngineConfig())
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    st0 = MoveState(comm, sigma, front, 0, zero, zero)
-    t_round = time_ms(torch, lambda: engine.one_round(st0, front, 0), 3)
-    t_prep = time_ms(torch, lambda: [
-        ops.prepare_fused_inputs(b, comm, sigma, sizes, k, front, n_cap)
-        for b in blocks], 3)
-    t_hub = (time_ms(torch, lambda: scanner._hub_scan(comm, sigma, front), 3)
-             if leftover.numel() else 0.0)
+    st_round = MoveState(st["comm"], st["sigma"], st["front"], 0, zero, zero)
+    t_round = time_ms(torch, lambda: engine.one_round(st_round, st["front"],
+                                                      0), 3)
+    t_hub = (time_ms(torch, lambda: scanner._hub_scan(
+        st["comm"], st["sigma"], st["front"]), 3) if leftover.numel() else 0.0)
     hub_slots = scanner._hub_slots[0].numel() if leftover.numel() else 0
     t_k1 = times["louvain_fused"][0]
-    log("full", f"one fused round: {t_round:.4f} ms = ELL gathers "
-        f"{t_prep:.4f} + K1 {t_k1:.4f} + hub fallback {t_hub:.4f} "
-        f"({leftover.numel()} hub vertices, {hub_slots} of {e} slots) "
-        f"+ engine apply {t_round - t_prep - t_hub - t_k1:.4f}")
-    del scanner, engine, fused_all, scan_all
+    log("full", f"one fused round: {t_round:.4f} ms = K1 incl. its gathers "
+        f"{t_k1:.4f} + hub fallback {t_hub:.4f} ({leftover.numel()} hub "
+        f"vertices, {hub_slots} of {e} slots) + engine apply "
+        f"{t_round - t_hub - t_k1:.4f}")
+    del scanner, engine, st, st0
 
     # K3 on the first aggregation's sorted slot list.
     comm0 = torch.full((n_cap + 1,), n_cap, dtype=torch.int32, device=dev)
@@ -734,12 +828,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
     try:
-        from repro_torch.kernels.louvain_scan import fused, ops, ref
+        from repro_torch.kernels.louvain_scan import ops
     except ImportError as exc:
         print(f"chip_smoke: run from the root of a checkout ({exc})",
               file=sys.stderr)
         return 2
-    kernels = (ops, ref, fused)
     dev = torch.device("cuda")
     report = []
     t_all = time.perf_counter()
@@ -747,10 +840,10 @@ def main() -> int:
     try:
         for name, fn in (("build", lambda: phase_build(torch)),
                          ("kernels", lambda: phase_kernels_random(
-                             torch, kernels, dev)),
+                             torch, ops, dev)),
                          ("goldens", lambda: phase_goldens(torch, dev)),
                          ("full", lambda: state.update(g=phase_full(
-                             torch, kernels, args, dev, report))),
+                             torch, ops, args, dev, report))),
                          ("stream", lambda: phase_stream(
                              torch, state.pop("g"), dev, report))):
             t = time.perf_counter()

@@ -1,11 +1,11 @@
 """ELL scanner backends + their local-moving phase (``repro.core.ell_move``).
 
-Vertices are degree-bucketed into fixed-width ELL rows
-(``graph.to_ell_blocks``), and each block's best-move scan runs in the CUDA
-kernels K2 (``ELLScanner``) or K1 (``FusedELLScanner``, scan + decision in
-one launch).  Hub vertices above the widest ELL width take the sort-reduce
-scan.  PyTorch runs eagerly, so the reference's jit cache has no
-counterpart here.
+Vertices are degree-bucketed by ELL width (``graph.ell_bucket_rows``), and
+each bucket's best-move scan runs in the CUDA kernels K2 (``ELLScanner``) or
+K1 (``FusedELLScanner``, scan + decision in one launch), which read the
+bucket's CSR rows themselves.  Hub vertices above the widest ELL width take
+the sort-reduce scan.  PyTorch runs eagerly, so the reference's jit cache
+has no counterpart here.
 """
 
 from __future__ import annotations
@@ -16,14 +16,15 @@ import torch
 
 from repro_torch.core.engine import (EngineConfig, MoveEngine,
                                      gated_move_mask, round_gate)
-from repro_torch.core.graph import CSRGraph, to_ell_blocks
+from repro_torch.core.graph import CSRGraph, ell_bucket_rows
 from repro_torch.core.local_move import SortReduceScanner, best_moves_slots
 from repro_torch.kernels.louvain_scan import ops as scan_ops
 
 
 class ELLScanner(SortReduceScanner):
-    """Engine backend: the ELL scan kernel (K2) per block + the sort-reduce
-    fallback for hub rows.
+    """Engine backend: the ELL scan kernel (K2) per degree bucket + the
+    sort-reduce fallback for hub rows.  ``buckets`` pairs each ELL width
+    with its rows (``ell_bucket_rows``).
 
     The fallback scans only the hub vertices' own slots (an order-preserving
     subset of the CSR, gathered once per phase), which gives exactly the
@@ -31,10 +32,10 @@ class ELLScanner(SortReduceScanner):
     and keeps the hub rows.
     """
 
-    def __init__(self, graph: CSRGraph, blocks, leftover: torch.Tensor, k,
+    def __init__(self, graph: CSRGraph, buckets, leftover: torch.Tensor, k,
                  m):
         super().__init__(graph, k, m)
-        self.blocks = blocks
+        self.buckets = buckets
         self.leftover = leftover
         if leftover.numel():
             hub = torch.zeros(graph.n_cap + 1, dtype=torch.bool,
@@ -56,13 +57,14 @@ class ELLScanner(SortReduceScanner):
                             device=dev)
         best_dq = torch.full((n_cap + 1,), float("-inf"), dtype=torch.float32,
                              device=dev)
-        for block in self.blocks:
-            ins = scan_ops.prepare_ell_inputs(block, comm, sigma,
-                                              self.k_local, n_cap)
-            bc, bdq = scan_ops.louvain_scan(*ins, self.m)
+        g = self.graph
+        for width, rows in self.buckets:
+            bc, bdq = scan_ops.louvain_scan(
+                rows, g.indptr, g.indices, g.weights, comm, sigma,
+                self.k_local, self.m, width=width)
             # Pad rows carry vertex id n_cap -> land in the sentinel slot.
-            best_c[block.rows] = torch.where(bc < 0, n_cap, bc)
-            best_dq[block.rows] = bdq
+            best_c[rows] = torch.where(bc < 0, n_cap, bc)
+            best_dq[rows] = bdq
         if self.leftover.numel():
             sc, sdq = self._hub_scan(comm, sigma, frontier)
             best_c[self.leftover] = sc[self.leftover]
@@ -74,13 +76,13 @@ class ELLScanner(SortReduceScanner):
 
 
 class FusedELLScanner(ELLScanner):
-    """Engine backend: the fused kernel (K1) per block supplies the engine's
+    """Engine backend: the fused kernel (K1) per bucket supplies the engine's
     ``decide_moves`` hook; hub rows take the sort-reduce scan + the engine's
     ``gated_move_mask``, the same boolean the kernel computes."""
 
-    def __init__(self, graph: CSRGraph, blocks, leftover, k, m, *,
+    def __init__(self, graph: CSRGraph, buckets, leftover, k, m, *,
                  gate_fraction: int):
-        super().__init__(graph, blocks, leftover, k, m)
+        super().__init__(graph, buckets, leftover, k, m)
         self.gate_fraction = gate_fraction
 
     def decide_moves(self, comm, sigma, frontier, comm_l, sizes, round_ix):
@@ -92,15 +94,15 @@ class FusedELLScanner(ELLScanner):
         best_dq = torch.full((n_cap + 1,), float("-inf"), dtype=torch.float32,
                              device=dev)
         do_move = torch.zeros(n_cap + 1, dtype=torch.bool, device=dev)
-        for block in self.blocks:
-            ins = scan_ops.prepare_fused_inputs(block, comm, sigma, sizes,
-                                                self.k_local, front, n_cap)
+        g = self.graph
+        for width, rows in self.buckets:
             bc, bdq, mv = scan_ops.louvain_fused(
-                *ins, self.m, round_ix, gate_fraction=self.gate_fraction,
-                sentinel=n_cap)
-            best_c[block.rows] = bc
-            best_dq[block.rows] = bdq
-            do_move[block.rows] = mv > 0
+                rows, g.indptr, g.indices, g.weights, comm, sigma, sizes,
+                self.k_local, front, self.m, round_ix, width=width,
+                gate_fraction=self.gate_fraction, sentinel=n_cap)
+            best_c[rows] = bc
+            best_dq[rows] = bdq
+            do_move[rows] = mv > 0
         if self.leftover.numel():
             lo = self.leftover
             sc, sdq = self._hub_scan(comm, sigma, frontier)
@@ -128,14 +130,15 @@ def move_phase_ell(graph: CSRGraph, comm0, sigma0, frontier0,
     kernel (``fused=False``) or the fused kernel (``fused=True``) — the same
     memberships either way.
     """
-    blocks, leftover = to_ell_blocks(graph, widths)
+    rows, leftover = ell_bucket_rows(graph, widths)
+    buckets = list(zip(widths, rows))
     k = graph.vertex_weights()
     m = graph.total_weight()
     if fused:
-        scanner = FusedELLScanner(graph, blocks, leftover, k, m,
+        scanner = FusedELLScanner(graph, buckets, leftover, k, m,
                                   gate_fraction=gate_fraction)
     else:
-        scanner = ELLScanner(graph, blocks, leftover, k, m)
+        scanner = ELLScanner(graph, buckets, leftover, k, m)
     st = MoveEngine(scanner, EngineConfig(
         max_iterations=max_iterations, use_pruning=use_pruning,
         gate_fraction=gate_fraction)).run(comm0, sigma0, frontier0,

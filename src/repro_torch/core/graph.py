@@ -260,42 +260,74 @@ class ELLBlock:
         return self.cols.shape[1]
 
 
-def to_ell_blocks(graph: CSRGraph,
-                  widths: Tuple[int, ...] = (16, 64, 256, 1024), *,
-                  row_align: int = 8) -> Tuple[List[ELLBlock], torch.Tensor]:
+def ell_bucket_rows(graph: CSRGraph,
+                    widths: Tuple[int, ...] = (16, 64, 256, 1024), *,
+                    row_align: int = 8
+                    ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Degree bucketing on the graph's device: vertices with degree <=
-    widths[k] (and > widths[k-1]) go to block k; the first block also takes
-    isolated vertices.  Returns (blocks, leftover_vertex_ids), the leftover
-    vertices being those above the largest width.
-
-    The reference fills rows in a host loop over vertices; this builds the
-    same rows, cols, w and leftover ids with one gather per block.
-    """
+    widths[k] (and > widths[k-1]) go to bucket k; the first bucket also
+    takes isolated vertices.  Returns (rows per bucket, leftover vertex
+    ids): each bucket's (n_rows,) int32 vertex ids in ascending order,
+    padded with ``n_cap`` to a multiple of ``row_align``, and the vertices
+    above the largest width.  The ELL scan kernels take these rows and read
+    the CSR themselves; ``to_ell_blocks`` adds the padded matrices."""
     dev = graph.device
     n, n_cap = graph.n_valid, graph.n_cap
-    indptr = graph.indptr.to(torch.int64)
-    deg = indptr[1:n + 1] - indptr[:n]
+    deg = graph.indptr[1:n + 1] - graph.indptr[:n]
     assigned = torch.zeros(n, dtype=torch.bool, device=dev)
-    blocks = []
+    buckets = []
     lo = 0
     for width in widths:
-        sel_mask = deg <= width if width == widths[0] else (deg > lo) & (deg <= width)
+        sel_mask = (deg <= width if width == widths[0]
+                    else (deg > lo) & (deg <= width))
         lo = width
         sel = torch.nonzero(sel_mask).flatten()
         n_sel = sel.numel()
         n_rows = int(math.ceil(max(n_sel, 1) / row_align) * row_align)
         rows = torch.full((n_rows,), n_cap, dtype=torch.int32, device=dev)
-        cols = torch.full((n_rows, width), n_cap, dtype=torch.int32,
-                          device=dev)
-        wmat = torch.zeros((n_rows, width), dtype=torch.float32, device=dev)
         rows[:n_sel] = sel.to(torch.int32)
-        if n_sel and graph.e_cap:
-            lane = torch.arange(width, device=dev)
-            live = lane[None, :] < deg[sel][:, None]
-            slot = torch.where(live, indptr[sel][:, None] + lane[None, :], 0)
-            cols[:n_sel] = torch.where(live, graph.indices[slot], n_cap)
-            wmat[:n_sel] = torch.where(live, graph.weights[slot], 0.0)
         assigned |= sel_mask
-        blocks.append(ELLBlock(rows, cols, wmat))
+        buckets.append(rows)
     leftover = torch.nonzero(~assigned).flatten().to(torch.int32)
-    return blocks, leftover
+    return buckets, leftover
+
+
+def ell_block(indptr: torch.Tensor, indices: torch.Tensor,
+              weights: torch.Tensor, rows: torch.Tensor,
+              width: int) -> ELLBlock:
+    """The padded (R, width) adjacency of CSR rows ``rows`` (vertex ids; the
+    sentinel ``n_cap = len(indptr) - 1`` marks a pad row): lane j of row r
+    holds slot ``indptr[rows[r]] + j`` while j < the row's degree, else
+    ``(n_cap, 0)``.  Raises when a row's degree exceeds ``width``."""
+    n_cap = indptr.numel() - 1
+    r = rows.to(torch.int64)
+    real = r < n_cap
+    beg = indptr[r].to(torch.int64)
+    deg = torch.where(real, indptr[torch.where(real, r + 1, r)] - beg, 0)
+    if rows.numel() and int(deg.max()) > width:
+        raise ValueError(f"a row of degree {int(deg.max())} does not fit "
+                         f"ELL width {width}")
+    lane = torch.arange(width, device=rows.device)
+    live = lane[None, :] < deg[:, None]
+    cols = torch.full((rows.numel(), width), n_cap, dtype=torch.int32,
+                      device=rows.device)
+    wmat = torch.zeros((rows.numel(), width), dtype=torch.float32,
+                       device=rows.device)
+    if bool(live.any()):
+        slot = torch.where(live, beg[:, None] + lane[None, :], 0)
+        cols = torch.where(live, indices[slot], cols)
+        wmat = torch.where(live, weights[slot], wmat)
+    return ELLBlock(rows, cols, wmat)
+
+
+def to_ell_blocks(graph: CSRGraph,
+                  widths: Tuple[int, ...] = (16, 64, 256, 1024), *,
+                  row_align: int = 8) -> Tuple[List[ELLBlock], torch.Tensor]:
+    """``ell_bucket_rows`` plus each bucket's padded matrices
+    (``ell_block``): (blocks, leftover_vertex_ids), the reference's ELL
+    view element for element.  The reference fills rows in a host loop over
+    vertices; this builds the same rows, cols, w and leftover ids with one
+    gather per block."""
+    buckets, leftover = ell_bucket_rows(graph, widths, row_align=row_align)
+    return [ell_block(graph.indptr, graph.indices, graph.weights, rows, width)
+            for rows, width in zip(buckets, widths)], leftover

@@ -1,6 +1,7 @@
-// K1 and K2 of the PyTorch port: the Louvain best-move scan over ELL rows,
-// hand-written for Hopper (sm_90a).  One device routine (scan_row), two
-// __global__ entry points.
+// K1 and K2 of the PyTorch port: the Louvain best-move scan over one degree
+// bucket's CSR rows, hand-written for Hopper (sm_90a).  Two row layouts
+// (a row per thread, a row per warp), each a __global__ template whose
+// K1 instantiation adds the move decision to K2's scan.
 //
 // Replaces
 //   K1  src/repro/kernels/louvain_scan/fused.py, louvain_fused_pallas
@@ -11,46 +12,68 @@
 //   K2  src/repro/kernels/louvain_scan/louvain_scan.py, louvain_scan_pallas
 //       (kernel body _scan_kernel over dense_scan_tile): the scan only, out
 //       (best_c with -1 = none, best_dq with -inf = none).
+// together with the per-slot gathers that the JAX package leaves to XLA
+// (repro/kernels/louvain_scan/ops.py, prepare_ell_inputs /
+// prepare_fused_inputs) and the padded matrices of to_ell_blocks.
 //
-// Design.  The TPU kernel carries a B x D x D equality tile per block into
-// VMEM and contracts it on the matrix unit.  Here one warp owns one ELL row:
-// the row's D community ids and weights are staged once into the warp's
-// slice of shared memory, and each lane owns slots j = lane, lane + 32, ...
-// For a live slot j the lane sums K_{i->c_j} = sum_e w[e] * [c[e] == c[j]]
-// over e in ascending order out of shared memory, evaluates Eq. 2, and
-// keeps the lexicographic best (largest dQ, then smallest community id);
-// five xor-shuffles reduce the warp to the row's answer.  K1 then takes
-// |best community| as the min size over the slots holding it (a second
-// warp min) and applies the gated decision in registers.
+// Design.  The TPU kernel takes pre-gathered dense (R, D) tiles and builds a
+// D x D equality tile per row for the matrix unit.  Here the kernel takes
+// the bucket's vertex ids, the CSR and the per-vertex state, and reads only
+// the live slots [indptr[v], indptr[v+1]) of each row; comm[col] is
+// gathered per slot, and sigma (K1: and |c|) once per distinct candidate
+// community.  At R-MAT scale 22 the per-vertex arrays (16.8 MB each) stay
+// in the 50 MB L2, so the gathers cost L2 sectors, not HBM traffic.  Slots
+// are grouped by community label instead of compared pairwise:
+//   * widths <= 16 (the bucket that holds most vertices; at R-MAT scale 22
+//     3.58M of its 4.08M bucketed rows): one row per thread.  The thread
+//     issues its row's loads together, then bitonic-sorts the (community,
+//     slot) keys with their weights in registers, so each community's
+//     slots are one run in ascending slot order;
+//   * wider rows, one per warp, loaded coalesced: rows of at most 32 slots
+//     put one slot per lane and __match_any_sync gives every lane the mask
+//     of lanes holding its community; longer rows stage their 64-bit
+//     (community, slot) keys in the warp's shared memory and bitonic-sort
+//     them in registers (kE keys per lane, shuffles across lanes), and the
+//     head of each run reads the run back.  Each bucket width launches its
+//     own instantiation (kMaxE), so a narrow bucket does not carry the
+//     registers of the widest sort.
+// One thread sums each group's weights, then evaluates Eq. 2 once; a warp
+// butterfly of (max dQ, min id) gives a warp's row.
 //
-// Bound on the card: bytes.  The function must read the id c of every
-// slot (4 B; it marks the padding), w of every occupied slot (4 B), and
-// Sigma (K1: and |c|) of every candidate slot (c >= 0, c != c_own; 4 or
-// 8 B), plus 12 B (K2) or 24 B (K1) per row, and write 8 or 12 B per row;
-// at 3.35 TB/s that is the least time.  Padding (c = -1) is most of an
-// R-MAT graph's ELL slots, so the bound depends on the data.  The design
-// reads c and w of every slot once, coalesced (lane-strided), padding
-// included, and Sigma and |c| only at candidate slots; it keeps the D x D
-// compare in shared memory and registers, so the padding's w and the
-// compare's instruction count at the widest tiles (D = 256 is 64K
-// compare-adds per row) put it above the bound.  Making it fast (skipping
-// padded slots, a sort or hash of the D labels per row) is later work.
+// Bound on the card: bytes.  The function must read the indices and weights
+// of the bucketed rows' live slots (8 B each), the row ids and their indptr
+// entries, comm of every vertex it touches, sigma of every own and candidate
+// community, k (K1: sizes and front) per row, and write 8 B (K2) or 12 B
+// (K1) per row; at 3.35 TB/s that is the least time.  Operations (one add
+// per live slot, one Eq. 2 per distinct (row, candidate community)) are
+// three orders of magnitude below the float32 peak.
 //
-// Exactness hazards, which the plain PyTorch version (fused.py /
-// louvain_scan.py beside this file's wrappers) mirrors operation for
-// operation so that the two agree bit for bit on any weights:
+// Exactness: the plain PyTorch version (louvain_scan.py / fused.py beside
+// the wrappers) builds the padded tile and sums over every slot; this kernel
+// must agree with it bit for bit on any weights.
+//   * Summation order.  A group's K_{i->c} is added one float32 add at a
+//     time in ascending slot order by one thread, starting from 0.0f.  The
+//     plain loop adds the same values in the same order plus +0.0 for every
+//     other slot, and x + 0.0 == x for every x the sum can hold (it never
+//     is -0.0), so the sums are identical.  No tree or shuffle reduction of
+//     weights and no shared-memory atomics: they change the float32 sum.
 //   * No FMA contraction.  The tie test dq == best_dq needs IEEE-identical
 //     dq, so dq is evaluated in exactly the reference's order,
 //     (k_to - k_own) / m - k_i * ((k_i + sig) - sig_own) / ((2 * m) * m),
-//     and the build passes --fmad=false and never --use_fast_math.  Sums
-//     over a row run in ascending slot order, as the plain version's loop.
+//     and the build passes --fmad=false and never --use_fast_math.
+//   * Ties go to the smallest community id (keep_better).
+//   * K1's |best community| is sizes[best_c] when a best exists; without
+//     one the target is not a singleton (the plain version's min over no
+//     slots, INT_MAX), and sizes[sentinel] is never read.
 //   * The Weyl gate.  GATE_MUL = -1640531535 and GATE_INC = 40503 act on
 //     int32 with wraparound in the reference.  Signed overflow is undefined
 //     in C++, so the hash is multiplied and added in uint32_t, converted to
 //     int32_t (two's complement), shifted arithmetically >> 13, then
 //     abs and % gate_fraction.
-//   * Pad rows carry vertex id n_cap (the sentinel); dead slots (padding
-//     or self loops) have c = -1 and w = 0 and are never candidates.
+//   * Dead slots (col == n_cap, padding; col == v, a self loop) and pad rows
+//     (v == n_cap, degree 0) are never candidates.  A row whose degree
+//     exceeds the bucket's width, or a row id outside [0, n_cap], sets a bit
+//     of *err and is scanned as if empty; the wrapper raises on it.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,9 +82,37 @@
 namespace {
 
 constexpr int kWarp = 32;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kIntMax = 0x7fffffff;
+constexpr unsigned long long kDeadKey = ~0ull;
 constexpr uint32_t kGateMul = 2654435761u;  // int32 -1640531535
 constexpr uint32_t kGateInc = 40503u;
+constexpr int kErrDegree = 1;
+constexpr int kErrRow = 2;
+
+struct Args {
+  const int* rows;
+  const int* indptr;
+  const int* indices;
+  const float* weights;
+  const int* comm;
+  const float* sigma;
+  const float* k;
+  const int* sizes;             // K1 only
+  const unsigned char* front;   // K1 only: frontier & move-valid (bool)
+  const float* m;
+  int n_rows;
+  int n_cap;
+  int width;
+  int sort_cap;                 // keys per warp in shared memory
+  int round_ix;
+  int gate_fraction;
+  int sentinel;
+  int* out_c;
+  float* out_dq;
+  int* out_move;
+  int* err;
+};
 
 // (dq, c) <- the better of (dq, c) and (dq2, c2): larger dQ, then the
 // smaller community id.  Commutative and associative, so the warp
@@ -74,162 +125,460 @@ __device__ __forceinline__ void keep_better(float& dq, int& c, float dq2,
   }
 }
 
-// The scan of one staged row; every lane returns the row's best (dQ, id),
-// (-inf, INT_MAX) when the row has no candidate.
-__device__ __forceinline__ void scan_row(const int* sc, const float* sw,
-                                         const float* sig_row, int d,
-                                         int c_own, float k_i, float sig_own,
-                                         float m, int lane, float& best_dq,
-                                         int& best_c) {
-  float k_own = 0.0f;
-  for (int e = 0; e < d; ++e) k_own += (sc[e] == c_own) ? sw[e] : 0.0f;
-  const float two_m_m = (2.0f * m) * m;
-  float bdq = -INFINITY;
-  int bc = kIntMax;
-  for (int j = lane; j < d; j += kWarp) {
-    const int cj = sc[j];
-    if (cj < 0 || cj == c_own) continue;
-    float k_to = 0.0f;
-    for (int e = 0; e < d; ++e) k_to += (sc[e] == cj) ? sw[e] : 0.0f;
-    const float gain = (k_to - k_own) / m;
-    const float cost = k_i * ((k_i + sig_row[j]) - sig_own) / two_m_m;
-    keep_better(bdq, bc, gain - cost, cj);
-  }
-  for (int off = kWarp / 2; off > 0; off >>= 1) {
-    const float odq = __shfl_xor_sync(0xffffffffu, bdq, off);
-    const int oc = __shfl_xor_sync(0xffffffffu, bc, off);
-    keep_better(bdq, bc, odq, oc);
-  }
-  best_dq = bdq;
-  best_c = bc;
+// Eq. 2 in the reference's operation order (see the header).
+__device__ __forceinline__ float delta_q(float k_to, float k_own, float k_i,
+                                         float sig, float sig_own, float m,
+                                         float two_m_m) {
+  const float gain = (k_to - k_own) / m;
+  const float cost = k_i * ((k_i + sig) - sig_own) / two_m_m;
+  return gain - cost;
 }
 
+struct Row {
+  int v;          // vertex id (n_cap for a pad row)
+  int own;        // comm[v]
+  float k_i;
+  float sig_own;  // sigma[comm[v]]
+  int beg;        // first CSR slot
+  int deg;        // live slots to read (0 for a pad or rejected row)
+};
+
+__device__ __forceinline__ Row load_row(const Args& a, int r, bool lead) {
+  Row row;
+  int v = a.rows[r];
+  if (v < 0 || v > a.n_cap) {
+    if (lead) atomicOr(a.err, kErrRow);
+    v = a.n_cap;
+  }
+  row.v = v;
+  row.own = a.comm[v];
+  row.k_i = a.k[v];
+  row.sig_own = a.sigma[row.own];
+  row.beg = 0;
+  row.deg = 0;
+  if (v < a.n_cap) {
+    row.beg = a.indptr[v];
+    const int deg = a.indptr[v + 1] - row.beg;
+    if (deg > a.width) {
+      if (lead) atomicOr(a.err, kErrDegree);
+    } else {
+      row.deg = deg;
+    }
+  }
+  return row;
+}
+
+// Community of CSR slot `slot` of row `row`, -1 when the slot is dead.
+__device__ __forceinline__ int slot_comm(const Args& a, const Row& row,
+                                         int slot, float& w) {
+  const int col = a.indices[row.beg + slot];
+  w = a.weights[row.beg + slot];
+  return (col == a.n_cap || col == row.v) ? -1 : a.comm[col];
+}
+
+// Rows of at most 32 slots, one per warp: lane j holds slot j.  Returns
+// this lane's best (dQ, id) over the groups it leads; `wbuf` is the warp's
+// 32 floats of shared memory.
+__device__ __forceinline__ void scan_match(const Args& a, const Row& row,
+                                           int lane, float* wbuf, float m,
+                                           float two_m_m, float& bdq,
+                                           int& bc) {
+  float w = 0.0f;
+  const int c = lane < row.deg ? slot_comm(a, row, lane, w) : -1;
+  const unsigned grp = __match_any_sync(kFull, c);
+  wbuf[lane] = w;
+  __syncwarp();
+  const bool lead = c >= 0 && __ffs(grp) - 1 == lane;
+  float sum = 0.0f;
+  if (lead)
+    for (unsigned g = grp; g; g &= g - 1) sum += wbuf[__ffs(g) - 1];
+  const unsigned own_lead = __ballot_sync(kFull, lead && c == row.own);
+  const float own_sum =
+      __shfl_sync(kFull, sum, own_lead ? __ffs(own_lead) - 1 : lane);
+  const float k_own = own_lead ? own_sum : 0.0f;
+  bdq = -INFINITY;
+  bc = kIntMax;
+  if (lead && c != row.own)
+    keep_better(bdq, bc,
+                delta_q(sum, k_own, row.k_i, a.sigma[c], row.sig_own, m,
+                        two_m_m),
+                c);
+  __syncwarp();  // wbuf is rewritten by the next row
+}
+
+// The community of a sorted key; -1 for a dead slot's kDeadKey.
+__device__ __forceinline__ int key_comm(unsigned long long key) {
+  return (int)(key >> 32);
+}
+
+// K_{i->c} of the run of community c that starts at sorted position p: its
+// weights added one at a time in ascending slot order (the run's order).
+__device__ __forceinline__ float run_sum(const unsigned long long* keys,
+                                         const float* wbuf, int p, int n) {
+  const int c = key_comm(keys[p]);
+  float sum = 0.0f;
+  for (; p < n && key_comm(keys[p]) == c; ++p)
+    sum += wbuf[(unsigned)keys[p]];
+  return sum;
+}
+
+__host__ __device__ constexpr int log2i(int x) {
+  return x <= 1 ? 0 : 1 + log2i(x / 2);
+}
+
+// Sorts the warp's 32 * kE keys in shared memory, ascending, by a bitonic
+// network in registers: lane l holds keys l * kE .. l * kE + kE - 1, pairs
+// closer than kE are compared within the lane, the others with lane
+// l ^ (stride / kE) by shuffles.
+template <int kE>
+__device__ __forceinline__ void warp_sort(unsigned long long* keys,
+                                          int lane) {
+  constexpr int kLog = log2i(kE * kWarp);
+  unsigned long long x[kE];
+#pragma unroll
+  for (int e = 0; e < kE; ++e) x[e] = keys[lane * kE + e];
+#pragma unroll
+  for (int ls = 1; ls <= kLog; ++ls) {
+#pragma unroll
+    for (int lj = ls - 1; lj >= 0; --lj) {
+      const int stride = 1 << lj;
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const bool up = (((lane * kE + e) >> ls) & 1) == 0;
+        if (stride < kE) {
+          const int f = e ^ stride;
+          if (f > e) {
+            const unsigned long long lo = x[e], hi = x[f];
+            const bool swap = (lo > hi) == up;
+            x[e] = swap ? hi : lo;
+            x[f] = swap ? lo : hi;
+          }
+        } else {
+          const int lstride = stride / kE;
+          const unsigned long long y = __shfl_xor_sync(kFull, x[e], lstride);
+          const bool keep_min = ((lane & lstride) == 0) == up;
+          x[e] = (x[e] < y) == keep_min ? x[e] : y;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kE; ++e) keys[lane * kE + e] = x[e];
+  __syncwarp();
+}
+
+// warp_sort of the smallest kE >= p2 / 32; kMaxE bounds the instantiations
+// (and so the registers) a kernel carries.
+template <int kE, int kMaxE>
+__device__ __forceinline__ void sort_keys(unsigned long long* keys, int lane,
+                                          int p2) {
+  if constexpr (kE < kMaxE) {
+    if (p2 > kE * kWarp) {
+      sort_keys<kE * 2, kMaxE>(keys, lane, p2);
+      return;
+    }
+  }
+  warp_sort<kE>(keys, lane);
+}
+
+// Rows of 33 .. 32 * kMaxE slots, one per warp: sort the (community, slot)
+// keys (warp_sort), then the head of each community's run sums it in
+// ascending slot order out of shared memory.
+template <int kMaxE>
+__device__ __forceinline__ void scan_sorted(const Args& a, const Row& row,
+                                            int lane,
+                                            unsigned long long* keys,
+                                            float* wbuf, float m,
+                                            float two_m_m, float& bdq,
+                                            int& bc) {
+  int p2 = kWarp;
+  while (p2 < row.deg) p2 <<= 1;
+  for (int j = lane; j < p2; j += kWarp) {
+    unsigned long long key = kDeadKey;
+    float w = 0.0f;
+    if (j < row.deg) {
+      const int c = slot_comm(a, row, j, w);
+      if (c >= 0)
+        key = ((unsigned long long)(unsigned)c << 32) | (unsigned)j;
+    }
+    keys[j] = key;
+    wbuf[j] = w;
+  }
+  __syncwarp();
+  sort_keys<2, kMaxE>(keys, lane, p2);
+  // K_{i->own}: the head of own's run sums it; one lane holds it.
+  float own_sum = 0.0f;
+  bool has_own = false;
+  for (int p = lane; p < p2; p += kWarp) {
+    if (key_comm(keys[p]) == row.own &&
+        (p == 0 || key_comm(keys[p - 1]) != row.own)) {
+      own_sum = run_sum(keys, wbuf, p, p2);
+      has_own = true;
+    }
+  }
+  const unsigned own_lane = __ballot_sync(kFull, has_own);
+  const float got = __shfl_sync(kFull, own_sum,
+                                own_lane ? __ffs(own_lane) - 1 : lane);
+  const float k_own = own_lane ? got : 0.0f;
+  bdq = -INFINITY;
+  bc = kIntMax;
+  for (int p = lane; p < p2; p += kWarp) {
+    const int c = key_comm(keys[p]);
+    if (c < 0 || c == row.own || (p > 0 && key_comm(keys[p - 1]) == c))
+      continue;
+    keep_better(bdq, bc,
+                delta_q(run_sum(keys, wbuf, p, p2), k_own, row.k_i,
+                        a.sigma[c], row.sig_own, m, two_m_m),
+                c);
+  }
+  __syncwarp();  // keys and wbuf are rewritten by the next row
+}
+
+// The widest row one lane scans alone.
+constexpr int kLaneSlots = 16;
+
+// Rows of at most kLaneSlots slots, one per lane.  The lane loads its
+// row's slots and their communities into registers (all loads independent,
+// so they are in flight together), sorts the (community, slot) keys with
+// their weights by a bitonic network over kLaneSlots registers (dead slots
+// sort last), then walks the runs in order.
+__device__ __forceinline__ void scan_lane(const Args& a, const Row& row,
+                                          float m, float two_m_m, float& bdq,
+                                          int& bc) {
+  unsigned long long key[kLaneSlots];
+  float w[kLaneSlots];
+  int col[kLaneSlots];
+#pragma unroll
+  for (int j = 0; j < kLaneSlots; ++j) {
+    col[j] = a.n_cap;
+    w[j] = 0.0f;
+    if (j < row.deg) {
+      col[j] = a.indices[row.beg + j];
+      w[j] = a.weights[row.beg + j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kLaneSlots; ++j) {
+    key[j] = kDeadKey;
+    if (col[j] != a.n_cap && col[j] != row.v)
+      key[j] = ((unsigned long long)(unsigned)a.comm[col[j]] << 32) |
+               (unsigned)j;
+  }
+#pragma unroll
+  for (int ls = 1; ls <= log2i(kLaneSlots); ++ls) {
+#pragma unroll
+    for (int lj = ls - 1; lj >= 0; --lj) {
+#pragma unroll
+      for (int i = 0; i < kLaneSlots; ++i) {
+        const int l = i ^ (1 << lj);
+        if (l > i) {
+          const unsigned long long x = key[i], y = key[l];
+          const float wx = w[i], wy = w[l];
+          const bool swap = (x > y) == ((i & (1 << ls)) == 0);
+          key[i] = swap ? y : x;
+          key[l] = swap ? x : y;
+          w[i] = swap ? wy : wx;
+          w[l] = swap ? wx : wy;
+        }
+      }
+    }
+  }
+  // K_{i->own}: own's run, in ascending slot order.
+  float k_own = 0.0f;
+#pragma unroll
+  for (int p = 0; p < kLaneSlots; ++p)
+    if (key_comm(key[p]) == row.own) k_own += w[p];
+  bdq = -INFINITY;
+  bc = kIntMax;
+  float run = 0.0f;
+#pragma unroll
+  for (int p = 0; p < kLaneSlots; ++p) {
+    const int c = key_comm(key[p]);  // -1 for a dead slot
+    run = ((p > 0 && key_comm(key[p - 1]) == c) ? run : 0.0f) + w[p];
+    const bool last = p == kLaneSlots - 1 || key_comm(key[p + 1]) != c;
+    if (c >= 0 && last && c != row.own)
+      keep_better(bdq, bc,
+                  delta_q(run, k_own, row.k_i, a.sigma[c], row.sig_own, m,
+                          two_m_m),
+                  c);
+  }
+}
+
+// One row's best (dQ, id) in every lane of the warp; (-inf, INT_MAX) when
+// the row has no candidate.  Rows of up to 32 * kMaxE slots.
+template <int kMaxE>
+__device__ __forceinline__ void scan_row(const Args& a, const Row& row,
+                                         int lane, unsigned long long* keys,
+                                         float* wbuf, float m, float two_m_m,
+                                         float& bdq, int& bc) {
+  if constexpr (kMaxE > 1) {
+    if (row.deg > kWarp)  // warp-uniform: one row per warp
+      scan_sorted<kMaxE>(a, row, lane, keys, wbuf, m, two_m_m, bdq, bc);
+    else
+      scan_match(a, row, lane, wbuf, m, two_m_m, bdq, bc);
+  } else {
+    scan_match(a, row, lane, wbuf, m, two_m_m, bdq, bc);
+  }
+  for (int off = kWarp / 2; off > 0; off >>= 1) {
+    const float odq = __shfl_xor_sync(kFull, bdq, off);
+    const int oc = __shfl_xor_sync(kFull, bc, off);
+    keep_better(bdq, bc, odq, oc);
+  }
+}
+
+// Row r's outputs from its best (dQ, id): K2's pair, or K1's gated decision.
 template <bool kFused>
-__global__ void ell_scan_kernel(
-    const int* __restrict__ c, const float* __restrict__ w,
-    const float* __restrict__ sig, const int* __restrict__ size_nbr,
-    const float* __restrict__ k_i, const int* __restrict__ c_own,
-    const float* __restrict__ sig_own, const int* __restrict__ size_own,
-    const int* __restrict__ rows, const int* __restrict__ front,
-    const float* __restrict__ m_ptr, int round_ix, int n_rows, int d,
-    int gate_fraction, int sentinel, int* __restrict__ out_c,
-    float* __restrict__ out_dq, int* __restrict__ out_move) {
-  extern __shared__ unsigned char smem[];
+__device__ __forceinline__ void finish_row(const Args& a, long long r,
+                                           const Row& row, float bdq,
+                                           int bc) {
+  const bool found = isfinite(bdq);
+  if (!kFused) {
+    a.out_c[r] = found ? bc : -1;
+    a.out_dq[r] = found ? bdq : -INFINITY;
+    return;
+  }
+  const int bcs = found ? bc : a.sentinel;
+  const int size_best = found ? a.sizes[bcs] : kIntMax;
+  const float best = found ? bdq : -INFINITY;
+  const bool in_front = a.front[row.v] != 0;
+  const bool swap_blocked =
+      a.sizes[row.own] == 1 && size_best == 1 && bcs > row.own;
+  bool do_move = best > 0.0f && bcs != row.own && bcs < a.sentinel &&
+                 in_front && !swap_blocked;
+  if (a.gate_fraction > 1) {
+    const uint32_t h =
+        (uint32_t)row.v * kGateMul + (uint32_t)a.round_ix * kGateInc;
+    const int32_t hs = (int32_t)h;          // two's complement
+    const int32_t sh = hs >> 13;            // arithmetic shift
+    const int32_t mag = sh < 0 ? -sh : sh;  // |sh| <= 2^18
+    do_move = do_move && (mag % a.gate_fraction == 0);
+  }
+  a.out_c[r] = bcs;
+  a.out_dq[r] = in_front ? best : -INFINITY;
+  a.out_move[r] = do_move ? 1 : 0;
+}
+
+// Widths <= kLaneSlots: one row per thread.
+template <bool kFused>
+__global__ void lane_rows_kernel(Args a) {
+  const float m = *a.m;
+  const float two_m_m = (2.0f * m) * m;
+  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       r < a.n_rows; r += (long long)gridDim.x * blockDim.x) {
+    const Row row = load_row(a, (int)r, true);
+    float bdq;
+    int bc;
+    scan_lane(a, row, m, two_m_m, bdq, bc);
+    finish_row<kFused>(a, r, row, bdq, bc);
+  }
+}
+
+// Wider rows: one row per warp, in the warp's slice of shared memory; rows
+// of up to 32 * kMaxE slots.
+template <bool kFused, int kMaxE>
+__global__ void warp_rows_kernel(Args a) {
+  extern __shared__ unsigned long long smem[];
   const int warps = blockDim.x / kWarp;
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  int* sc = reinterpret_cast<int*>(smem) + warp * d;
-  float* sw = reinterpret_cast<float*>(smem + sizeof(int) * warps * d) +
-              warp * d;
-  const float m = *m_ptr;
-
-  for (long long r = (long long)blockIdx.x * warps + warp; r < n_rows;
+  unsigned long long* keys = smem + (size_t)warp * a.sort_cap;
+  float* wbuf = reinterpret_cast<float*>(smem + (size_t)warps * a.sort_cap) +
+                (size_t)warp * a.sort_cap;
+  const float m = *a.m;
+  const float two_m_m = (2.0f * m) * m;
+  for (long long r = (long long)blockIdx.x * warps + warp; r < a.n_rows;
        r += (long long)gridDim.x * warps) {
-    const long long base = r * d;
-    for (int j = lane; j < d; j += kWarp) {
-      sc[j] = c[base + j];
-      sw[j] = w[base + j];
-    }
-    __syncwarp();
-    const int own = c_own[r];
+    const Row row = load_row(a, (int)r, lane == 0);
     float bdq;
     int bc;
-    scan_row(sc, sw, sig + base, d, own, k_i[r], sig_own[r], m, lane, bdq,
-             bc);
-    const bool found = isfinite(bdq);
-    if (!kFused) {
-      if (lane == 0) {
-        out_c[r] = found ? bc : -1;
-        out_dq[r] = found ? bdq : -INFINITY;
-      }
-    } else {
-      const int bcs = found ? bc : sentinel;
-      // sizes[best_c] without a gather: every live slot holding the best
-      // community carries its size; the min over them (INT_MAX if none).
-      int size_best = kIntMax;
-      for (int j = lane; j < d; j += kWarp) {
-        const int cj = sc[j];
-        if (cj >= 0 && cj != own && cj == bcs)
-          size_best = min(size_best, size_nbr[base + j]);
-      }
-      for (int off = kWarp / 2; off > 0; off >>= 1)
-        size_best =
-            min(size_best, __shfl_xor_sync(0xffffffffu, size_best, off));
-      if (lane == 0) {
-        const float best = found ? bdq : -INFINITY;
-        const bool in_front = front[r] > 0;
-        const bool swap_blocked =
-            size_own[r] == 1 && size_best == 1 && bcs > own;
-        bool do_move = best > 0.0f && bcs != own && bcs < sentinel &&
-                       in_front && !swap_blocked;
-        if (gate_fraction > 1) {
-          const uint32_t h = (uint32_t)rows[r] * kGateMul +
-                             (uint32_t)round_ix * kGateInc;
-          const int32_t hs = (int32_t)h;     // two's complement
-          const int32_t sh = hs >> 13;       // arithmetic shift
-          const int32_t mag = sh < 0 ? -sh : sh;  // |sh| <= 2^18
-          do_move = do_move && (mag % gate_fraction == 0);
-        }
-        out_c[r] = bcs;
-        out_dq[r] = in_front ? best : -INFINITY;
-        out_move[r] = do_move ? 1 : 0;
-      }
-    }
-    __syncwarp();  // the next row overwrites this warp's staging slice
+    scan_row<kMaxE>(a, row, lane, keys, wbuf, m, two_m_m, bdq, bc);
+    if (lane == 0) finish_row<kFused>(a, r, row, bdq, bc);
   }
 }
 
-int launch(bool fused, const void* c, const void* w, const void* sig,
-           const void* size_nbr, const void* k_i, const void* c_own,
-           const void* sig_own, const void* size_own, const void* rows,
-           const void* front, const void* m, int round_ix, int n_rows, int d,
-           int gate_fraction, int sentinel, void* out_c, void* out_dq,
-           void* out_move, int rows_per_block, void* stream) {
-  if (n_rows <= 0) return (int)cudaSuccess;
-  const int threads = rows_per_block * kWarp;
-  const long long want = (n_rows + rows_per_block - 1) / rows_per_block;
+// rows_per_block: one row per thread at widths <= kLaneSlots, else one per
+// warp (the wrapper's block_rows_for_width).
+template <bool kFused>
+int launch(Args a, int rows_per_block, void* stream) {
+  if (a.n_rows <= 0) return (int)cudaSuccess;
+  const bool lane_rows = a.width <= kLaneSlots;
+  const int threads = lane_rows ? rows_per_block : rows_per_block * kWarp;
+  const long long want = (a.n_rows + rows_per_block - 1) / rows_per_block;
   const int blocks = (int)(want < 1048576 ? want : 1048576);
-  const size_t smem = (size_t)rows_per_block * d * (sizeof(int) + sizeof(float));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fused) {
-    ell_scan_kernel<true><<<blocks, threads, smem, s>>>(
-        (const int*)c, (const float*)w, (const float*)sig,
-        (const int*)size_nbr, (const float*)k_i, (const int*)c_own,
-        (const float*)sig_own, (const int*)size_own, (const int*)rows,
-        (const int*)front, (const float*)m, round_ix, n_rows, d,
-        gate_fraction, sentinel, (int*)out_c, (float*)out_dq,
-        (int*)out_move);
-  } else {
-    ell_scan_kernel<false><<<blocks, threads, smem, s>>>(
-        (const int*)c, (const float*)w, (const float*)sig, nullptr,
-        (const float*)k_i, (const int*)c_own, (const float*)sig_own, nullptr,
-        nullptr, nullptr, (const float*)m, 0, n_rows, d, 1, 0, (int*)out_c,
-        (float*)out_dq, nullptr);
+  if (lane_rows) {
+    lane_rows_kernel<kFused><<<blocks, threads, 0, s>>>(a);
+    return (int)cudaGetLastError();
   }
+  void (*kernel)(Args);
+  switch (a.sort_cap) {
+    case 32: kernel = warp_rows_kernel<kFused, 1>; break;
+    case 64: kernel = warp_rows_kernel<kFused, 2>; break;
+    case 128: kernel = warp_rows_kernel<kFused, 4>; break;
+    case 256: kernel = warp_rows_kernel<kFused, 8>; break;
+    case 512: kernel = warp_rows_kernel<kFused, 16>; break;
+    case 1024: kernel = warp_rows_kernel<kFused, 32>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = (size_t)rows_per_block * a.sort_cap *
+                      (sizeof(unsigned long long) + sizeof(float));
+  kernel<<<blocks, threads, smem, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+Args make_args(const void* rows, const void* indptr, const void* indices,
+               const void* weights, const void* comm, const void* sigma,
+               const void* k, const void* m, int n_rows, int n_cap,
+               int width, int sort_cap, void* out_c, void* out_dq,
+               void* err) {
+  Args a{};
+  a.rows = (const int*)rows;
+  a.indptr = (const int*)indptr;
+  a.indices = (const int*)indices;
+  a.weights = (const float*)weights;
+  a.comm = (const int*)comm;
+  a.sigma = (const float*)sigma;
+  a.k = (const float*)k;
+  a.m = (const float*)m;
+  a.n_rows = n_rows;
+  a.n_cap = n_cap;
+  a.width = width;
+  a.sort_cap = sort_cap;
+  a.gate_fraction = 1;
+  a.out_c = (int*)out_c;
+  a.out_dq = (float*)out_dq;
+  a.err = (int*)err;
+  return a;
 }
 
 }  // namespace
 
 extern "C" int louvain_fused_launch(
-    const void* c, const void* w, const void* sig, const void* size_nbr,
-    const void* k_i, const void* c_own, const void* sig_own,
-    const void* size_own, const void* rows, const void* front,
-    const void* m, int round_ix, int n_rows, int d, int gate_fraction,
-    int sentinel, void* out_c, void* out_dq, void* out_move,
-    int rows_per_block, void* stream) {
-  return launch(true, c, w, sig, size_nbr, k_i, c_own, sig_own, size_own,
-                rows, front, m, round_ix, n_rows, d, gate_fraction, sentinel,
-                out_c, out_dq, out_move, rows_per_block, stream);
+    const void* rows, const void* indptr, const void* indices,
+    const void* weights, const void* comm, const void* sigma, const void* k,
+    const void* sizes, const void* front, const void* m, int n_rows,
+    int n_cap, int width, int round_ix, int gate_fraction, int sentinel,
+    void* out_c, void* out_dq, void* out_move, void* err,
+    int rows_per_block, int sort_cap, void* stream) {
+  Args a = make_args(rows, indptr, indices, weights, comm, sigma, k, m,
+                     n_rows, n_cap, width, sort_cap, out_c, out_dq, err);
+  a.sizes = (const int*)sizes;
+  a.front = (const unsigned char*)front;
+  a.round_ix = round_ix;
+  a.gate_fraction = gate_fraction;
+  a.sentinel = sentinel;
+  a.out_move = (int*)out_move;
+  return launch<true>(a, rows_per_block, stream);
 }
 
-extern "C" int louvain_scan_launch(const void* c, const void* w,
-                                   const void* sig, const void* k_i,
-                                   const void* c_own, const void* sig_own,
-                                   const void* m, int n_rows, int d,
-                                   void* out_c, void* out_dq,
-                                   int rows_per_block, void* stream) {
-  return launch(false, c, w, sig, nullptr, k_i, c_own, sig_own, nullptr,
-                nullptr, nullptr, m, 0, n_rows, d, 1, 0, out_c, out_dq,
-                nullptr, rows_per_block, stream);
+extern "C" int louvain_scan_launch(
+    const void* rows, const void* indptr, const void* indices,
+    const void* weights, const void* comm, const void* sigma, const void* k,
+    const void* m, int n_rows, int n_cap, int width, void* out_c,
+    void* out_dq, void* err, int rows_per_block, int sort_cap,
+    void* stream) {
+  return launch<false>(make_args(rows, indptr, indices, weights, comm, sigma,
+                                 k, m, n_rows, n_cap, width, sort_cap, out_c,
+                                 out_dq, err),
+                       rows_per_block, stream);
 }

@@ -1,16 +1,16 @@
-"""K2: the Louvain best-community scan over ELL rows — its plain PyTorch
-version (``dense_scan_tile``) and the wrapper of its CUDA kernel
-(``csrc/louvain_scan.cu``, entry ``louvain_scan_launch``).
+"""K2: the Louvain best-community scan over one degree bucket's CSR rows —
+its plain PyTorch version (``louvain_scan_rows_ref``) and the wrapper of
+its CUDA kernel (``csrc/louvain_scan.cu``, entry ``louvain_scan_launch``).
 
 Replaces the TPU kernel ``louvain_scan_pallas`` of
 ``src/repro/kernels/louvain_scan/louvain_scan.py`` (body ``_scan_kernel`` over
-``dense_scan_tile``).  Bound on the card: bytes — c at every slot, w at every
-occupied slot, Sigma at every candidate slot, 12 B per row read once and
-8 B per row written, at 3.35 TB/s.  The kernel reads c and w of every slot
-from device memory once, padding included, and keeps the pairwise compare
-in shared memory (one warp per row); see the source's header.
+``dense_scan_tile``) together with the per-slot gathers the JAX package
+leaves to XLA (``prepare_ell_inputs``).  The kernel reads only the rows'
+live CSR slots, gathers the community state itself and groups slots by
+community label; see the source's header for its design, bound and
+exactness rules.
 
-Per row r (one vertex i), inputs pre-masked (dead slots: c = -1, w = 0):
+Per row r (one vertex i) of a padded tile (dead slots: c = -1, w = 0):
   K_{i->c_d} = sum_e w[r,e] * [c[r,e] == c[r,d]]
   K_{i->own} = sum_e w[r,e] * [c[r,e] == c_own[r]]
   dQ_d       = (K_d - K_own)/m - k_i*(k_i + Sigma_{c_d} - Sigma_own)/(2 m^2)
@@ -25,21 +25,43 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core.graph import ELLBlock, ell_block
 from repro_torch.kernels import _build
 
 _INT_MAX = 2 ** 31 - 1
 #: Shared memory per CUDA block that the launch stays within (no opt-in).
 _SMEM_BYTES = 48 * 1024
+#: Shared memory per sorted slot: a 64-bit (community, slot) key + a weight.
+_SLOT_BYTES = 12
+#: Widths up to this take one row per thread, no shared memory
+#: (``kLaneSlots`` of the source, which picks the layout by width).
+LANE_SLOTS = 16
+#: The widest row the warp sort takes (32 keys per lane in registers).
+MAX_WIDTH = 1024
+
+
+def sort_capacity(width: int) -> int:
+    """Keys per warp in shared memory: the next power of two >= ``width``,
+    at least 32 (a row of up to 32 slots is grouped in registers)."""
+    cap = 32
+    while cap < width:
+        cap *= 2
+    return cap
+
+
+def warps_for_width(width: int) -> int:
+    """Warps per CUDA block: at most 8, and few enough that their sort
+    buffers fit 48 KB."""
+    if not 0 < width <= MAX_WIDTH:
+        raise ValueError(f"ELL width {width} is outside the kernel's range "
+                         f"1 .. {MAX_WIDTH}")
+    return min(8, _SMEM_BYTES // (_SLOT_BYTES * sort_capacity(width)))
 
 
 def block_rows_for_width(width: int) -> int:
-    """ELL rows per CUDA block (one warp each): at most 8, and few enough
-    that the rows' staged ids and weights (8 B per slot) fit 48 KB."""
-    rows = min(8, _SMEM_BYTES // (8 * int(width)))
-    if rows < 1:
-        raise ValueError(f"ELL width {width} exceeds the kernel's shared "
-                         f"memory ({_SMEM_BYTES // 8} slots per row at most)")
-    return rows
+    """Rows per CUDA block: one per thread at widths <= ``LANE_SLOTS``,
+    else one per warp."""
+    return warps_for_width(width) * (32 if width <= LANE_SLOTS else 1)
 
 
 def dense_scan_tile(c, w, sig, k_i, c_own, sig_own, m):
@@ -74,54 +96,130 @@ def dense_scan_tile(c, w, sig, k_i, c_own, sig_own, m):
             torch.where(found, best_dq, float("-inf")))
 
 
-def _check_tile(tensors, dtypes, n_rows: int, width: int, device) -> None:
-    for t, dt in zip(tensors, dtypes):
-        if t.device != device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"kernel input must be a contiguous {dt} tensor "
-                             f"on {device}; got {t.dtype} on {t.device}")
-        if t.numel() not in (n_rows * width, n_rows):
-            raise ValueError(f"kernel input of shape {tuple(t.shape)} does "
-                             f"not fit {n_rows} rows of width {width}")
+def prepare_ell_inputs(block: ELLBlock, comm: torch.Tensor,
+                       sigma: torch.Tensor, k: torch.Tensor,
+                       n_cap: int) -> Tuple[torch.Tensor, ...]:
+    """Gather per-slot community state for one ELL block: (c_nbr, w_nbr,
+    sigma_nbr) as (R, D) and (k_i, c_own, sigma_own) as (R, 1).  Padding and
+    self-loop slots are dead: c = -1, w = 0, Sigma = 0."""
+    rows, cols, w = block.rows, block.cols, block.w
+    dead = (cols == n_cap) | (cols == rows[:, None])
+    c_nbr = torch.where(dead, -1, comm[cols])
+    w_nbr = torch.where(dead, 0.0, w)
+    sigma_nbr = torch.where(dead, 0.0, sigma[c_nbr.clamp(min=0)])
+    k_i = k[rows][:, None]
+    c_own = comm[rows][:, None]
+    sigma_own = sigma[c_own[:, 0]][:, None]
+    return c_nbr, w_nbr, sigma_nbr, k_i, c_own, sigma_own
 
 
-def _scalar_m(m: torch.Tensor, device) -> torch.Tensor:
+def louvain_scan_rows_ref(rows, indptr, indices, weights, comm, sigma, k, m,
+                          *, width: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2 on any device: the bucket's padded tile built
+    from the CSR (``ell_block``), gathered (``prepare_ell_inputs``) and
+    scanned (``dense_scan_tile``); (best_c, best_dq) as (R,) tensors."""
+    block = ell_block(indptr, indices, weights, rows, width)
+    bc, bdq = dense_scan_tile(*prepare_ell_inputs(
+        block, comm, sigma, k, indptr.numel() - 1), m)
+    return bc[:, 0], bdq[:, 0]
+
+
+def check_inputs(named, device) -> None:
+    """Each (name, tensor, dtype, length) must be a contiguous 1-d tensor of
+    that dtype on ``device``, of that length unless it is None."""
+    for name, t, dt, n in named:
+        if (not isinstance(t, torch.Tensor) or t.device != device
+                or t.dtype != dt or not t.is_contiguous() or t.dim() != 1):
+            got = (f"{t.dtype} {tuple(t.shape)} on {t.device}"
+                   if isinstance(t, torch.Tensor) else type(t).__name__)
+            raise ValueError(f"kernel input {name} must be a contiguous 1-d "
+                             f"{dt} tensor on {device}; got {got}")
+        if n is not None and t.numel() != n:
+            raise ValueError(f"kernel input {name} has {t.numel()} entries, "
+                             f"not {n}")
+
+
+def graph_inputs(rows, indptr, indices, weights, comm, sigma, k):
+    """What both kernels check: the (name, tensor, dtype, length) list of
+    their common inputs, with n_cap = len(indptr) - 1."""
+    n_cap = indptr.numel() - 1
+    return [("rows", rows, torch.int32, None),
+            ("indptr", indptr, torch.int32, None),
+            ("indices", indices, torch.int32, None),
+            ("weights", weights, torch.float32, indices.numel()),
+            ("comm", comm, torch.int32, n_cap + 1),
+            ("sigma", sigma, torch.float32, n_cap + 1),
+            ("k", k, torch.float32, n_cap + 1)], n_cap
+
+
+def scalar_m(m: torch.Tensor, device) -> torch.Tensor:
     if (not isinstance(m, torch.Tensor) or m.numel() != 1
             or m.dtype != torch.float32 or m.device != device):
         raise ValueError("m must be a one-element float32 tensor on the "
-                         "tiles' device")
+                         "rows' device")
     return m.contiguous()
 
 
-_SCAN_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
-                  + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+def raise_on_error(err: torch.Tensor, what: str, width: int) -> None:
+    """Raise when the kernel flagged a row (one device-to-host read)."""
+    code = int(err.item())
+    if code & 1:
+        raise ValueError(f"{what}: a row's degree exceeds ELL width {width}")
+    if code:
+        raise ValueError(f"{what}: a row id lies outside [0, n_cap]")
 
 
-def louvain_scan(c_nbr, w_nbr, sigma_nbr, k_i, c_own, sigma_own,
-                 m) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2: best (community, dQ) per ELL row, as (R,) tensors.
+_SCAN_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                  + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                  + [ctypes.c_void_p])
 
-    On CPU tensors this is the plain version; on CUDA tensors it launches
-    the kernel (and counts the launch in ``louvain_scan.launches``).
-    """
-    if c_nbr.device.type == "cpu":
-        bc, bdq = dense_scan_tile(c_nbr, w_nbr, sigma_nbr, k_i, c_own,
-                                  sigma_own, m)
-        return bc[:, 0], bdq[:, 0]
-    dev = c_nbr.device
-    r, d = c_nbr.shape
-    _check_tile((c_nbr, w_nbr, sigma_nbr, k_i, c_own, sigma_own),
-                (torch.int32, torch.float32, torch.float32, torch.float32,
-                 torch.int32, torch.float32), r, d, dev)
-    m = _scalar_m(m, dev)
+
+def launch_louvain_scan(rows, indptr, indices, weights, comm, sigma, k, m,
+                        *, width: int):
+    """Check the inputs, launch K2 on their CUDA device and count the
+    launch; returns (best_c, best_dq, err) without reading ``err`` (the
+    kernel's flag of rows it rejected), so nothing waits for the kernel."""
+    dev = rows.device
+    named, n_cap = graph_inputs(rows, indptr, indices, weights, comm, sigma,
+                                k)
+    check_inputs(named, dev)
+    rows_per_block = block_rows_for_width(width)
+    m = scalar_m(m, dev)
+    r = rows.numel()
     out_c = torch.empty(r, dtype=torch.int32, device=dev)
     out_dq = torch.empty(r, dtype=torch.float32, device=dev)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
     fn = _build.entry("louvain_scan", "louvain_scan_launch", _SCAN_ARGTYPES)
-    err = fn(c_nbr.data_ptr(), w_nbr.data_ptr(), sigma_nbr.data_ptr(),
-             k_i.data_ptr(), c_own.data_ptr(), sigma_own.data_ptr(),
-             m.data_ptr(), r, d, out_c.data_ptr(), out_dq.data_ptr(),
-             block_rows_for_width(d), _build.current_stream_handle(dev))
-    _build.check(err, "louvain_scan")
+    code = fn(rows.data_ptr(), indptr.data_ptr(), indices.data_ptr(),
+              weights.data_ptr(), comm.data_ptr(), sigma.data_ptr(),
+              k.data_ptr(), m.data_ptr(), r, n_cap, int(width),
+              out_c.data_ptr(), out_dq.data_ptr(), err.data_ptr(),
+              rows_per_block, sort_capacity(width),
+              _build.current_stream_handle(dev))
+    _build.check(code, "louvain_scan")
     louvain_scan.launches += 1
+    return out_c, out_dq, err
+
+
+def louvain_scan(rows, indptr, indices, weights, comm, sigma, k, m, *,
+                 width: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: best (community, dQ) per row of one degree bucket, as (R,)
+    tensors.  ``rows`` are vertex ids (``n_cap`` = a pad row) of degree at
+    most ``width``; ``indptr``/``indices``/``weights`` the CSR;
+    ``comm``/``sigma``/``k`` the (n_cap + 1,) per-vertex state; ``m`` a
+    one-element float32 tensor.
+
+    On CPU tensors this is the plain version; on CUDA tensors it launches
+    the kernel (``launch_louvain_scan``, counted in
+    ``louvain_scan.launches``), then reads the kernel's error flag and
+    raises on a row above ``width``.
+    """
+    if rows.device.type == "cpu":
+        return louvain_scan_rows_ref(rows, indptr, indices, weights, comm,
+                                     sigma, k, m, width=width)
+    out_c, out_dq, err = launch_louvain_scan(
+        rows, indptr, indices, weights, comm, sigma, k, m, width=width)
+    raise_on_error(err, "louvain_scan", width)
     return out_c, out_dq
 
 

@@ -23,7 +23,7 @@ from repro_torch.configs import louvain_arch as tarch
 from repro_torch.core import engine as tengine
 from repro_torch.core.ell_move import (ELLScanner, FusedELLScanner,
                                        move_phase_ell)
-from repro_torch.core.graph import build_csr, to_ell_blocks
+from repro_torch.core.graph import build_csr, ell_bucket_rows
 from repro_torch.core.local_move import best_moves, move_phase
 from repro_torch.core.louvain import singleton_init
 from repro_torch.data import rmat_graph as trmat
@@ -147,13 +147,14 @@ def test_fused_decision_equals_scan_plus_gated_mask_with_hub_rows():
     rng = np.random.default_rng(4)
     tg = trmat(8, 8, seed=2, device="cpu")
     n_cap = tg.n_cap
-    blocks, leftover = to_ell_blocks(tg, (4, 16))
+    rows, leftover = ell_bucket_rows(tg, (4, 16))
+    buckets = list(zip((4, 16), rows))
     assert leftover.numel() > 0
     k, m = tg.vertex_weights(), tg.total_weight()
     comm, sigma, frontier = _state(rng, n_cap, tg.n_valid, k.numpy())
     comm, sigma, frontier = map(torch.from_numpy, (comm, sigma, frontier))
-    fused = FusedELLScanner(tg, blocks, leftover, k, m, gate_fraction=2)
-    plain = ELLScanner(tg, blocks, leftover, k, m)
+    fused = FusedELLScanner(tg, buckets, leftover, k, m, gate_fraction=2)
+    plain = ELLScanner(tg, buckets, leftover, k, m)
     sizes = tengine.segment_sum(fused.count_ones(comm), comm, n_cap + 1)
     for round_ix in (0, 1, 5):
         mv, bc, bdq = fused.decide_moves(comm, sigma, frontier, comm, sizes,

@@ -10,9 +10,10 @@ repository's conftest:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_gpu.py
 
-Exactness: the kernels repeat their plain versions' arithmetic operation for
-operation (row sums in ascending slot order, dQ in the reference's order, no
-FMA), so K1 and K2 agree bit for bit on any weights; K3's weight sums
+Exactness: K1 and K2 add each community's weights in ascending slot order
+(the plain versions add the same values in the same order, plus +0.0 for the
+other slots) and evaluate dQ in the reference's order without FMA, so they
+agree bit for bit on any weights; K3's weight sums
 associate differently and agree bit for bit on integer weights; K4 selects
 weights and never sums them, so it agrees bit for bit on any weights.
 """
@@ -28,7 +29,7 @@ from repro_torch import (LouvainConfig, apply_edge_batch, build_csr, louvain,
                          sbm_graph)
 from repro_torch.kernels.aggregate import coarsen
 from repro_torch.kernels.batch_apply import resolve
-from repro_torch.kernels.louvain_scan import fused, ops, ref
+from repro_torch.kernels.louvain_scan import ops
 
 pytestmark = pytest.mark.gpu
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
@@ -43,57 +44,122 @@ def cuda():
     return torch.device("cuda")
 
 
-def _tiles(rng, n_rows, d, integer_w, dev):
-    n_ids = max(4, d // 8)
-    c = rng.integers(0, n_ids, (n_rows, d)).astype(np.int32)
-    dead = rng.random((n_rows, d)) < 0.3
-    dead[3] = True
-    dead[-8:] = True
-    c[dead] = -1
-    w = (rng.integers(1, 3, (n_rows, d)).astype(np.float32) if integer_w
-         else (rng.random((n_rows, d)) + 0.05).astype(np.float32))
-    w[dead] = 0
-    sig_tab = rng.integers(1, 4, n_ids).astype(np.float32) * 4
-    size_tab = np.where(rng.random(n_ids) < 0.7, 1, 2).astype(np.int32)
-    live = c >= 0
-    sig = np.where(live, sig_tab[np.maximum(c, 0)], 0).astype(np.float32)
-    size = np.where(live, size_tab[np.maximum(c, 0)], 0).astype(np.int32)
-    c_own = rng.integers(0, n_ids, (n_rows, 1)).astype(np.int32)
-    k_i = rng.integers(1, 6, (n_rows, 1)).astype(np.float32)
-    sig_own = (sig_tab[c_own[:, 0]][:, None] + k_i).astype(np.float32)
-    size_own = size_tab[c_own[:, 0]][:, None].astype(np.int32)
-    rows = rng.integers(-2 ** 31, 2 ** 31 - 1, (n_rows, 1)).astype(np.int32)
-    rows[-8:] = SENTINEL
-    front = rng.integers(0, 2, (n_rows, 1)).astype(np.int32)
-    t = lambda x: torch.from_numpy(x).to(dev)
-    scan = [t(x) for x in (c, w, sig, k_i, c_own, sig_own)]
-    fused_in = [t(x) for x in (c, w, sig, size, k_i, c_own, sig_own,
-                               size_own, rows, front)]
+#: Degrees every random CSR holds (three rows each, where they fit).
+SPECIAL_DEGREES = (0, 1, 16, 17, 32, 33, 64, 65, 256)
+
+
+def _random_csr(rng, n, max_deg, integer_w, dev):
+    """A random CSR of ``n`` vertices (``n_cap = n + 8``) and its per-vertex
+    state, as tensors on ``dev``.  Rows hit every degree of
+    ``SPECIAL_DEGREES`` up to ``max_deg``; vertex 0 (degree 16) and vertex
+    1 (degree 65, where it fits) hold only self loops, vertex 2 only
+    neighbours of one community, vertex 3 two neighbours of equal weight
+    in two communities of equal Sigma (an exact dQ tie); a few slots hold
+    the sentinel column (dead, like padding).  Sigma takes three values
+    and most sizes are 1, so ties and the singleton-swap guard occur."""
+    n_cap = n + 8
+    n_ids = max(8, n // 6)
+    lo = rng.random(n) < 0.7
+    deg = np.where(lo, rng.integers(0, 17, n),
+                   rng.integers(min(17, max_deg), max_deg + 1, n))
+    special = [d for d in SPECIAL_DEGREES if d <= max_deg]
+    deg[8:8 + 3 * len(special)] = np.repeat(special, 3)
+    deg[0], deg[2], deg[3] = 16, min(max_deg, 200), 2
+    deg[1] = 65 if max_deg >= 65 else max_deg
+    comm = np.arange(n_cap + 1, dtype=np.int32)
+    comm[:n] = rng.integers(0, n_ids, n)
+    indptr = np.zeros(n_cap + 1, np.int64)
+    indptr[1:n + 1] = np.cumsum(deg)
+    indptr[n + 1:] = indptr[n]
+    cols = rng.integers(0, n, int(indptr[n])).astype(np.int32)
+    for v in (0, 1):
+        cols[indptr[v]:indptr[v + 1]] = v
+    members = np.flatnonzero(comm[:n] == comm[5])
+    cols[indptr[2]:indptr[3]] = rng.choice(members, deg[2])
+    a, b = (np.flatnonzero(comm[:n] == c)[0] for c in np.unique(
+        comm[10:n])[:2])
+    cols[indptr[3]:indptr[4]] = [a, b]
+    comm[3] = n_ids          # in neither community, alone in its own
+    cols[rng.random(len(cols)) < 0.01] = n_cap
+    if integer_w:
+        w = rng.integers(1, 4, len(cols)).astype(np.float32)
+    else:
+        w = (rng.random(len(cols)) + 0.05).astype(np.float32)
+    w[indptr[3]:indptr[4]] = 2.0
+    sigma = (rng.integers(1, 4, n_cap + 1) * 4).astype(np.float32)
+    sigma[comm[b]] = sigma[comm[a]]
+    sizes = np.where(rng.random(n_cap + 1) < 0.7, 1, 2).astype(np.int32)
+    k = rng.integers(1, 6, n_cap + 1).astype(np.float32)
+    front = rng.random(n_cap + 1) < 0.7
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    csr = (t(indptr.astype(np.int32)), t(cols), t(w))
+    state = dict(comm=t(comm), sigma=t(sigma), sizes=t(sizes), k=t(k),
+                 front=t(front))
     m = torch.tensor(float(rng.integers(40, 900)), device=dev)
-    return scan, fused_in, m
+    return csr, state, deg, m
+
+
+def _bucket(rng, deg, n_cap, lo, hi, dev):
+    """The vertices of degree in (lo, hi] (and isolated ones when lo == 0)
+    in random order, then pad rows (``n_cap``)."""
+    sel = np.flatnonzero((deg <= hi) & ((deg > lo) | (lo == 0)))
+    rows = np.concatenate([rng.permutation(sel), np.full(7, n_cap)])
+    return torch.from_numpy(rows.astype(np.int32)).to(dev)
+
+
+def _k1_k2(rows, csr, st, m, width, round_ix, gate_fraction, sentinel,
+           plain):
+    scan = ops.louvain_scan_rows_ref if plain else ops.louvain_scan
+    fuse = ops.louvain_fused_rows_ref if plain else ops.louvain_fused
+    got = scan(rows, *csr, st["comm"], st["sigma"], st["k"], m, width=width)
+    fgot = fuse(rows, *csr, st["comm"], st["sigma"], st["sizes"], st["k"],
+                st["front"], m, round_ix, width=width,
+                gate_fraction=gate_fraction, sentinel=sentinel)
+    return list(got) + list(fgot)
 
 
 @pytest.mark.parametrize("integer_w", [True, False])
 @pytest.mark.parametrize("gate_fraction", [1, 2, 4])
-@pytest.mark.parametrize("d", [16, 64, 256, 1024])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 512, 1024])
 def test_k1_k2_equal_plain_on_the_card(cuda, d, gate_fraction, integer_w):
+    """K1 and K2 bit-equal to their plain versions on a random CSR bucket:
+    every row of degree <= d (all degrees of ``SPECIAL_DEGREES`` that fit,
+    self-loop rows, a one-community row, a tie row), in random order, with
+    pad rows.  Each d launches its own kernel instantiation (one row per
+    thread at 16; one row per warp with sorts of up to d keys above)."""
     rng = np.random.default_rng(d + gate_fraction)
-    scan, fused_in, m = _tiles(rng, 1000, d, integer_w, cuda)
+    csr, st, deg, m = _random_csr(rng, 3000, d, integer_w, cuda)
+    n_cap = st["comm"].numel() - 1
+    rows = _bucket(rng, deg, n_cap, 0, d, cuda)
     n1, n2 = ops.louvain_fused.launches, ops.louvain_scan.launches
-    got = ops.louvain_scan(*scan, m)
-    want = ref.louvain_scan_ref(*scan, m)
-    fgot = ops.louvain_fused(*fused_in, m, 12345, gate_fraction=gate_fraction,
-                             sentinel=SENTINEL)
-    fwant = fused.louvain_fused_ref(*fused_in, m, 12345,
-                                    gate_fraction=gate_fraction,
-                                    sentinel=SENTINEL)
+    got = _k1_k2(rows, csr, st, m, d, 12345, gate_fraction, n_cap, False)
+    want = _k1_k2(rows, csr, st, m, d, 12345, gate_fraction, n_cap, True)
     torch.cuda.synchronize()
     assert (ops.louvain_fused.launches, ops.louvain_scan.launches) == (
         n1 + 1, n2 + 1)
     for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    for a, b in zip(fgot, fwant):
-        assert torch.equal(a, b)
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert bool(got[4].any()) and bool((got[0] < 0).any())
+
+
+@pytest.mark.parametrize("integer_w", [True, False])
+@pytest.mark.parametrize("gate_fraction", [1, 2, 4])
+def test_k1_k2_equal_plain_on_default_buckets(cuda, gate_fraction,
+                                               integer_w):
+    """The default ELL widths (16, 64, 256), each on its own degree range,
+    and two odd widths (5, 40), over two rounds."""
+    rng = np.random.default_rng(100 + gate_fraction)
+    csr, st, deg, m = _random_csr(rng, 4000, 256, integer_w, cuda)
+    n_cap = st["comm"].numel() - 1
+    for lo, hi in ((0, 16), (16, 64), (64, 256), (0, 5), (5, 40)):
+        rows = _bucket(rng, deg, n_cap, lo, hi, cuda)
+        for round_ix in (0, 7):
+            got = _k1_k2(rows, csr, st, m, hi, round_ix, gate_fraction,
+                         n_cap, False)
+            want = _k1_k2(rows, csr, st, m, hi, round_ix, gate_fraction,
+                          n_cap, True)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (lo, hi, round_ix)
 
 
 @pytest.mark.parametrize("total", [0, 1, 2047, 2048, 2049, 100000])
@@ -132,11 +198,30 @@ def test_louvain_on_the_card_reproduces_sbm_goldens(cuda):
 
 def test_wrappers_reject_bad_inputs_on_the_card(cuda):
     rng = np.random.default_rng(0)
-    scan, _, m = _tiles(rng, 64, 16, True, cuda)
+    csr, st, deg, m = _random_csr(rng, 500, 64, True, cuda)
+    n_cap = st["comm"].numel() - 1
+    rows = _bucket(rng, deg, n_cap, 0, 64, cuda)
+    args = [st["comm"], st["sigma"], st["k"]]
     with pytest.raises(ValueError):
-        ops.louvain_scan(scan[0], scan[1].double(), *scan[2:], m)
+        ops.louvain_scan(rows, csr[0], csr[1], csr[2].double(), *args, m,
+                         width=64)
     with pytest.raises(ValueError):
-        ops.louvain_scan(*scan, m.cpu())
+        ops.louvain_scan(rows, *csr, *args, m.cpu(), width=64)
+    with pytest.raises(ValueError):
+        ops.louvain_scan(rows, *csr, st["comm"].cpu(), *args[1:], m,
+                         width=64)
+    with pytest.raises(ValueError, match="width 16"):
+        ops.louvain_scan(rows, *csr, *args, m, width=16)
+    with pytest.raises(ValueError, match="width 16"):
+        ops.louvain_fused(rows, *csr, st["comm"], st["sigma"], st["sizes"],
+                          st["k"], st["front"], m, 0, width=16,
+                          gate_fraction=2, sentinel=n_cap)
+    with pytest.raises(ValueError):
+        ops.louvain_fused(rows, *csr, st["comm"], st["sigma"],
+                          st["sizes"].long(), st["k"], st["front"], m, 0,
+                          width=64, gate_fraction=2, sentinel=n_cap)
+    with pytest.raises(ValueError, match="outside"):
+        ops.louvain_scan(rows + n_cap + 1, *csr, *args, m, width=64)
     x = torch.zeros(10, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         coarsen.coarsen_groups(x, x, x.float()[::2], sent=1)

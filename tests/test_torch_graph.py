@@ -150,6 +150,29 @@ def test_to_ell_blocks_identical(corpora, widths, row_align):
         np.testing.assert_array_equal(jleft, tleft.numpy())
 
 
+@pytest.mark.parametrize("widths,row_align", [((16, 64, 256, 1024), 8),
+                                              ((2, 4, 8), 8), ((3, 5), 4)])
+def test_ell_bucket_rows_identical(corpora, widths, row_align):
+    """The rows-only bucketing (what the kernels take on the card) gives
+    the reference's ELL rows and leftover ids, and ``ell_block`` rebuilds
+    each bucket's padded matrices from them."""
+    cases = list(corpora.values()) + [(jrmat(8, 8, seed=1),
+                                       trmat(8, 8, seed=1, device="cpu"))]
+    for jg, tg in cases:
+        jblocks, jleft = jgraph.to_ell_blocks(jg, widths, row_align=row_align)
+        rows, tleft = tgraph.ell_bucket_rows(tg, widths, row_align=row_align)
+        assert len(rows) == len(jblocks)
+        for width, jb, r in zip(widths, jblocks, rows):
+            assert r.dtype == torch.int32
+            np.testing.assert_array_equal(np.asarray(jb.rows), r.numpy())
+            tb = tgraph.ell_block(tg.indptr, tg.indices, tg.weights, r,
+                                  width)
+            np.testing.assert_array_equal(np.asarray(jb.cols),
+                                          tb.cols.numpy())
+            np.testing.assert_array_equal(np.asarray(jb.w), tb.w.numpy())
+        np.testing.assert_array_equal(jleft, tleft.numpy())
+
+
 def test_rebucket_round_trip_bit_identical():
     jg = jrmat(7, 8, seed=4)
     tg = trmat(7, 8, seed=4, device="cpu")

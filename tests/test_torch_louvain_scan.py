@@ -2,10 +2,18 @@
 the PyTorch port against the TPU kernels run in Pallas interpret mode
 (``louvain_fused_pallas`` / ``louvain_scan_pallas``), on the CPU.
 
-Tiles are made from a seed with numpy: widths 16, 64 and 256, gate
-fractions 1, 2 and 4, pad rows (vertex id = sentinel, all slots dead), dead
-slots, all-dead rows and singleton ties.  On integer-valued weights every
-output is exact.  On random float weights the reference's pairwise sums
+Two levels.  The tile functions (``louvain_scan_ref`` /
+``louvain_fused_ref``) take pre-gathered (R, D) tiles made from a seed with
+numpy: widths 16, 64 and 256, gate fractions 1, 2 and 4, pad rows (vertex
+id = sentinel, all slots dead), dead slots, all-dead rows and singleton
+ties.  The row-level plain versions (``louvain_scan_rows_ref`` /
+``louvain_fused_rows_ref``), which the kernels on the card must equal, take
+a degree bucket's rows and the CSR; they must equal the JAX package's
+composition ``to_ell_blocks`` + ``prepare_*_inputs`` + Pallas kernel on the
+real buckets of the golden corpora and of small R-MAT graphs with self
+loops, for every width, gate fraction 1, 2 and 4 and two rounds.
+
+On integer-valued weights every output is exact.  On random float weights the reference's pairwise sums
 associate differently, so ``best_dq`` agrees to 1e-6 relative to the
 tile's largest |dQ| (a row's dQ is a difference of terms of that size), and
 ``best_c``/``do_move`` agree wherever the best community's dQ leads the
@@ -18,13 +26,17 @@ import numpy as np
 import pytest
 import torch
 
+from golden import capture_engine_golden as capture
+
 from repro.core.graph import build_csr as jbuild_csr, to_ell_blocks as jell
+from repro.data import rmat_graph as jrmat
 from repro.kernels.louvain_scan import ops as jops
 from repro.kernels.louvain_scan.fused import louvain_fused_pallas
 from repro.kernels.louvain_scan.louvain_scan import louvain_scan_pallas
 
-from repro_torch.core.graph import build_csr, to_ell_blocks
-from repro_torch.kernels.louvain_scan import ops, ref
+from repro_torch.core.graph import build_csr, ell_bucket_rows, to_ell_blocks
+from repro_torch.interop import graph_from_numpy
+from repro_torch.kernels.louvain_scan import louvain_scan as k2, ops, ref
 from repro_torch.kernels.louvain_scan.fused import louvain_fused_ref
 
 SENTINEL = 1 << 20
@@ -94,9 +106,9 @@ def _lead(t):
     community, and the best dQ itself (rows without a candidate: inf, 0)."""
     c, w = t["c"], t["w"].astype(np.float64)
     m = float(t["m"])
-    lead = np.full(R, np.inf)
-    best = np.zeros(R)
-    for r in range(R):
+    lead = np.full(len(c), np.inf)
+    best = np.zeros(len(c))
+    for r in range(len(c)):
         own = t["c_own"][r, 0]
         k_own = w[r][c[r] == own].sum()
         per = {}
@@ -153,19 +165,187 @@ def test_plain_kernels_match_pallas_interpret(d, gate_fraction, integer_w):
     np.testing.assert_array_equal(ft[2][decided], fj[2][decided])
 
 
+WIDTHS = (16, 64, 256)
+
+
+def _rmat_with_loops(scale, seed, float_w):
+    """A JAX R-MAT graph rebuilt with self loops on a fifth of its vertices
+    and random integer (or float) weights."""
+    rng = np.random.default_rng(seed)
+    g = jrmat(scale, 8, seed=seed)
+    e = int(g.e_valid)
+    src, dst = np.asarray(g.src)[:e], np.asarray(g.indices)[:e]
+    und = src < dst
+    u, v = src[und], dst[und]
+    n = int(g.n_valid)
+    loops = rng.choice(n, n // 5, replace=False)
+    u, v = np.concatenate([u, loops]), np.concatenate([v, loops])
+    w = (rng.random(len(u)) + 0.05 if float_w
+         else rng.integers(1, 4, len(u))).astype(np.float32)
+    return jbuild_csr(u, v, w, n, symmetrize=True)
+
+
+def _port(jg):
+    return graph_from_numpy(np.asarray(jg.indptr), np.asarray(jg.indices),
+                            np.asarray(jg.weights), np.asarray(jg.src),
+                            int(jg.n_valid), int(jg.e_valid), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def row_corpora():
+    graphs = dict(capture.corpora())
+    graphs["rmat_loops"] = _rmat_with_loops(9, 3, float_w=False)
+    graphs["rmat_float"] = _rmat_with_loops(9, 4, float_w=True)
+    return graphs
+
+
+def _row_state(seed, jg):
+    """A mid-sweep state as numpy arrays: half of the vertices still
+    singletons (equal-degree singleton neighbours tie exactly), the others
+    in communities drawn from n/3 ids; Sigma and sizes consistent with
+    them, a random frontier."""
+    rng = np.random.default_rng(seed)
+    n, n_cap = int(jg.n_valid), jg.n_cap
+    comm = np.arange(n_cap + 1, dtype=np.int32)
+    joined = rng.random(n) < 0.5
+    comm[:n][joined] = rng.integers(0, max(n // 3, 1), int(joined.sum()))
+    k = np.array(jg.vertex_weights())
+    sigma = np.bincount(comm, weights=k, minlength=n_cap + 1)
+    sizes = np.bincount(comm[:n], minlength=n_cap + 1)
+    front = rng.random(n_cap + 1) < 0.7
+    front[n:] = False
+    return dict(comm=comm, sigma=sigma.astype(np.float32), k=k,
+                sizes=sizes.astype(np.int32), front=front)
+
+
+@pytest.mark.parametrize("gate_fraction", [1, 2, 4])
+@pytest.mark.parametrize("name", ["lesmis", "sbm", "ring_of_cliques", "gnp",
+                                  "rmat_loops", "rmat_float"])
+def test_row_plain_versions_match_jax_composition(row_corpora, name,
+                                                  gate_fraction):
+    """On every bucket of the real graph, the row-level plain K1/K2 equal
+    ``to_ell_blocks`` + ``prepare_*_inputs`` + the Pallas kernel."""
+    jg = row_corpora[name]
+    tg = _port(jg)
+    n_cap = tg.n_cap
+    st = _row_state(gate_fraction, jg)
+    t = {key: torch.from_numpy(x) for key, x in st.items()}
+    j = {key: jnp.asarray(x) for key, x in st.items()}
+    m = np.float32(np.asarray(jg.weights).sum() * 0.5)
+    m_j, m_t = jnp.float32(m), torch.tensor(m)
+    csr = (tg.indptr, tg.indices, tg.weights)
+    jblocks, _ = jell(jg, WIDTHS)
+    trows, _ = ell_bucket_rows(tg, WIDTHS)
+    exact = name != "rmat_float"
+    for width, jb, rows in zip(WIDTHS, jblocks, trows):
+        r = rows.numel()
+        jins = jops.prepare_ell_inputs(jb, j["comm"], j["sigma"], j["k"],
+                                       n_cap)
+        jc, jdq = louvain_scan_pallas(*jins, m_j, block_rows=r,
+                                      interpret=True)
+        tc, tdq = ops.louvain_scan_rows_ref(rows, *csr, t["comm"],
+                                            t["sigma"], t["k"], m_t,
+                                            width=width)
+        jfins = jops.prepare_fused_inputs(jb, j["comm"], j["sigma"],
+                                          j["sizes"], j["k"], j["front"],
+                                          n_cap)
+        tile = {key: np.asarray(x) for key, x in zip(
+            ("c", "w", "sig", "k_i", "c_own", "sig_own"), jins)}
+        tile["m"] = m
+        lead, best = _lead(tile)
+        clear = lead > 1e-5
+        jc, jdq = np.asarray(jc)[:, 0], np.asarray(jdq)[:, 0]
+        for round_ix in (0, 7):
+            fj = louvain_fused_pallas(*jfins, m_j, jnp.int32(round_ix),
+                                      gate_fraction=gate_fraction,
+                                      sentinel=n_cap, block_rows=r,
+                                      interpret=True)
+            ft = ops.louvain_fused_rows_ref(
+                rows, *csr, t["comm"], t["sigma"], t["sizes"], t["k"],
+                t["front"], m_t, round_ix, width=width,
+                gate_fraction=gate_fraction, sentinel=n_cap)
+            fj = [np.asarray(x)[:, 0] for x in fj]
+            ft = [x.numpy() for x in ft]
+            if exact:
+                for a, b in zip(ft, fj):
+                    np.testing.assert_array_equal(a, b)
+                continue
+            fin = np.isfinite(jdq)
+            scale = np.abs(jdq[fin]).max() if fin.any() else 0.0
+            np.testing.assert_allclose(ft[1], fj[1], rtol=1e-6,
+                                       atol=1e-6 * scale)
+            np.testing.assert_array_equal(ft[0][clear], fj[0][clear])
+            decided = clear & (np.abs(best) > 1e-5)
+            np.testing.assert_array_equal(ft[2][decided], fj[2][decided])
+        if exact:
+            np.testing.assert_array_equal(tc.numpy(), jc)
+            np.testing.assert_array_equal(tdq.numpy(), jdq)
+        else:
+            fin = np.isfinite(jdq)
+            scale = np.abs(jdq[fin]).max() if fin.any() else 0.0
+            np.testing.assert_allclose(tdq.numpy(), jdq, rtol=1e-6,
+                                       atol=1e-6 * scale)
+            np.testing.assert_array_equal(tc.numpy()[clear], jc[clear])
+
+
+def test_row_corpora_reach_every_bucket_and_row_case(row_corpora):
+    """The R-MAT graphs fill all three buckets and hold self-loop slots, and
+    the integer-weighted one has exact dQ ties between communities."""
+    for name in ("rmat_loops", "rmat_float"):
+        tg = _port(row_corpora[name])
+        rows, _ = ell_bucket_rows(tg, WIDTHS)
+        assert min(int((r < tg.n_cap).sum()) for r in rows) > 0, name
+        e = tg.e_valid
+        assert bool((tg.src[:e] == tg.indices[:e]).any()), name
+    jg = row_corpora["rmat_loops"]
+    m = np.float32(np.asarray(jg.weights).sum() * 0.5)
+    jblocks, _ = jell(jg, WIDTHS)
+    for seed in (1, 2, 4):          # the states of the gate fractions
+        st = {key: jnp.asarray(x) for key, x in _row_state(seed, jg).items()}
+        ties = 0
+        for jb in jblocks:
+            tile = dict(zip(("c", "w", "sig", "k_i", "c_own", "sig_own"),
+                            map(np.asarray, jops.prepare_ell_inputs(
+                                jb, st["comm"], st["sigma"], st["k"],
+                                jg.n_cap))), m=m)
+            ties += int((_lead(tile)[0] == 0).sum())
+        assert ties > 0, seed
+
+
 def test_wrappers_on_cpu_take_the_plain_version_and_count_nothing():
-    t = make_tiles(5, 16, True)
-    m = torch.tensor(t["m"])
+    jg = _rmat_with_loops(7, 5, float_w=False)
+    tg = _port(jg)
+    st = {key: torch.from_numpy(x) for key, x in _row_state(5, jg).items()}
+    m = tg.total_weight()
+    csr = (tg.indptr, tg.indices, tg.weights)
     before = (ops.louvain_scan.launches, ops.louvain_fused.launches)
-    got = ops.louvain_scan(*_scan_args(t, "torch"), m)
-    want = ref.louvain_scan_ref(*_scan_args(t, "torch"), m)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    fgot = ops.louvain_fused(*_fused_args(t, "torch"), m, 3,
-                             gate_fraction=2, sentinel=SENTINEL)
-    fwant = louvain_fused_ref(*_fused_args(t, "torch"), m, 3,
-                              gate_fraction=2, sentinel=SENTINEL)
-    assert all(torch.equal(a, b) for a, b in zip(fgot, fwant))
+    rows_all, _ = ell_bucket_rows(tg, WIDTHS)
+    for width, rows in zip(WIDTHS, rows_all):
+        got = ops.louvain_scan(rows, *csr, st["comm"], st["sigma"], st["k"],
+                               m, width=width)
+        want = ops.louvain_scan_rows_ref(rows, *csr, st["comm"], st["sigma"],
+                                         st["k"], m, width=width)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        args = (rows, *csr, st["comm"], st["sigma"], st["sizes"], st["k"],
+                st["front"], m, 3)
+        fgot = ops.louvain_fused(*args, width=width, gate_fraction=2,
+                                 sentinel=tg.n_cap)
+        fwant = ops.louvain_fused_rows_ref(*args, width=width,
+                                           gate_fraction=2,
+                                           sentinel=tg.n_cap)
+        assert all(torch.equal(a, b) for a, b in zip(fgot, fwant))
     assert (ops.louvain_scan.launches, ops.louvain_fused.launches) == before
+
+
+def test_row_plain_versions_reject_a_row_above_the_width():
+    jg = _rmat_with_loops(7, 5, float_w=False)
+    tg = _port(jg)
+    st = {key: torch.from_numpy(x) for key, x in _row_state(5, jg).items()}
+    rows, _ = ell_bucket_rows(tg, WIDTHS)
+    with pytest.raises(ValueError, match="width 16"):
+        ops.louvain_scan(rows[1], tg.indptr, tg.indices, tg.weights,
+                         st["comm"], st["sigma"], st["k"],
+                         tg.total_weight(), width=16)
 
 
 def test_prepare_inputs_match_reference_gathers():
@@ -208,13 +388,16 @@ def test_prepare_inputs_match_reference_gathers():
             np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
 
-@pytest.mark.parametrize("width,rows", [(16, 8), (64, 8), (256, 8),
-                                        (1024, 6), (6144, 1)])
+@pytest.mark.parametrize("width,rows", [(16, 256), (64, 8), (256, 8),
+                                        (512, 8), (1024, 4)])
 def test_block_rows_for_width_fit_shared_memory(width, rows):
     assert ops.block_rows_for_width(width) == rows
-    assert rows * width * 8 <= 48 * 1024
+    assert (k2.warps_for_width(width) * k2.sort_capacity(width) * 12
+            <= 48 * 1024)
 
 
 def test_block_rows_for_width_rejects_too_wide_rows():
     with pytest.raises(ValueError):
-        ops.block_rows_for_width(8192)
+        ops.block_rows_for_width(2048)
+    with pytest.raises(ValueError):
+        ops.block_rows_for_width(0)
