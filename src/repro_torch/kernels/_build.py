@@ -3,9 +3,9 @@
 Each source under ``repro_torch/csrc`` compiles on first use into its own
 shared library with a plain C interface, under ``build/kernels`` at the root
 of the checkout (listed in ``.gitignore``).  The file name carries a hash of
-the source and the flags, so an edited source never loads a stale build;
-a finished build is renamed into place atomically, so concurrent processes
-can build the same library safely.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source never loads a stale build; a finished build is renamed into place
+atomically, so concurrent processes can build the same library safely.
 """
 
 from __future__ import annotations
@@ -53,6 +53,9 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / SOURCES[name]).read_bytes()
+    # The shared headers are part of every source's build.
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

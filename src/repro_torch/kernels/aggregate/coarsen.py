@@ -14,12 +14,13 @@ before it:
   pos[i]             = number of emits before slot i (the dense group index)
 
 Bound on the card: bytes — 12 B per slot read and 17 B per slot written
-once, at 3.35 TB/s.  The kernel is a three-launch segmented scan (chunk
-reduce, one-block carry scan, chunk finalise) in place of the TPU's
+once, at 3.35 TB/s.  The kernel is one launch: a single-pass segmented scan
+with decoupled look-back over 4096-slot tiles in place of the TPU's
 sequential SMEM carry chain; see the source's header.  Group keys and
 positions are exact; weight sums agree with the reference bit for bit when
-they are exact in float32 (integer-valued weights below 2^24) and to float32
-rounding otherwise.
+they are exact in float32 (integer-valued weights below 2^24) and otherwise
+within m * 2^-23 * sum |w| over the m slots summed.  The kernel's output is
+bit-identical from call to call, float weights included.
 """
 
 from __future__ import annotations
@@ -61,13 +62,13 @@ def coarsen_groups_ref(s_ci: torch.Tensor, s_cj: torch.Tensor,
     return emit, pos, prev_ci, prev_cj, g_w
 
 
-#: Slots per CUDA block of the kernel (``kChunk`` in ``csrc/coarsen.cu``,
-#: which refuses any other value).
-CHUNK_SLOTS = 2048
+#: Slots per tile of the kernel (``kTile`` in ``csrc/segscan.cuh``, which
+#: the kernel checks: it refuses any other value).
+CHUNK_SLOTS = 4096
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-             + [ctypes.c_void_p] * 8)
+             + [ctypes.c_void_p] * 7)
 
 
 def coarsen_groups(s_ci: torch.Tensor, s_cj: torch.Tensor, s_w: torch.Tensor,
@@ -91,9 +92,9 @@ def coarsen_groups(s_ci: torch.Tensor, s_cj: torch.Tensor, s_w: torch.Tensor,
         raise ValueError(f"coarsen_groups takes fewer than 2^31 slots, "
                          f"got {total}")
     fn = _build.entry("coarsen", "coarsen_groups_launch", _ARGTYPES)
-    n_chunks = (total + CHUNK_SLOTS) // CHUNK_SLOTS   # ceil((total+1)/chunk)
-    int_scratch = torch.empty(3 * n_chunks, dtype=torch.int32, device=dev)
-    float_scratch = torch.empty(2 * n_chunks, dtype=torch.float32, device=dev)
+    n_tiles = (total + CHUNK_SLOTS) // CHUNK_SLOTS   # ceil((total+1)/tile)
+    # The tiles' status words and the tile counter, zeroed on every call.
+    scratch = torch.zeros(2 * n_tiles + 1, dtype=torch.int64, device=dev)
     n = total + 1
     emit = torch.empty(n, dtype=torch.bool, device=dev)
     pos = torch.empty(n, dtype=torch.int32, device=dev)
@@ -101,10 +102,9 @@ def coarsen_groups(s_ci: torch.Tensor, s_cj: torch.Tensor, s_w: torch.Tensor,
     g_dst = torch.empty(n, dtype=torch.int32, device=dev)
     g_w = torch.empty(n, dtype=torch.float32, device=dev)
     err = fn(s_ci.data_ptr(), s_cj.data_ptr(), s_w.data_ptr(), total,
-             int(sent), CHUNK_SLOTS, int_scratch.data_ptr(),
-             float_scratch.data_ptr(),
-             emit.data_ptr(), pos.data_ptr(), g_src.data_ptr(),
-             g_dst.data_ptr(), g_w.data_ptr(),
+             int(sent), CHUNK_SLOTS, scratch.data_ptr(), emit.data_ptr(),
+             pos.data_ptr(), g_src.data_ptr(), g_dst.data_ptr(),
+             g_w.data_ptr(),
              _build.current_stream_handle(dev))
     _build.check(err, "coarsen_groups")
     coarsen_groups.launches += 1

@@ -22,8 +22,9 @@ Weights are selected, never summed, so the kernel equals the plain version
 bit for bit (the float ``!=`` compare included).  Bound on the card: bytes —
 13 B per slot read (src, dst, w, batch flag) and 18 B per slot written
 (keep, pos, src, dst, w, changed), once each, at 3.35 TB/s.  The kernel is
-two scans over the sorted list (an exclusive sum of ``keep`` and a max of
-each group's start index) in three launches; see the source's header.
+two exact scans over the sorted list (an exclusive sum of ``keep`` and a max
+of each group's start index) in one launch, a single-pass scan with
+decoupled look-back over 4096-slot tiles; see the source's header.
 """
 
 from __future__ import annotations
@@ -75,9 +76,9 @@ def resolve_groups_ref(s_src: torch.Tensor, s_dst: torch.Tensor,
     return keep, pos, prev_src, prev_dst, prev_w, changed
 
 
-#: Slots per CUDA block of the kernel (``kChunk`` in ``csrc/batch_apply.cu``,
-#: which refuses any other value).
-CHUNK_SLOTS = 2048
+#: Slots per tile of the kernel (``kTile`` in ``csrc/segscan.cuh``, which
+#: the kernel checks: it refuses any other value).
+CHUNK_SLOTS = 4096
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
              + [ctypes.c_void_p] * 8)
@@ -105,8 +106,9 @@ def resolve_groups(s_src: torch.Tensor, s_dst: torch.Tensor,
         raise ValueError(f"resolve_groups takes fewer than 2^31 slots, "
                          f"got {total}")
     fn = _build.entry("batch_apply", "resolve_groups_launch", _ARGTYPES)
-    n_chunks = (total + CHUNK_SLOTS) // CHUNK_SLOTS   # ceil((total+1)/chunk)
-    scratch = torch.empty(4 * n_chunks, dtype=torch.int32, device=dev)
+    n_tiles = (total + CHUNK_SLOTS) // CHUNK_SLOTS   # ceil((total+1)/tile)
+    # The tiles' status words and the tile counter, zeroed on every call.
+    scratch = torch.zeros(2 * n_tiles + 1, dtype=torch.int64, device=dev)
     n = total + 1
     keep = torch.empty(n, dtype=torch.bool, device=dev)
     pos = torch.empty(n, dtype=torch.int32, device=dev)

@@ -3,12 +3,14 @@
 The plain version of K3 (``coarsen_groups_ref``) is held against the TPU
 kernel in Pallas interpret mode (``coarsen_groups_pallas``) over the first
 total + 1 records: several tiles (more than 512 slots, and 128-slot
-blocks), groups that span tiles, and all-padding input.  The port's
+blocks), groups that span tiles, and all-padding input, and on one group
+over many of the CUDA kernel's 4096-slot tiles.  The port's
 ``aggregate_graph`` (sort branch and kernel branch) is held against the JAX
 ``aggregate_graph`` (sort and pallas backends) and the NumPy oracle
 ``tests/_oracle._aggregate``.  Exact on integer weights; on float weights
 float32-close (rtol 1e-5: group sums of up to a few hundred terms taken in
-another association).
+another association; for groups over many tiles, |g_w - plain| <= m * 2^-23
+* sum |w| over the m slots summed).
 """
 
 import jax.numpy as jnp
@@ -16,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _k3_bounds import k3_tolerances
 from _oracle import aggregate_oracle
 
 from repro.core.aggregate import (aggregate_graph as jaggregate,
@@ -79,6 +82,45 @@ def test_plain_k3_matches_pallas_interpret(case, integer_w):
             np.testing.assert_allclose(a.numpy(), b, rtol=1e-5, err_msg=name)
         else:
             np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
+
+
+#: Slots per tile of the one-pass CUDA kernel (``csrc/segscan.cuh``).
+TILE = 4096
+
+
+@pytest.mark.parametrize("case", [
+    dict(total=25000, n_keys=60, pad=7, long_group=5 * TILE + 3, block=512),
+    dict(total=25000, n_keys=SENT * SENT, pad=300, long_group=5 * TILE + 3,
+         block=4096),
+    dict(total=3 * TILE + 1, n_keys=1, pad=0, long_group=3 * TILE + 1,
+         block=4096),
+], ids=["group-spans-kernel-tiles", "group-spans-kernel-tiles-big-blocks",
+        "one-group"])
+@pytest.mark.parametrize("integer_w", [True, False])
+def test_plain_k3_matches_pallas_interpret_across_kernel_tiles(case,
+                                                               integer_w):
+    """One group over many of the CUDA kernel's 4096-slot tiles: keys and
+    positions exact, sums exact on integer weights and on float weights
+    within the stated and the tight tolerance (``_k3_bounds``)."""
+    ci, cj, w = sorted_slots(11, case["total"], case["n_keys"], case["pad"],
+                             integer_w, case["long_group"])
+    want = coarsen_groups_pallas(jnp.asarray(ci), jnp.asarray(cj),
+                                 jnp.asarray(w), sent=SENT,
+                                 block=case["block"], interpret=True)
+    got = coarsen_groups_ref(torch.from_numpy(ci), torch.from_numpy(cj),
+                             torch.from_numpy(w), sent=SENT)
+    n = case["total"] + 1
+    for a, b in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b)[:n])
+    gw = np.asarray(want[4])[:n].astype(np.float64)
+    if integer_w:
+        np.testing.assert_array_equal(got[4].numpy(), np.asarray(want[4])[:n])
+    else:
+        err = np.abs(got[4].numpy().astype(np.float64) - gw)
+        stated, tight = k3_tolerances(ci, cj, w)
+        assert (err <= stated).all() and (err <= tight).all()
+    assert int(got[0].sum()) == len(np.unique(ci.astype(np.int64) * SENT
+                                              + cj)) - (case["pad"] > 0)
 
 
 def test_k3_wrapper_on_cpu_is_the_plain_version():

@@ -3,7 +3,8 @@
 The plain version of K4 (``resolve_groups_ref``) is held against the TPU
 kernel in Pallas interpret mode (``resolve_groups_pallas``) over the first
 total + 1 records, with small blocks so the carry crosses tiles, groups
-longer than a tile, lists with no dead slot and float weights; the Pallas
+longer than a tile (one over many of the CUDA kernel's 4096-slot tiles),
+lists with no dead slot and float weights; the Pallas
 tail past total + 1 must hold no keep and no change.  The port's
 ``apply_edge_batch`` (``"sort"`` and ``"kernel"``, the latter through the
 plain version of K4 on the CPU) is held against the JAX ``apply_edge_batch``
@@ -81,8 +82,13 @@ def sorted_slot_list(seed: int, n_groups: int, dead: int, long_group: int,
     dict(n_groups=500, dead=200, long_group=5, block=512, integer_w=False),
     dict(n_groups=1, dead=0, long_group=0, block=128, integer_w=True),
     dict(n_groups=0, dead=130, long_group=0, block=128, integer_w=True),
+    dict(n_groups=400, dead=50, long_group=5 * 4096 + 3, block=512,
+         integer_w=False),
+    dict(n_groups=3, dead=0, long_group=3 * 4096 + 1, block=4096,
+         integer_w=True),
 ], ids=["multi-tile", "no-dead-slots", "group-longer-than-a-tile",
-        "default-block", "one-group", "all-dead"])
+        "default-block", "one-group", "all-dead",
+        "group-spans-kernel-tiles", "group-spans-kernel-tiles-big-blocks"])
 def test_resolve_ref_equals_pallas_interpret(case):
     block = case.pop("block")
     src, dst, w, b = sorted_slot_list(7 + block, **case)

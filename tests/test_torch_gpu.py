@@ -14,8 +14,10 @@ Exactness: K1 and K2 add each community's weights in ascending slot order
 (the plain versions add the same values in the same order, plus +0.0 for the
 other slots) and evaluate dQ in the reference's order without FMA, so they
 agree bit for bit on any weights; K3's weight sums
-associate differently and agree bit for bit on integer weights; K4 selects
-weights and never sums them, so it agrees bit for bit on any weights.
+associate differently and agree bit for bit on integer weights and within
+m * 2^-23 * sum |w| over the m slots summed on float weights, and K3 gives
+bit-identical outputs from call to call; K4 selects weights and never sums
+them, so it agrees bit for bit on any weights.
 """
 
 import os
@@ -24,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from _k3_bounds import k3_tolerances
 from repro_torch import (LouvainConfig, apply_edge_batch, build_csr, louvain,
                          louvain_dynamic, make_edge_batch, sbm_edge_stream,
                          sbm_graph)
@@ -162,7 +165,8 @@ def test_k1_k2_equal_plain_on_default_buckets(cuda, gate_fraction,
                 assert torch.equal(a, b), (lo, hi, round_ix)
 
 
-@pytest.mark.parametrize("total", [0, 1, 2047, 2048, 2049, 100000])
+@pytest.mark.parametrize("total", [0, 1, 2047, 2048, 2049, 4095, 4096, 4097,
+                                   100000])
 def test_k3_equal_plain_on_the_card(cuda, total):
     rng = np.random.default_rng(total)
     n_ids = 300
@@ -182,6 +186,111 @@ def test_k3_equal_plain_on_the_card(cuda, total):
     assert coarsen.coarsen_groups.launches == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+#: Slots per tile of the one-pass K3/K4 kernels.
+TILE = coarsen.CHUNK_SLOTS
+
+
+def _k3_slots(rng, total, n_ids, long_group=0, integer_w=True, dead=0):
+    """A (ci, cj)-sorted slot list of ``total`` slots: random keys over
+    ``n_ids`` x ``n_ids``, one key repeated ``long_group`` times and
+    ``dead`` trailing sentinel slots."""
+    live = total - dead
+    keys = np.sort(rng.integers(0, n_ids * n_ids, live - long_group))
+    mid = keys[len(keys) // 2] if len(keys) else 7
+    keys = np.sort(np.concatenate([keys, np.full(long_group, mid)]))
+    return _k3_from_keys(rng, keys, n_ids, integer_w, dead)
+
+
+def _k3_from_keys(rng, keys, n_ids, integer_w=True, dead=0):
+    ci = np.concatenate([keys // n_ids, np.full(dead, n_ids)]).astype(np.int32)
+    cj = np.concatenate([keys % n_ids, np.full(dead, n_ids)]).astype(np.int32)
+    total = len(ci)
+    if integer_w:
+        w = rng.integers(1, 5, total).astype(np.float32)
+    else:
+        w = (rng.random(total) + 0.05).astype(np.float32)
+    return ci, cj, w
+
+
+def _boundary_keys(rng, total, boundary, n_ids):
+    """Sorted keys below n_ids^2 whose group changes exactly at slot
+    ``boundary``: the ``TILE`` + 5 slots before it hold one key (a group
+    across a tile that ends on the boundary), the slots from it on hold
+    larger keys."""
+    half = n_ids * n_ids // 2
+    left = np.sort(rng.integers(0, half - 1, boundary))
+    left[-min(boundary, TILE + 5):] = half - 1
+    right = np.sort(rng.integers(half, 2 * half, total - boundary))
+    return np.concatenate([left, right])
+
+
+def _k3_check(cuda, ci, cj, w, sent, integer_w, calls=10):
+    """K3 on the card against its plain version: keys, flags and positions
+    exact, weight sums exact on integer weights and otherwise within both
+    the stated m * 2^-23 * sum |w| and the tighter sqrt(m) * 2^-23 * sum |w|
+    (``_k3_bounds``); ``calls`` launches give bit-identical outputs."""
+    args = [torch.from_numpy(x).to(cuda) for x in (ci, cj, w)]
+    before = coarsen.coarsen_groups.launches
+    got = coarsen.coarsen_groups(*args, sent=sent)
+    want = coarsen.coarsen_groups_ref(*args, sent=sent)
+    torch.cuda.synchronize()
+    assert coarsen.coarsen_groups.launches == before + 1
+    for a, b in zip(got[:4], want[:4]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if integer_w:
+        assert torch.equal(got[4], want[4])
+    else:
+        err = (got[4].double() - want[4].double()).abs().cpu().numpy()
+        stated, tight = k3_tolerances(ci, cj, w)
+        assert (err <= stated).all() and (err <= tight).all()
+    for _ in range(calls - 1):
+        again = coarsen.coarsen_groups(*args, sent=sent)
+        for a, b in zip(again, got):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    return got
+
+
+@pytest.mark.parametrize("integer_w", [True, False])
+@pytest.mark.parametrize("total,long_group", [
+    (70000 + 5000, 70000), (1000003 + 5000, 1000003), (1000003, 1000003),
+    (TILE + 1, 0), (300001, 0)])
+def test_k3_long_groups_and_float_weights_on_the_card(cuda, total,
+                                                       long_group, integer_w):
+    """One key over 70,000 and over 1,000,003 slots (a group across
+    hundreds of tiles, once the whole list), integer and float weights;
+    float sums within the stated and the tight tolerance; 10 calls
+    bit-identical."""
+    rng = np.random.default_rng(total + long_group)
+    ci, cj, w = _k3_slots(rng, total, 300, long_group, integer_w,
+                          dead=min(total - long_group, 1000))
+    _k3_check(cuda, ci, cj, w, 300, integer_w)
+
+
+@pytest.mark.parametrize("boundary", [TILE, 2 * TILE, 3 * TILE - 1])
+def test_k3_group_ending_on_a_tile_boundary_on_the_card(cuda, boundary):
+    rng = np.random.default_rng(boundary)
+    keys = _boundary_keys(rng, 4 * TILE + 17, boundary, 40)
+    ci, cj, w = _k3_from_keys(rng, keys, 40)
+    got = _k3_check(cuda, ci, cj, w, 40, True, calls=3)
+    assert bool(got[0][boundary]) and int(got[4][boundary]) >= TILE + 5
+
+
+@pytest.mark.parametrize("integer_w", [True, False])
+def test_k3_offset_views_on_the_card(cuda, integer_w):
+    """Inputs that are views with an offset (``x[1:]``, not 16-byte
+    aligned) take the kernel's scalar loads and give the same records."""
+    rng = np.random.default_rng(5)
+    ci, cj, w = _k3_slots(rng, 3 * TILE + 101, 300, long_group=5000,
+                          integer_w=integer_w, dead=50)
+    args = [torch.from_numpy(np.concatenate([x[:1], x])).to(cuda)[1:]
+            for x in (ci, cj, w)]
+    assert all(a.is_contiguous() and a.data_ptr() % 16 for a in args)
+    got = coarsen.coarsen_groups(*args, sent=300)
+    want = _k3_check(cuda, ci, cj, w, 300, integer_w, calls=1)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
 def test_louvain_on_the_card_reproduces_sbm_goldens(cuda):
@@ -250,7 +359,8 @@ def _resolve_slots(rng, total, n_ids, dead, long_group):
 
 
 @pytest.mark.parametrize("dead", [0, 1000])
-@pytest.mark.parametrize("total", [0, 1, 2047, 2048, 2049, 6000, 300001])
+@pytest.mark.parametrize("total", [0, 1, 2047, 2048, 2049, 4095, 4096, 4097,
+                                   6000, 300001])
 def test_k4_equal_plain_on_the_card(cuda, total, dead):
     rng = np.random.default_rng(total + dead)
     args = _resolve_slots(rng, total, 300, min(dead, total),
@@ -263,6 +373,60 @@ def test_k4_equal_plain_on_the_card(cuda, total, dead):
     assert resolve.resolve_groups.launches == before + 1
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _k4_check(cuda, args, sent, calls=10, views=False):
+    """K4 on the card bit for bit against its plain version and across
+    ``calls`` launches; with ``views`` the inputs are ``x[1:]`` views (not
+    16-byte aligned)."""
+    if views:
+        t = [torch.from_numpy(np.concatenate([x[:1], x])).to(cuda)[1:]
+             for x in args]
+        assert all(a.is_contiguous() and a.data_ptr() % 16 for a in t)
+    else:
+        t = [torch.from_numpy(x).to(cuda) for x in args]
+    before = resolve.resolve_groups.launches
+    got = resolve.resolve_groups(*t, sent=sent)
+    want = resolve.resolve_groups_ref(*t, sent=sent)
+    torch.cuda.synchronize()
+    assert resolve.resolve_groups.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    for _ in range(calls - 1):
+        for a, b in zip(resolve.resolve_groups(*t, sent=sent), got):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    return got
+
+
+@pytest.mark.parametrize("views", [False, True])
+@pytest.mark.parametrize("total,long_group", [
+    (70000 + 5000, 70000), (1000003 + 5000, 1000003), (1000003, 1000003),
+    (3 * TILE + 101, 5000)])
+def test_k4_long_groups_and_views_on_the_card(cuda, total, long_group, views):
+    """One key over 70,000 and over 1,000,003 slots (a group across
+    hundreds of tiles), aligned inputs and ``x[1:]`` views; bit for bit and
+    across 10 calls."""
+    rng = np.random.default_rng(total + long_group)
+    args = _resolve_slots(rng, total, 300, min(total - long_group, 1000),
+                          long_group)
+    _k4_check(cuda, args, 300, views=views)
+
+
+@pytest.mark.parametrize("boundary", [TILE, 2 * TILE, 3 * TILE - 1])
+def test_k4_group_ending_on_a_tile_boundary_on_the_card(cuda, boundary):
+    rng = np.random.default_rng(boundary)
+    keys = _boundary_keys(rng, 4 * TILE + 17, boundary, 40)
+    first = np.ones(len(keys), bool)
+    first[1:] = keys[1:] != keys[:-1]
+    batch = ~first | (rng.random(len(keys)) < 0.3)
+    w = np.where(rng.random(len(keys)) < 0.25, 0.0,
+                 rng.choice([0.25, 3.0, 1.0, 0.7], len(keys)))
+    args = ((keys // 40).astype(np.int32), (keys % 40).astype(np.int32),
+            w.astype(np.float32), batch)
+    got = _k4_check(cuda, args, 40, calls=3)
+    assert int(got[2][boundary]) * 40 + int(got[3][boundary]) == keys[
+        boundary - 1] != keys[boundary]
 
 
 def test_apply_kernel_equals_sort_on_the_card(cuda):
