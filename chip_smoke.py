@@ -11,20 +11,31 @@ each timed; any failure exits non-zero:
   2. hold each kernel (K1, K2, K3, K4) against its plain PyTorch version on
      the card, bit for bit: K1/K2 on random CSR buckets (degrees 0 to 256,
      self-loop rows, one-community rows, exact ties, integer and float
-     weights), K3/K4 on random sorted slot lists (groups over hundreds of
-     4096-slot tiles; K3 on float weights within m * 2^-23 * sum |w| over
-     the m slots summed), each also bit-identical over repeated calls, then
-     all four on the real inputs of phases 4 and 5 (K3 and K4 there over 20
-     more calls, which is what catches a look-back race);
+     weights) and, for their one-row-per-block layout, on buckets of a
+     width in (1024, 4096] and of 16,384; K3/K4 on random sorted slot lists
+     (groups over hundreds of 4096-slot tiles; K3 on float weights within
+     m * 2^-23 * sum |w| over the m slots summed), each also bit-identical
+     over repeated calls; then all four on the real inputs of phases 4 and
+     5 (K3 and K4 there over 20 more calls, which is what catches a
+     look-back race);
   3. reproduce the committed ``single__sbm``, ``ell__sbm`` and
-     ``dynamic__sbm_stream`` goldens (the last with K4 on every batch);
+     ``dynamic__sbm_stream`` goldens (the last with K4 on every batch), and
+     with ``refine="leiden"`` ``single_leiden__sbm``, ``ell_leiden__sbm``
+     (through K1 and through K2) and ``dynamic_leiden__sbm_stream``;
   4. run ``louvain()`` on an R-MAT graph at scale 22, edge factor 16
      (4,194,304 vertices, ~128M directed slots): the ELL path with the
      fused kernel K1 and the aggregation kernel K3, then the scan-only
      kernel K2, then the default ``louvain()`` (sort-reduce scan + K3);
      every kernel of each path must have launched, and all give one
      membership; then K1/K2 per round against their bounds and the round's
-     breakdown;
+     breakdown; then Leiden refinement through K1 and through K2 (one
+     membership, Q against refine="none", connectivity audits with scipy:
+     no more disconnected communities than refine="none", and a refine
+     phase's communities each inside one outer community); then
+     ``ell_widths=(16, 64, 256, 2048)`` through K1 and K2, whose 2048-wide
+     bucket takes the one-row-per-block layout (one membership, that of
+     the default widths; every row of that bucket bit-equal to the plain
+     versions; its time, plain time and bound);
   5. stream 8 edge batches of 1e-4 |E| (80% inserts of held-out edges, 20%
      deletions) through ``louvain_dynamic()`` on phase 4's graph, applied
      by the batch-apply kernel K4; the final graph must equal the host CSR
@@ -63,6 +74,11 @@ KERNELS = {
                       "src/repro/kernels/louvain_scan/fused.py:111"),
     "louvain_scan": ("src/repro_torch/csrc/louvain_scan.cu",
                      "src/repro/kernels/louvain_scan/louvain_scan.py:90"),
+    # K1/K2 in their one-row-per-block layout (widths above 1024).
+    "louvain_fused_cta": ("src/repro_torch/csrc/louvain_scan.cu",
+                          "src/repro/kernels/louvain_scan/fused.py:111"),
+    "louvain_scan_cta": ("src/repro_torch/csrc/louvain_scan.cu",
+                         "src/repro/kernels/louvain_scan/louvain_scan.py:90"),
     "coarsen_groups": ("src/repro_torch/csrc/coarsen.cu",
                        "src/repro/kernels/aggregate/coarsen.py:113"),
     "resolve_groups": ("src/repro_torch/csrc/batch_apply.cu",
@@ -74,6 +90,14 @@ KERNELS = {
 #: 1e-4 |E|, with 1e-3 |E| of the undirected edges held out to insert.
 STREAM_BATCHES = 8
 STREAM_B_CAP = 8192
+
+#: Phase 4's wide-row run: the default widths plus a 2048-wide bucket
+#: (degrees 257 to 2048), which K1/K2 scan one row per block.
+F1_WIDTHS = (16, 64, 256, 2048)
+
+#: Rows per call of the plain K1/K2 over that bucket: (rows, 2048) tiles of
+#: a few hundred MB each.
+PLAIN_CHUNK_ROWS = 8192
 
 
 def log(phase: str, msg: str) -> None:
@@ -157,6 +181,54 @@ def random_csr(torch, rng, n: int, max_deg: int, integer_w: bool, dev):
     state = dict(comm=t(comm), sigma=t(sigma), sizes=t(sizes), k=t(k),
                  front=t(front))
     m = torch.tensor(float(rng.integers(40, 900)), dtype=torch.float32,
+                     device=dev)
+    return csr, state, deg, m
+
+
+def wide_csr(torch, rng, n: int, degs, integer_w: bool, dev):
+    """A random CSR of ``n`` vertices for the one-row-per-block layout:
+    vertices 8 .. 8 + len(degs) - 1 have the degrees ``degs``, the others
+    0 .. 16; vertex 0 (only self loops) and vertex 1 (only neighbours of
+    one community) have degree degs[0], vertex 2 an exact dQ tie between
+    two communities over degs[1] slots.  Returns what ``random_csr``
+    returns."""
+    n_cap = n + 8
+    n_ids = max(8, n // 6)
+    deg = rng.integers(0, 17, n)
+    deg[8:8 + len(degs)] = degs
+    deg[0] = deg[1] = degs[0]
+    deg[2] = degs[1] - degs[1] % 2
+    comm = np.arange(n_cap + 1, dtype=np.int32)
+    comm[:n] = rng.integers(0, n_ids, n)
+    indptr = np.zeros(n_cap + 1, np.int64)
+    indptr[1:n + 1] = np.cumsum(deg)
+    indptr[n + 1:] = indptr[n]
+    cols = rng.integers(0, n, int(indptr[n])).astype(np.int32)
+    cols[rng.random(len(cols)) < 0.01] = n_cap
+    cols[indptr[0]:indptr[1]] = 0
+    members = np.flatnonzero(comm[:n] == comm[5])
+    cols[indptr[1]:indptr[2]] = rng.choice(members, deg[1])
+    a, b = (10 + np.flatnonzero(comm[10:n] == c)[0]
+            for c in np.unique(comm[10:n])[:2])
+    half = deg[2] // 2
+    cols[indptr[2]:indptr[2] + half] = a
+    cols[indptr[2] + half:indptr[3]] = b
+    comm[2] = n_ids
+    if integer_w:
+        w = rng.integers(1, 4, len(cols)).astype(np.float32)
+    else:
+        w = (rng.random(len(cols)) + 0.05).astype(np.float32)
+    w[indptr[2]:indptr[3]] = 1.0
+    sigma = (rng.integers(1, 4, n_cap + 1) * 4).astype(np.float32)
+    sigma[comm[b]] = sigma[comm[a]]
+    sizes = np.where(rng.random(n_cap + 1) < 0.7, 1, 2).astype(np.int32)
+    k = rng.integers(1, 6, n_cap + 1).astype(np.float32)
+    front = rng.random(n_cap + 1) < 0.9
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    csr = (t(indptr.astype(np.int32)), t(cols), t(w))
+    state = dict(comm=t(comm), sigma=t(sigma), sizes=t(sizes), k=t(k),
+                 front=t(front))
+    m = torch.tensor(float(rng.integers(4000, 90000)), dtype=torch.float32,
                      device=dev)
     return csr, state, deg, m
 
@@ -264,6 +336,36 @@ def phase_kernels_random(torch, ops, dev):
             f"{rows.numel()} rows x 6 random CSRs (integer and float "
             f"weights, gate_fraction 1/2/4) bit for bit; max |dQ - plain| "
             f"{err:.3e}")
+
+    from repro_torch.kernels.louvain_scan.louvain_scan import MAX_WIDTH
+    # The tie row holds degs[1] rounded down to even slots: above 1024 for
+    # every width drawn here.
+    for width in (int(rng.integers(1100, 4097)), MAX_WIDTH):
+        for integer_w in (True, False):
+            degs = [width, width - 1, 1025, min(width, 2049)]
+            degs += list(rng.integers(1025, width + 1, 4))
+            csr, st, deg, m = wide_csr(torch, rng, 3000, degs, integer_w,
+                                       dev)
+            n_cap = st["comm"].numel() - 1
+            wide = np.flatnonzero((deg > 1024) & (deg <= width))
+            narrow = rng.choice(np.flatnonzero(deg <= 16), 10, replace=False)
+            rows = torch.from_numpy(np.concatenate([
+                rng.permutation(np.concatenate([wide, narrow])),
+                np.full(7, n_cap)]).astype(np.int32)).to(dev)
+            e, got = compare_rows(torch, ops, rows, csr, st, m, width,
+                                  int(rng.integers(0, 1 << 30)), 2, n_cap,
+                                  f"random rows of width {width}")
+            err = max(err, e)
+            r2 = int(torch.nonzero(rows == 2)[0])
+            tie = int(torch.unique(st["comm"][csr[1][
+                int(csr[0][2]):int(csr[0][3])].long()]).min())
+            require(int(got[0][r2]) == tie,
+                    f"K2 broke the exact tie of a {deg[2]}-slot row")
+        log("kernels", f"K1/K2 one row per block, width {width}: "
+            f"{len(wide)} rows of degree (1024, {width}] (self-loop, "
+            f"one-community and tie rows of {degs[0]}/{degs[1]} slots), 10 "
+            f"narrow and 7 pad rows x 2 random CSRs (integer and float "
+            f"weights) bit for bit; max |dQ - plain| {err:.3e}")
 
     from repro_torch.kernels.aggregate import coarsen
     for total, n_ids, long_group, integer_w in (
@@ -426,17 +528,56 @@ def phase_goldens(torch, dev):
             f"{scan_backend}: K4 launched {launches} times, first-pass "
             f"scanners {[s.scan_backend for s in res.batch_stats]}")
 
+    from repro_torch.kernels.aggregate import coarsen
+    from repro_torch.kernels.louvain_scan import ops
+    for key, cfg, fns in (
+            ("single_leiden__sbm", LouvainConfig(refine="leiden"),
+             (coarsen.coarsen_groups,)),
+            ("ell_leiden__sbm", LouvainConfig(refine="leiden",
+                                              use_ell_kernel=True),
+             (ops.louvain_fused, coarsen.coarsen_groups)),
+            ("ell_leiden__sbm", LouvainConfig(refine="leiden",
+                                              scan_backend="ell"),
+             (ops.louvain_scan, coarsen.coarsen_groups))):
+        for fn in fns:
+            fn.launches = 0
+        res = louvain(g, cfg)
+        require(np.array_equal(res.membership, gold[key]),
+                f"{key} not reproduced with scan_backend={cfg.scan_backend} "
+                f"use_ell_kernel={cfg.use_ell_kernel}")
+        require(all(fn.launches > 0 for fn in fns),
+                f"{key}: a kernel of the path never launched")
+        log("goldens", f"{key} reproduced with scan_backend="
+            f"{cfg.scan_backend} use_ell_kernel={cfg.use_ell_kernel}: "
+            f"passes (communities, refined) "
+            f"{[(p.n_communities, p.n_refined) for p in res.passes]}, "
+            f"launches {[fn.launches for fn in fns]}")
+    init, batches = sbm_edge_stream(device=dev)
+    resolve.resolve_groups.launches = 0
+    res = louvain_dynamic(init, batches, config=LouvainConfig(refine="leiden"))
+    launches = resolve.resolve_groups.launches
+    require(np.array_equal(res.membership,
+                           gold["dynamic_leiden__sbm_stream"]),
+            "dynamic_leiden__sbm_stream not reproduced")
+    require(launches == len(batches),
+            f"K4 launched {launches} times over {len(batches)} batches")
+    log("goldens", f"dynamic_leiden__sbm_stream reproduced: K4 launched "
+        f"{launches} times")
 
-def check_result(torch, res, n: int, what: str) -> None:
+
+def check_result(torch, res, n: int, what: str, nested: bool) -> None:
     """Finite, well-formed output: memberships of the right shape, each
-    dendrogram level a coarsening of the one before."""
+    level with its pass's community count and, where the levels nest
+    (``refine="none"``), a coarsening of the one before."""
     require(res.membership.shape == (n,), f"{what}: membership shape")
     require(res.n_communities == len(np.unique(res.membership)),
             f"{what}: community count")
     prev = np.arange(n, dtype=np.int64)
-    for lvl in res.levels:
+    for lvl, p in zip(res.levels, res.passes):
+        require(lvl.shape == (n,) and len(np.unique(lvl)) == p.n_communities,
+                f"{what}: a level does not hold its pass's communities")
         pairs = np.unique(prev * n + lvl).shape[0]
-        require(pairs == len(np.unique(prev)),
+        require(not nested or pairs == len(np.unique(prev)),
                 f"{what}: a level is not a coarsening of the one before")
         prev = lvl.astype(np.int64)
 
@@ -455,6 +596,23 @@ def modularity64(torch, g, membership) -> float:
                       device=g.device).index_add_(0, comm[:g.n_cap],
                                                   k[:g.n_cap])
     return internal / (2 * m) - float(((sig / (2 * m)) ** 2).sum())
+
+
+def connectivity_audit(torch, g, membership):
+    """(connected components of the intra-community subgraph, communities,
+    host seconds): every community is connected iff the two are equal.
+    scipy on the host, over each intra-community undirected edge once."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+    t = time.perf_counter()
+    n, e = g.n_valid, g.e_valid
+    comm = torch.from_numpy(membership.astype(np.int32)).to(g.device)
+    src, dst = g.src[:e], g.indices[:e]
+    keep = (src < dst) & (comm[src] == comm[dst])
+    s, d = src[keep].cpu().numpy(), dst[keep].cpu().numpy()
+    adj = coo_matrix((np.ones(len(s), np.int8), (s, d)), shape=(n, n))
+    n_comp, _ = connected_components(adj.tocsr(), directed=False)
+    return int(n_comp), len(np.unique(membership)), time.perf_counter() - t
 
 
 def real_state(torch, g, membership=None):
@@ -553,16 +711,23 @@ def phase_full(torch, ops, args, dev, report):
         f"{n} vertices, {e} directed slots, built in "
         f"{time.perf_counter() - t:.2f} s")
 
+    q64s = {}
+
     def drive(cfg, needs, what):
         for fn in launch_fns.values():
             fn.launches = 0
+        ops.louvain_fused.cta_launches = ops.louvain_scan.cta_launches = 0
         torch.cuda.reset_peak_memory_stats()
         res = louvain(g, cfg)
         counts = {k: fn.launches for k, fn in launch_fns.items()}
+        counts["louvain_fused_cta"] = ops.louvain_fused.cta_launches
+        counts["louvain_scan_cta"] = ops.louvain_scan.cta_launches
         for i, p in enumerate(res.passes):
             log("full", f"{what} pass {i}: n_cap {p.n_cap} e_cap {p.e_cap} "
                 f"iterations {p.iterations} communities {p.n_communities} "
-                f"phase_s " + json.dumps(
+                + (f"refined {p.n_refined} refine_iterations "
+                   f"{p.refine_iterations} " if p.n_refined else "")
+                + "phase_s " + json.dumps(
                     {k: round(v, 6) for k, v in p.phase_seconds.items()}))
         q = membership_modularity(g, res.membership)
         q64 = modularity64(torch, g, res.membership)
@@ -573,9 +738,10 @@ def phase_full(torch, ops, args, dev, report):
             f"launches {json.dumps(counts)}")
         for k in needs:
             require(counts[k] > 0, f"{what}: kernel {k} never launched")
-        check_result(torch, res, n, what)
+        check_result(torch, res, n, what, nested=cfg.refine == "none")
         require(np.isfinite(q) and abs(q - q64) < 1e-4,
                 f"{what}: Q {q} disagrees with float64 Q {q64}")
+        q64s[what] = q64
         return res, counts
 
     res, counts_a = drive(LouvainConfig(use_ell_kernel=True),
@@ -602,6 +768,81 @@ def phase_full(torch, ops, args, dev, report):
             "memberships")
     log("full", "louvain() membership equals the ELL paths'")
     del res_b, res_c, res_d
+
+    # Leiden refinement through K1 and through K2.
+    leiden_k1 = "louvain(use_ell_kernel=True, refine='leiden')"
+    res_l, _ = drive(LouvainConfig(use_ell_kernel=True, refine="leiden"),
+                     ("louvain_fused", "coarsen_groups"), leiden_k1)
+    res_l2, _ = drive(LouvainConfig(scan_backend="ell", refine="leiden"),
+                      ("louvain_scan", "coarsen_groups"),
+                      "louvain(scan_backend='ell', refine='leiden')")
+    require(np.array_equal(res_l.membership, res_l2.membership),
+            "the K1 and K2 paths give different Leiden memberships")
+    log("full", f"Leiden: K1 and K2 give one membership; "
+        f"{res_l.n_communities} communities (refined per pass "
+        f"{[p.n_refined for p in res_l.passes]}), Q float64 "
+        f"{q64s[leiden_k1]:.6f} against refine='none' "
+        f"{q64s['louvain(use_ell_kernel=True)']:.6f}")
+    # Connectivity audits, printed.  Neither the reported (outer) partition
+    # nor a refine phase's synchronous moves are connected by construction:
+    # the reference's own runs leave disconnected communities in both on
+    # R-MAT graphs (tests/test_torch_leiden.py pins the port's counts to
+    # the reference's at scale 11).  What must hold: refinement splits
+    # communities (no refined community spans two outer ones) and Leiden
+    # leaves no more disconnected communities than refine="none".
+    audit = {}
+    for what, mem in (("refine='leiden'", res_l.membership),
+                      ("refine='none'", res.membership)):
+        n_comp, n_comms, audit_s = connectivity_audit(torch, g, mem)
+        audit[what] = n_comp - n_comms
+        log("full", f"connectivity audit of {what}: {n_comp} components of "
+            f"the intra-community subgraph for {n_comms} communities, "
+            f"{n_comp - n_comms} disconnected, {audit_s:.2f} s on the host "
+            f"(scipy)")
+    require(audit["refine='leiden'"] <= audit["refine='none'"],
+            "Leiden leaves more disconnected communities than refine='none'")
+    from repro_torch.core.ell_move import move_phase_ell
+    from repro_torch.core.louvain import singleton_init
+    outer = torch.full((g.n_cap + 1,), g.n_cap, dtype=torch.int32,
+                       device=dev)
+    outer[:n] = torch.from_numpy(res_l.membership.astype(np.int32)).to(dev)
+    t = time.perf_counter()
+    refined, r_iters, _ = move_phase_ell(
+        g, *singleton_init(g), LouvainConfig().initial_tolerance, fused=True,
+        refine_outer=outer)
+    torch.cuda.synchronize()
+    r_s = time.perf_counter() - t
+    refined = refined[:n].cpu().numpy()
+    pairs = np.unique(refined.astype(np.int64) * n + res_l.membership)
+    n_comp, n_refined, audit_s = connectivity_audit(torch, g, refined)
+    log("full", f"one refine phase of the Leiden partition (K1, {r_iters} "
+        f"iterations, {r_s:.3f} s): {n_refined} refined communities, "
+        f"{n_comp} components, {n_comp - n_refined} disconnected, "
+        f"{audit_s:.2f} s on the host (scipy)")
+    require(len(pairs) == n_refined,
+            "a refined community spans two outer communities")
+    del res_l, res_l2, outer, refined
+
+    # Wide rows: a 2048-wide bucket in the one-row-per-block layout.
+    res_f, counts_f = drive(LouvainConfig(use_ell_kernel=True,
+                                          ell_widths=F1_WIDTHS),
+                            ("louvain_fused", "louvain_fused_cta",
+                             "coarsen_groups"),
+                            f"louvain(use_ell_kernel=True, ell_widths="
+                            f"{F1_WIDTHS})")
+    res_f2, counts_f2 = drive(LouvainConfig(scan_backend="ell",
+                                            ell_widths=F1_WIDTHS),
+                              ("louvain_scan", "louvain_scan_cta",
+                               "coarsen_groups"),
+                              f"louvain(scan_backend='ell', ell_widths="
+                              f"{F1_WIDTHS})")
+    require(np.array_equal(res_f.membership, res_f2.membership)
+            and np.array_equal(res_f.membership, res.membership),
+            "ell_widths with a 2048-wide bucket: the K1 and K2 paths and the "
+            "default widths do not give one membership")
+    log("full", f"ell_widths={F1_WIDTHS}: the K1 and K2 paths give the "
+        f"default widths' membership")
+    del res_f, res_f2
 
     # K1/K2 on the real rows: round 0 (singletons) and the end of pass 0.
     widths = LouvainConfig().ell_widths
@@ -741,7 +982,96 @@ def phase_full(torch, ops, args, dev, report):
         report.append(kernel_entry(name, launches[name], errs[name],
                                    *times[name], bounds[name],
                                    op_counts[name]))
+    wide_rows_check(torch, ops, g, report,
+                    {"louvain_fused_cta": counts_f["louvain_fused_cta"],
+                     "louvain_scan_cta": counts_f2["louvain_scan_cta"]})
     return g
+
+
+def wide_rows_check(torch, ops, g, report, launches):
+    """K1/K2 in the one-row-per-block layout on phase 4's graph: the
+    2048-wide bucket of ``F1_WIDTHS`` (degrees 257 to 2048) in the first
+    round's state (every valid vertex a singleton and in the frontier),
+    launched over the whole bucket, as the F1 run launches it.  Every row
+    must equal the plain versions bit for bit; these run over the bucket
+    in chunks of ``PLAIN_CHUNK_ROWS`` rows (their (rows, 2048) tiles),
+    timed once with CUDA events.  The bucket's times, plain times and
+    bounds give the ``kernels`` line's entries."""
+    from repro_torch.core.graph import ell_bucket_rows
+    n_cap = g.n_cap
+    m = g.total_weight()
+    csr = (g.indptr, g.indices, g.weights)
+    st = real_state(torch, g)
+    rows, _ = ell_bucket_rows(g, F1_WIDTHS)
+    wide = rows[-1]
+    width = F1_WIDTHS[-1]
+    real = wide[wide < n_cap]
+    deg = g.indptr[real.long() + 1] - g.indptr[real.long()]
+    n_above = int((deg > 1024).sum())
+
+    def k1(rows_, launch=ops.louvain_fused):
+        return launch(rows_, *csr, st["comm"], st["sigma"], st["sizes"],
+                      st["k"], st["front"], m, 1, width=width,
+                      gate_fraction=2, sentinel=n_cap)
+
+    def k2(rows_, launch=ops.louvain_scan):
+        return launch(rows_, *csr, st["comm"], st["sigma"], st["k"], m,
+                      width=width)
+
+    def plain_chunks(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs = [fn(wide[i:i + PLAIN_CHUNK_ROWS])
+                for i in range(0, wide.numel(), PLAIN_CHUNK_ROWS)]
+        end.record()
+        torch.cuda.synchronize()
+        return [torch.cat(x) for x in zip(*outs)], start.elapsed_time(end)
+
+    err, plain_ms, best = {}, {}, None
+    for name, fn, plain in (
+            ("louvain_fused_cta", k1,
+             lambda r: k1(r, ops.louvain_fused_rows_ref)),
+            ("louvain_scan_cta", k2,
+             lambda r: k2(r, ops.louvain_scan_rows_ref))):
+        got = fn(wide)
+        want, plain_ms[name] = plain_chunks(plain)
+        for i, (a, b) in enumerate(zip(got, want)):
+            require(a.dtype == b.dtype and torch.equal(a, b),
+                    f"{name} differs from its plain version on the "
+                    f"{width}-wide bucket (output {i})")
+        fin = torch.isfinite(got[1]) & torch.isfinite(want[1])
+        err[name] = (float((got[1][fin] - want[1][fin]).abs().max())
+                     if bool(fin.any()) else 0.0)
+        best = got[0] if best is None else best
+        del got, want
+    log("kernels", f"K1/K2 one row per block, first round: bit for bit on "
+        f"all {real.numel()} rows of the {width}-wide bucket ({n_above} of "
+        f"degree (1024, {width}]), plain versions in chunks of "
+        f"{PLAIN_CHUNK_ROWS} rows")
+
+    b1, b2, n_ops, counts = scan_work(torch, g, [(width, wide)], st["comm"],
+                                      best)
+    t = {"louvain_fused_cta": time_ms(torch, lambda: k1(wide), 10),
+         "louvain_scan_cta": time_ms(torch, lambda: k2(wide), 10)}
+    t1_alone = time_ms(torch, lambda: k1(wide, ops.launch_louvain_fused), 10)
+    t2_alone = time_ms(torch, lambda: k2(wide, ops.launch_louvain_scan), 10)
+
+    def bound(n_bytes, n_operations):
+        return max(n_bytes / HBM_BYTES_PER_S,
+                   n_operations / FP32_OPS_PER_S) * 1e3
+
+    log("full", f"the {width}-wide bucket ({wide.numel()} rows, "
+        f"{counts['slots']} slots) per round: K1 "
+        f"{t['louvain_fused_cta']:.4f} ms (launch alone {t1_alone:.4f} ms, "
+        f"plain {plain_ms['louvain_fused_cta']:.4f} ms), K2 "
+        f"{t['louvain_scan_cta']:.4f} ms (launch alone {t2_alone:.4f} ms, "
+        f"plain {plain_ms['louvain_scan_cta']:.4f} ms); bounds K1 "
+        f"{bound(b1, n_ops):.4f} ms ({b1} B), K2 {bound(b2, n_ops):.4f} ms "
+        f"({b2} B), operations {n_ops}; " + json.dumps(counts))
+    for name, b in (("louvain_fused_cta", b1), ("louvain_scan_cta", b2)):
+        report.append(kernel_entry(name, launches[name], err[name], t[name],
+                                   plain_ms[name], b, n_ops))
 
 
 def host_final_csr(g, us_h, ud_h, final):

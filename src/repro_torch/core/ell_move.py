@@ -10,14 +10,15 @@ has no counterpart here.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.engine import (EngineConfig, MoveEngine,
-                                     gated_move_mask, round_gate)
+from repro_torch.core.engine import (ConstrainedScanner, EngineConfig,
+                                     MoveEngine, gated_move_mask, round_gate)
 from repro_torch.core.graph import CSRGraph, ell_bucket_rows
-from repro_torch.core.local_move import SortReduceScanner, best_moves_slots
+from repro_torch.core.local_move import (SortReduceScanner, best_moves_slots,
+                                         cross_outer_masked)
 from repro_torch.kernels.louvain_scan import ops as scan_ops
 
 
@@ -122,23 +123,34 @@ def move_phase_ell(graph: CSRGraph, comm0, sigma0, frontier0,
                    tolerance: float, *, max_iterations: int = 20,
                    use_pruning: bool = True, gate_fraction: int = 2,
                    widths: Tuple[int, ...] = (16, 64, 256),
-                   fused: bool = False):
+                   fused: bool = False,
+                   refine_outer: Optional[torch.Tensor] = None):
     """ELL-kernel local-moving phase from a (C, Sigma, frontier) start;
     returns (comm, iters, dq_sum).
 
     Buckets the graph once per phase, then runs the engine over the scan
     kernel (``fused=False``) or the fused kernel (``fused=True``) — the same
-    memberships either way.
+    memberships either way.  ``refine_outer`` runs Leiden's constrained
+    sweep: the scanners read one cross-outer-masked copy of the CSR's
+    ``indices``/``weights`` (``local_move.cross_outer_masked``; the kernels
+    and their plain versions build each tile from it, so the tiles are
+    masked too) inside a ``ConstrainedScanner``.  The buckets (from
+    ``indptr``), ``k`` and ``m`` are the unmasked graph's.
     """
     rows, leftover = ell_bucket_rows(graph, widths)
     buckets = list(zip(widths, rows))
     k = graph.vertex_weights()
     m = graph.total_weight()
+    if refine_outer is not None:
+        outer, graph = cross_outer_masked(graph, refine_outer)
     if fused:
         scanner = FusedELLScanner(graph, buckets, leftover, k, m,
                                   gate_fraction=gate_fraction)
     else:
         scanner = ELLScanner(graph, buckets, leftover, k, m)
+    if refine_outer is not None:
+        scanner = ConstrainedScanner(scanner, outer,
+                                     gate_fraction=gate_fraction)
     st = MoveEngine(scanner, EngineConfig(
         max_iterations=max_iterations, use_pruning=use_pruning,
         gate_fraction=gate_fraction)).run(comm0, sigma0, frontier0,

@@ -6,7 +6,9 @@ at most the tolerance or the iteration cap is reached.  A scanner backend
 supplies only the per-vertex best-move scan and a thin topology surface.
 JAX's ``lax.while_loop`` becomes a host loop that reads one scalar (the
 sweep's dQ) from the device per sweep.  The streaming seed-frontier policy
-(``affected_frontier``) lives here too, as in the reference.
+(``affected_frontier``) and Leiden refinement's constrained scanner
+(``ConstrainedScanner``, with ``sanitize_outer`` and
+``mask_cross_outer_slots``) live here too, as in the reference.
 """
 
 from __future__ import annotations
@@ -163,6 +165,114 @@ class MoveEngine:
             st.iters += 1
             dq = float(st.dq)      # the sweep's one host sync
         return st
+
+
+# ---------------------------------------------------------------------------
+# Leiden refinement: the constrained sweep.
+# ---------------------------------------------------------------------------
+
+def sanitize_outer(outer: torch.Tensor, n_valid: int,
+                   sentinel: int) -> torch.Tensor:
+    """An outer-community membership made safe for a constrained sweep.
+
+    Invalid vertex slots (id >= ``n_valid``) pin to the sentinel; a stale
+    label (< 0 or >= ``n_valid``, e.g. an earlier capacity's sentinel) on a
+    valid slot falls back to the vertex's own singleton, never to another
+    community's id.  The scalar-``n_valid`` form of the reference's; its
+    live-mask form serves the sharded layouts only.
+    """
+    ids = torch.arange(outer.shape[0], dtype=torch.int32,
+                       device=outer.device)
+    lab = outer.to(torch.int32)
+    valid_slot = ids < n_valid
+    in_range = (lab >= 0) & (lab < n_valid)
+    out = torch.where(valid_slot & in_range, lab, ids)
+    return torch.where(valid_slot, out, sentinel)
+
+
+def assert_outer_sane(outer: torch.Tensor, n_valid: int,
+                      sentinel: int) -> None:
+    """Raise ``ValueError`` if a stale outer id would reach a constrained
+    sweep: a valid slot whose label lies outside [0, ``n_valid``), or an
+    invalid slot not at the sentinel.  One host read.  Nothing in the
+    single-device paths calls it: their refine phases sanitize on the
+    device instead, as the reference's jitted sweeps do (its check is a
+    no-op under ``jit``).  It is kept for the drivers that hand outer
+    labels across devices or streams, ROADMAP items 8 and 10, which are
+    to call it where a stale id must fail loudly."""
+    ids = torch.arange(outer.shape[0], device=outer.device)
+    valid = ids < n_valid
+    bad = ((valid & ((outer < 0) | (outer >= n_valid)))
+           | (~valid & (outer != sentinel)))
+    where = torch.nonzero(bad).flatten()[:8]
+    if where.numel():
+        raise ValueError(
+            f"stale outer-community ids in refinement seed: slots "
+            f"{where.tolist()} hold {outer[where].tolist()} "
+            f"(n_valid={n_valid}, sentinel={sentinel})")
+
+
+def mask_cross_outer_slots(src: torch.Tensor, dst: torch.Tensor,
+                           w: torch.Tensor, outer: torch.Tensor,
+                           sentinel: int):
+    """(dst', w'): directed slots whose endpoints lie in different outer
+    communities take ``dst = sentinel`` and ``w = 0``.  The sentinel
+    destination removes the candidate from every scanner's validity check;
+    a zero weight alone would not (dQ can be positive with K_{i->c} = 0
+    through the degree term of Eq. 2).  Padding slots pass unchanged."""
+    src_o = outer[torch.clamp(src, max=sentinel)]
+    dst_o = outer[torch.clamp(dst, max=sentinel)]
+    cross = src_o != dst_o
+    return (torch.where(cross, sentinel, dst).to(dst.dtype),
+            torch.where(cross, 0.0, w).to(w.dtype))
+
+
+class ConstrainedScanner:
+    """Leiden refinement over any scanner built on the cross-outer-masked
+    topology (``mask_cross_outer_slots``).  It delegates the whole scanner
+    protocol to ``inner`` and adds two rules to the move decision: the
+    target shares the mover's outer label, and only a vertex that is still
+    a singleton moves, so each refined community lies inside one outer
+    community and grows from singletons along edges.  (A round's moves are
+    simultaneous: two singletons that join a third one's community while
+    it moves away need not be adjacent, so a refined community can still
+    be disconnected, as in the reference.)  ``outer`` comes sanitized
+    (``sanitize_outer``, as ``local_move.cross_outer_masked`` returns it):
+    nothing is checked or read back to the host here."""
+
+    def __init__(self, inner, outer: torch.Tensor, gate_fraction: int = 2):
+        self.inner = inner
+        self.gate_fraction = int(gate_fraction)
+        self.outer = outer
+        self._outer_l = outer[torch.clamp(inner.local_ids,
+                                          max=inner.sentinel)]
+
+    def __getattr__(self, name):
+        # Reached only for names this class lacks: the scanner protocol
+        # (sentinel, local_ids, scan, mark_neighbors, ...) is the inner's.
+        if name == "inner":
+            raise AttributeError(name)
+        return getattr(self.inner, name)
+
+    def decide_moves(self, comm, sigma, frontier, comm_l, sizes, round_ix):
+        """The inner decision (the fused kernel's, or ``scan`` +
+        ``gated_move_mask``) AND intra-outer target AND still-singleton
+        mover."""
+        sent = self.sentinel
+        inner_decide = getattr(self.inner, "decide_moves", None)
+        if inner_decide is not None:
+            do_move, best_c, best_dq = inner_decide(
+                comm, sigma, frontier, comm_l, sizes, round_ix)
+        else:
+            best_c, best_dq = self.inner.scan(comm, sigma, frontier)
+            gate = (round_gate(self.local_ids, round_ix, self.gate_fraction)
+                    if self.gate_fraction > 1 else None)
+            do_move = gated_move_mask(best_c, best_dq, comm_l, sizes,
+                                      frontier, sent, self.move_valid, gate)
+        intra_outer = (self.outer[torch.clamp(best_c, max=sent)]
+                       == self._outer_l)
+        still_singleton = sizes[torch.clamp(comm_l, max=sent)] == 1
+        return do_move & intra_outer & still_singleton, best_c, best_dq
 
 
 class ReplicatedScannerBase:

@@ -11,12 +11,14 @@ segment-sums the per-community weights K_{i->c}.
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.engine import (EngineConfig, MoveEngine,
-                                     ReplicatedScannerBase)
+from repro_torch.core.engine import (ConstrainedScanner, EngineConfig,
+                                     MoveEngine, ReplicatedScannerBase,
+                                     mask_cross_outer_slots, sanitize_outer)
 from repro_torch.core.graph import CSRGraph, scatter_slots, segment_sum
 from repro_torch.core.modularity import delta_modularity
 
@@ -173,20 +175,40 @@ class CompactSortReduceScanner(SortReduceScanner):
         return best_c, best_dq
 
 
+def cross_outer_masked(graph: CSRGraph, refine_outer: torch.Tensor):
+    """(sanitized outer, a copy of ``graph`` whose cross-outer slots are
+    masked by ``mask_cross_outer_slots``): the candidate topology of a
+    constrained sweep.  ``indptr`` and ``src`` are shared, so degree
+    buckets do not change; one new ``indices``/``weights`` pair is made."""
+    outer = sanitize_outer(refine_outer, graph.n_valid, graph.n_cap)
+    dst, w = mask_cross_outer_slots(graph.src, graph.indices, graph.weights,
+                                    outer, graph.n_cap)
+    return outer, dataclasses.replace(graph, indices=dst, weights=w)
+
+
 def move_phase(graph: CSRGraph, comm0, sigma0, frontier0, tolerance: float,
                *, max_iterations: int = 20, use_pruning: bool = True,
-               gate_fraction: int = 2, work_cap: int = 0):
+               gate_fraction: int = 2, work_cap: int = 0,
+               refine_outer: Optional[torch.Tensor] = None):
     """One local-moving phase on the sort-reduce backend from an arbitrary
     (C, Sigma, frontier) start; returns (comm, iters, dq_sum).
 
     ``work_cap > 0`` runs the frontier-compacted scanner with that
     work-buffer capacity (bit-identical results, frontier-proportional
-    work); 0 is the full ``e_cap`` scan.
+    work); 0 is the full ``e_cap`` scan.  ``refine_outer`` runs Leiden's
+    constrained sweep instead: the scanner sees the cross-outer-masked
+    topology (``cross_outer_masked``) inside a ``ConstrainedScanner``,
+    while ``k`` and ``m`` stay the unmasked graph's.
     """
     k = graph.vertex_weights()
     m = graph.total_weight()
+    if refine_outer is not None:
+        outer, graph = cross_outer_masked(graph, refine_outer)
     scanner = (CompactSortReduceScanner(graph, k, m, work_cap) if work_cap
                else SortReduceScanner(graph, k, m))
+    if refine_outer is not None:
+        scanner = ConstrainedScanner(scanner, outer,
+                                     gate_fraction=gate_fraction)
     engine = MoveEngine(scanner, EngineConfig(
         max_iterations=max_iterations, use_pruning=use_pruning,
         gate_fraction=gate_fraction))

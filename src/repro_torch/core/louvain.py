@@ -3,13 +3,14 @@
 paper's defaults (MAX_PASSES=10, MAX_ITERATIONS=20, initial tolerance 0.01,
 TOLERANCE_DROP=10, aggregation tolerance 0.8, vertex pruning on).
 
-This is the ``refine="none"`` path on one device: the singleton or warm
-start (``init_membership``/``init_frontier``, which ``core/dynamic.py``
-builds on), local-moving on the sort-reduce scanner (``"full"``), its
+The single-device loop: the singleton or warm start
+(``init_membership``/``init_frontier``, which ``core/dynamic.py`` builds
+on), local-moving on the sort-reduce scanner (``"full"``), its
 frontier-compacted form (``"compact"``) or the ELL kernels (``"ell"``,
-``"ell_fused"``), renumber-and-fold, aggregation by the sort chain or the
-kernel K3, and the capacity ladder.  It runs on the device of the graph it
-is given.
+``"ell_fused"``), with ``refine="leiden"`` a constrained refinement sweep
+after each local-moving phase, renumber-and-fold, aggregation by the sort
+chain or the kernel K3, and the capacity ladder.  It runs on the device of
+the graph it is given.
 """
 
 from __future__ import annotations
@@ -32,15 +33,19 @@ from repro_torch.core.engine import affected_frontier
 from repro_torch.core.graph import CSRGraph, rebucket_capacity
 from repro_torch.core.local_move import move_phase
 from repro_torch.core.modularity import community_weights, modularity
+from repro_torch.kernels.louvain_scan.louvain_scan import check_ell_width
+
+_INT_MAX = 2 ** 31 - 1
 
 
 @dataclasses.dataclass(frozen=True)
 class LouvainConfig:
     """Paper §4.1 parameter set; the JAX ``LouvainConfig``'s fields and
-    defaults.  Options outside this slice raise ``NotImplementedError``
-    naming their ROADMAP item; the sharded-only fields (``comm_backend``,
-    ``reshard``, ``pipeline_fetch``, ``state_layout``) are ignored, as the
-    reference's single-device ``louvain()`` ignores them."""
+    defaults.  The sharded-only fields (``comm_backend``, ``reshard``,
+    ``pipeline_fetch``, ``state_layout``) are ignored, as the reference's
+    single-device ``louvain()`` ignores them.  An ``ell_widths`` entry
+    above ``MAX_WIDTH`` (16,384), which no layout of the kernels K1/K2
+    takes, raises ``ELLWidthError`` here on every device."""
 
     max_passes: int = 10
     max_iterations: int = 20          # opt. 4.1.2
@@ -59,20 +64,21 @@ class LouvainConfig:
     agg_backend: str = "auto"
     use_ladder: bool = True
     comm_backend: str = "auto"
-    #: "none" ("leiden" is not ported yet).
+    #: "none" | "leiden": after each local-moving phase, a constrained
+    #: sweep from singletons (moves within the outer community, singleton
+    #: movers only) refines the partition; aggregation follows the refined
+    #: partition, the reported membership the outer one.
     refine: str = "none"
     reshard: str = "none"
     pipeline_fetch: bool = False
     state_layout: str = "replicated"
 
     def __post_init__(self):
-        if self.refine == "leiden":
-            raise NotImplementedError(
-                "refine='leiden' is not ported yet (ROADMAP Queue 1 "
-                "item 7a, Leiden refinement)")
-        if self.refine != "none":
+        if self.refine not in ("none", "leiden"):
             raise ValueError(f"refine must be 'none' or 'leiden', "
                              f"got {self.refine!r}")
+        for width in self.ell_widths:
+            check_ell_width(width)
 
 
 @dataclasses.dataclass
@@ -89,6 +95,8 @@ class PassStats:
     e_cap: Optional[int] = None
     #: Scanner the pass ran with ("full" | "compact" | "ell" | "ell_fused").
     scan_backend: Optional[str] = None
+    refine_iterations: Optional[int] = None  # constrained-sweep iterations
+    n_refined: Optional[int] = None      # refined (aggregation) communities
 
 
 @dataclasses.dataclass
@@ -98,7 +106,9 @@ class LouvainResult:
     passes: List[PassStats]
     total_seconds: float
     #: ``levels[p]`` is the (n,) membership of the original vertices after
-    #: pass p; ``levels[-1] == membership``.
+    #: pass p; ``levels[-1] == membership``.  With ``refine="leiden"`` the
+    #: levels are the outer partitions and need not nest (aggregation
+    #: follows the refined ones).
     levels: List[np.ndarray] = dataclasses.field(default_factory=list)
 
     @property
@@ -166,6 +176,49 @@ def _renumber_and_fold(comm: torch.Tensor, n_valid: int,
     return comm_new, n_comms, folded
 
 
+def _refine_phase(graph: CSRGraph, outer: torch.Tensor, tolerance: float,
+                  *, max_iterations: int, use_pruning: bool,
+                  gate_fraction: int = 2):
+    """Leiden refinement on the sort-reduce scanner: from singletons, the
+    constrained sweep (``move_phase(refine_outer=outer)``) yields a
+    partition that refines ``outer``; returns (comm, iters, dq_sum).
+    ``k``/``m`` are the full graph's: the constraint restricts candidates,
+    not the objective."""
+    comm0, sigma0, frontier0 = singleton_init(graph)
+    return move_phase(graph, comm0, sigma0, frontier0, tolerance,
+                      max_iterations=max_iterations, use_pruning=use_pruning,
+                      gate_fraction=gate_fraction, refine_outer=outer)
+
+
+def _leiden_warm_membership(comm_ren: torch.Tensor, outer_ren: torch.Tensor,
+                            n_valid: int, n_agg: int) -> torch.Tensor:
+    """Next-pass warm start after aggregating the refined partition.
+
+    The coarse graph's vertices are the refined communities; the next pass
+    starts from the outer partition expressed on them.  The outer label is
+    constant over each refined community, so scattering ``outer_ren``
+    through ``comm_ren`` is well defined; each live coarse vertex
+    (< ``n_agg``) is labelled with the smallest coarse id that shares its
+    outer community.  Returns (cap + 1,) int32, cap = len(comm_ren) - 1.
+    """
+    cap = comm_ren.shape[0] - 1
+    dev = comm_ren.device
+    idx = torch.arange(cap + 1, dtype=torch.int32, device=dev)
+    valid = idx < n_valid
+    tgt = torch.where(valid, torch.clamp(comm_ren, max=cap), cap)
+    oc = torch.full((cap + 1,), cap, dtype=torch.int32, device=dev)
+    oc[tgt.to(torch.int64)] = torch.where(valid, outer_ren.to(torch.int32),
+                                          cap)
+    live = idx < n_agg
+    oc = torch.where(live, torch.clamp(oc, max=cap), cap)
+    # segment_min over the outer labels; an empty segment keeps INT_MAX.
+    rep = torch.full((cap + 1,), _INT_MAX, dtype=torch.int32, device=dev)
+    rep.scatter_reduce_(0, oc.to(torch.int64), torch.where(live, idx, cap),
+                        "amin", include_self=True)
+    rep = torch.clamp(rep, max=cap)
+    return torch.where(live, rep[oc], cap)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -181,8 +234,10 @@ def louvain(graph: CSRGraph, config: LouvainConfig = LouvainConfig(), *,
     ``init_frontier`` restricts that pass's seed frontier to a boolean
     vertex mask (delta screening, see ``core/dynamic.py``), with or without
     a warm membership.  Later passes restart from singletons on the coarse
-    graph.  With an active seed frontier, ``scan_backend="auto"`` scans
-    through the frontier-compacted scanner when |F|/n <= 10%.
+    graph; with ``refine="leiden"`` they start from the outer partition on
+    the coarse graph (``_leiden_warm_membership``).  With an active seed
+    frontier, ``scan_backend="auto"`` scans through the frontier-compacted
+    scanner when |F|/n <= 10%.
 
     Memberships equal the reference's ``louvain()`` element for element on
     every scanner and aggregation backend.
@@ -198,6 +253,8 @@ def louvain(graph: CSRGraph, config: LouvainConfig = LouvainConfig(), *,
     passes: List[PassStats] = []
     agg_backend = resolve_agg_backend(config.agg_backend, dev)
     levels: List[np.ndarray] = []
+    refine_on = config.refine == "leiden"
+    leiden_warm = None     # the outer partition on the next coarse graph
 
     warm = None            # (comm0, sigma0, frontier0) of pass 0
     frontier_size0 = None
@@ -227,6 +284,9 @@ def louvain(graph: CSRGraph, config: LouvainConfig = LouvainConfig(), *,
         if p == 0 and warm is not None:
             comm0, sigma0, frontier0 = warm
             pass_frontier = frontier_size0
+        elif leiden_warm is not None:
+            comm0, sigma0, frontier0 = warm_init(g, leiden_warm)
+            pass_frontier = None
         else:
             comm0, sigma0, frontier0 = singleton_init(g)
             pass_frontier = None
@@ -253,21 +313,49 @@ def louvain(graph: CSRGraph, config: LouvainConfig = LouvainConfig(), *,
                 work_cap=(compact_work_cap(g.e_cap, config.compact_cap_frac)
                           if backend == "compact" else 0))
         _sync(dev)
+        t1a = time.perf_counter()
+
+        refine_iters = None
+        if refine_on:
+            if backend in ("ell", "ell_fused"):
+                refined, refine_iters, _ = move_phase_ell(
+                    g, *singleton_init(g), tol,
+                    max_iterations=config.max_iterations,
+                    use_pruning=config.use_pruning,
+                    gate_fraction=config.gate_fraction,
+                    widths=config.ell_widths, fused=backend == "ell_fused",
+                    refine_outer=comm)
+            else:
+                refined, refine_iters, _ = _refine_phase(
+                    g, comm, tol, max_iterations=config.max_iterations,
+                    use_pruning=config.use_pruning,
+                    gate_fraction=config.gate_fraction)
+            _sync(dev)
         t1 = time.perf_counter()
 
-        comm_ren, n_comms, folded = _renumber_and_fold(comm, g.n_valid,
-                                                       global_comm)
+        if refine_on:
+            # Two folds off the same pre-pass global_comm: the outer fold is
+            # what the pass reports, the refined fold is what aggregation
+            # and the dendrogram chain follow.
+            outer_ren, n_report, level = _renumber_and_fold(
+                comm, g.n_valid, global_comm)
+            comm_ren, n_comms, folded = _renumber_and_fold(
+                refined, g.n_valid, global_comm)
+        else:
+            comm_ren, n_comms, folded = _renumber_and_fold(comm, g.n_valid,
+                                                           global_comm)
+            level, n_report = folded, n_comms
         global_comm = folded
         n_verts = g.n_valid
-        levels.append(folded[:n].cpu().numpy())
+        levels.append(level[:n].cpu().numpy())
         t2 = time.perf_counter()
 
         q_now = (float(modularity(graph, torch.cat(
-            [folded, torch.tensor([n_cap], dtype=torch.int32, device=dev)])))
+            [level, torch.tensor([n_cap], dtype=torch.int32, device=dev)])))
             if config.track_modularity else None)
 
         converged = iters <= 1                                    # line 7
-        low_shrink = n_comms / max(n_verts, 1) > config.aggregation_tolerance
+        low_shrink = n_report / max(n_verts, 1) > config.aggregation_tolerance
 
         pass_caps = (g.n_cap, g.e_cap)
         if not (converged or low_shrink or p == config.max_passes - 1):
@@ -278,24 +366,36 @@ def louvain(graph: CSRGraph, config: LouvainConfig = LouvainConfig(), *,
                 if (n_cap_new, e_cap_new) != (g.n_cap, g.e_cap):
                     g = rebucket_capacity(g, n_cap_new=n_cap_new,
                                           e_cap_new=e_cap_new)
+            if refine_on:
+                warm_flat = _leiden_warm_membership(comm_ren, outer_ren,
+                                                    n_verts, n_comms)
+                leiden_warm = torch.full((g.n_cap + 1,), g.n_cap,
+                                         dtype=torch.int32, device=dev)
+                leiden_warm[:n_comms] = warm_flat[:n_comms]
             _sync(dev)
             agg_s = time.perf_counter() - t2
         else:
             agg_s = 0.0
 
+        phase_seconds = {"local_move": t1a - t0, "other": t2 - t1,
+                         "aggregate": agg_s}
+        if refine_on:
+            phase_seconds["refine"] = t1 - t1a
         passes.append(PassStats(
-            iterations=iters, n_communities=n_comms, n_vertices=n_verts,
+            iterations=iters, n_communities=n_report, n_vertices=n_verts,
             dq_sum=float(dq_sum), seconds=time.perf_counter() - t0,
-            phase_seconds={"local_move": t1 - t0, "other": t2 - t1,
-                           "aggregate": agg_s},
-            modularity=q_now,
+            phase_seconds=phase_seconds, modularity=q_now,
             frontier_size=(pass_frontier if pass_frontier is not None
                            else n_verts),
-            n_cap=pass_caps[0], e_cap=pass_caps[1], scan_backend=backend))
+            n_cap=pass_caps[0], e_cap=pass_caps[1], scan_backend=backend,
+            refine_iterations=refine_iters,
+            n_refined=n_comms if refine_on else None))
         if converged or low_shrink:
             break
         tol = tol / config.tolerance_drop            # line 13
 
+    # With refinement global_comm follows the refined partitions; the
+    # reported membership is the last pass's outer level.
     membership = levels[-1] if levels else global_comm[:n].cpu().numpy()
     return LouvainResult(
         membership=membership,
@@ -311,3 +411,8 @@ def membership_modularity(graph: CSRGraph, membership) -> float:
     pad = torch.full((graph.n_cap + 1 - mem.shape[0],), graph.n_cap,
                      dtype=torch.int32, device=graph.device)
     return float(modularity(graph, torch.cat([mem, pad])))
+
+
+def louvain_modularity(graph: CSRGraph, result: LouvainResult) -> float:
+    """Q of a result on the original graph."""
+    return membership_modularity(graph, result.membership)

@@ -1,7 +1,7 @@
 // K1 and K2 of the PyTorch port: the Louvain best-move scan over one degree
-// bucket's CSR rows, hand-written for Hopper (sm_90a).  Two row layouts
-// (a row per thread, a row per warp), each a __global__ template whose
-// K1 instantiation adds the move decision to K2's scan.
+// bucket's CSR rows, hand-written for Hopper (sm_90a).  Three row layouts
+// (a row per thread, a row per warp, a row per CTA), each a __global__
+// template whose K1 instantiation adds the move decision to K2's scan.
 //
 // Replaces
 //   K1  src/repro/kernels/louvain_scan/fused.py, louvain_fused_pallas
@@ -36,9 +36,19 @@
 //     them in registers (kE keys per lane, shuffles across lanes), and the
 //     head of each run reads the run back.  Each bucket width launches its
 //     own instantiation (kMaxE), so a narrow bucket does not carry the
-//     registers of the widest sort.
+//     registers of the widest sort;
+//   * widths 1025 .. 16384 (hub rows, when ell_widths reach past 1024): one
+//     row per CTA of kCtaThreads threads.  The row's 64-bit (community,
+//     slot) keys and float weights are staged in dynamic shared memory (12 B
+//     per sorted slot: 196,608 B at a capacity of 16,384, above the 48 KB
+//     that needs no opt-in, so the launch sets
+//     cudaFuncAttributeMaxDynamicSharedMemorySize), bitonic-sorted across
+//     the block with __syncthreads between stages, and the head of each run
+//     sums it.  Each sort capacity (2048 .. 16384) launches its own
+//     instantiation.
 // One thread sums each group's weights, then evaluates Eq. 2 once; a warp
-// butterfly of (max dQ, min id) gives a warp's row.
+// butterfly of (max dQ, min id) gives a warp's row, and a CTA's row folds
+// its warps' answers through shared memory.
 //
 // Bound on the card: bytes.  The function must read the indices and weights
 // of the bucketed rows' live slots (8 B each), the row ids and their indptr
@@ -104,7 +114,8 @@ struct Args {
   int n_rows;
   int n_cap;
   int width;
-  int sort_cap;                 // keys per warp in shared memory
+  int sort_cap;                 // keys per warp (per CTA above 1024) in
+                                // shared memory
   int round_ix;
   int gate_fraction;
   int sentinel;
@@ -426,6 +437,93 @@ __device__ __forceinline__ void scan_row(const Args& a, const Row& row,
   }
 }
 
+// Threads of a one-row CTA (widths above 1024).
+constexpr int kCtaThreads = 512;
+
+// Rows of up to kCap slots, one per CTA: the keys and weights of the row
+// are staged in dynamic shared memory (kCap keys, then kCap weights) and
+// sorted by a bitonic network over the block, the next power of two >= the
+// row's degree wide (dead keys sort last).  The head of each community's
+// run sums it (run_sum: one thread, ascending slot order, from 0.0f); the
+// block's (max dQ, min id) is folded warp by warp.  Returns the row's best
+// in thread 0.
+template <int kCap>
+__device__ __forceinline__ void scan_cta(const Args& a, const Row& row,
+                                         unsigned long long* keys,
+                                         float* wbuf, float m, float two_m_m,
+                                         float& bdq, int& bc) {
+  __shared__ float s_dq[kCtaThreads / kWarp];
+  __shared__ int s_c[kCtaThreads / kWarp];
+  __shared__ float s_own;
+  __shared__ int s_has_own;
+  const int tid = threadIdx.x;
+  int p2 = 1;
+  while (p2 < row.deg) p2 <<= 1;
+  for (int j = tid; j < p2; j += kCtaThreads) {
+    unsigned long long key = kDeadKey;
+    float w = 0.0f;
+    if (j < row.deg) {
+      const int c = slot_comm(a, row, j, w);
+      if (c >= 0)
+        key = ((unsigned long long)(unsigned)c << 32) | (unsigned)j;
+    }
+    keys[j] = key;
+    wbuf[j] = w;
+  }
+  if (tid == 0) s_has_own = 0;
+  __syncthreads();
+  // Pair t of a stage compares keys i and i + j, where i has bit j clear;
+  // the run of 2k keys holding i ascends when bit k of i is clear.
+  for (int k = 2; k <= p2; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int t = tid; t < p2 / 2; t += kCtaThreads) {
+        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
+        const unsigned long long x = keys[i], y = keys[i + j];
+        if ((x > y) == ((i & k) == 0)) {
+          keys[i] = y;
+          keys[i + j] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  // K_{i->own}: the head of own's run sums it.
+  for (int p = tid; p < p2; p += kCtaThreads) {
+    if (key_comm(keys[p]) == row.own &&
+        (p == 0 || key_comm(keys[p - 1]) != row.own)) {
+      s_own = run_sum(keys, wbuf, p, p2);
+      s_has_own = 1;
+    }
+  }
+  __syncthreads();
+  const float k_own = s_has_own ? s_own : 0.0f;
+  bdq = -INFINITY;
+  bc = kIntMax;
+  for (int p = tid; p < p2; p += kCtaThreads) {
+    const int c = key_comm(keys[p]);
+    if (c < 0 || c == row.own || (p > 0 && key_comm(keys[p - 1]) == c))
+      continue;
+    keep_better(bdq, bc,
+                delta_q(run_sum(keys, wbuf, p, p2), k_own, row.k_i,
+                        a.sigma[c], row.sig_own, m, two_m_m),
+                c);
+  }
+  for (int off = kWarp / 2; off > 0; off >>= 1) {
+    const float odq = __shfl_xor_sync(kFull, bdq, off);
+    const int oc = __shfl_xor_sync(kFull, bc, off);
+    keep_better(bdq, bc, odq, oc);
+  }
+  if (tid % kWarp == 0) {
+    s_dq[tid / kWarp] = bdq;
+    s_c[tid / kWarp] = bc;
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int w = 1; w < kCtaThreads / kWarp; ++w)
+      keep_better(bdq, bc, s_dq[w], s_c[w]);
+  __syncthreads();  // keys, wbuf, s_dq and s_c are rewritten by the next row
+}
+
 // Row r's outputs from its best (dQ, id): K2's pair, or K1's gated decision.
 template <bool kFused>
 __device__ __forceinline__ void finish_row(const Args& a, long long r,
@@ -496,8 +594,26 @@ __global__ void warp_rows_kernel(Args a) {
   }
 }
 
-// rows_per_block: one row per thread at widths <= kLaneSlots, else one per
-// warp (the wrapper's block_rows_for_width).
+// Widths above 1024: one row per CTA, its kCap keys and weights in dynamic
+// shared memory.
+template <bool kFused, int kCap>
+__global__ void __launch_bounds__(kCtaThreads) cta_rows_kernel(Args a) {
+  extern __shared__ unsigned long long smem[];
+  unsigned long long* keys = smem;
+  float* wbuf = reinterpret_cast<float*>(smem + kCap);
+  const float m = *a.m;
+  const float two_m_m = (2.0f * m) * m;
+  for (long long r = blockIdx.x; r < a.n_rows; r += gridDim.x) {
+    const Row row = load_row(a, (int)r, threadIdx.x == 0);
+    float bdq;
+    int bc;
+    scan_cta<kCap>(a, row, keys, wbuf, m, two_m_m, bdq, bc);
+    if (threadIdx.x == 0) finish_row<kFused>(a, r, row, bdq, bc);
+  }
+}
+
+// rows_per_block: one row per thread at widths <= kLaneSlots, one per warp
+// up to 1024, one per CTA above (the wrapper's block_rows_for_width).
 template <bool kFused>
 int launch(Args a, int rows_per_block, void* stream) {
   if (a.n_rows <= 0) return (int)cudaSuccess;
@@ -508,6 +624,25 @@ int launch(Args a, int rows_per_block, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lane_rows) {
     lane_rows_kernel<kFused><<<blocks, threads, 0, s>>>(a);
+    return (int)cudaGetLastError();
+  }
+  if (a.sort_cap > 1024) {
+    if (rows_per_block != 1) return (int)cudaErrorInvalidValue;
+    void (*cta)(Args);
+    switch (a.sort_cap) {
+      case 2048: cta = cta_rows_kernel<kFused, 2048>; break;
+      case 4096: cta = cta_rows_kernel<kFused, 4096>; break;
+      case 8192: cta = cta_rows_kernel<kFused, 8192>; break;
+      case 16384: cta = cta_rows_kernel<kFused, 16384>; break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+    const size_t smem = (size_t)a.sort_cap *
+                        (sizeof(unsigned long long) + sizeof(float));
+    const cudaError_t set = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(cta),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (set != cudaSuccess) return (int)set;
+    cta<<<blocks, kCtaThreads, smem, s>>>(a);
     return (int)cudaGetLastError();
   }
   void (*kernel)(Args);

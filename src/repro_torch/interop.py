@@ -45,7 +45,8 @@ def edge_batch_from_numpy(src, dst, weight, b_valid,
 def config_from_dict(fields: dict) -> LouvainConfig:
     """A ``LouvainConfig`` from ``dataclasses.asdict`` of the JAX config.
     The reference's ``agg_backend="pallas"`` is the port's ``"kernel"``;
-    options outside the ported slice raise ``NotImplementedError``."""
+    what ``LouvainConfig`` refuses (an ELL width above the kernels'
+    ``MAX_WIDTH``) raises here too."""
     fields = dict(fields)
     if fields.get("agg_backend") == "pallas":
         fields["agg_backend"] = "kernel"

@@ -24,8 +24,8 @@ from repro_torch.core.engine import round_gate
 from repro_torch.core.graph import ELLBlock, ell_block
 from repro_torch.kernels import _build
 from repro_torch.kernels.louvain_scan.louvain_scan import (
-    block_rows_for_width, check_inputs, dense_scan_tile, graph_inputs,
-    prepare_ell_inputs, raise_on_error, scalar_m, sort_capacity)
+    WARP_MAX_WIDTH, block_rows_for_width, check_inputs, dense_scan_tile,
+    graph_inputs, prepare_ell_inputs, raise_on_error, scalar_m, sort_capacity)
 
 _INT_MAX = 2 ** 31 - 1
 
@@ -134,6 +134,8 @@ def launch_louvain_fused(rows, indptr, indices, weights, comm, sigma, sizes,
               sort_capacity(width), _build.current_stream_handle(dev))
     _build.check(code, "louvain_fused")
     louvain_fused.launches += 1
+    if width > WARP_MAX_WIDTH:
+        louvain_fused.cta_launches += 1
     return out_c, out_dq, out_mv, err
 
 
@@ -165,3 +167,6 @@ def louvain_fused(rows, indptr, indices, weights, comm, sigma, sizes, k,
 
 
 louvain_fused.launches = 0
+#: Launches of the one-row-per-block layout (widths above 1024), also
+#: counted in ``launches``.
+louvain_fused.cta_launches = 0

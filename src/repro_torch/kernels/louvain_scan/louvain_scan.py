@@ -29,20 +29,41 @@ from repro_torch.core.graph import ELLBlock, ell_block
 from repro_torch.kernels import _build
 
 _INT_MAX = 2 ** 31 - 1
-#: Shared memory per CUDA block that the launch stays within (no opt-in).
+#: Shared memory per CUDA block that the warp layout stays within (no
+#: opt-in).
 _SMEM_BYTES = 48 * 1024
 #: Shared memory per sorted slot: a 64-bit (community, slot) key + a weight.
 _SLOT_BYTES = 12
 #: Widths up to this take one row per thread, no shared memory
 #: (``kLaneSlots`` of the source, which picks the layout by width).
 LANE_SLOTS = 16
-#: The widest row the warp sort takes (32 keys per lane in registers).
-MAX_WIDTH = 1024
+#: The widest row the warp sort takes (32 keys per lane in registers); wider
+#: rows take one CUDA block each.
+WARP_MAX_WIDTH = 1024
+#: The widest row the kernels take: a one-row block stages 12 B per sorted
+#: slot in dynamic shared memory, 196,608 B at this width, of the 227 KB a
+#: Hopper block may opt in to.
+MAX_WIDTH = 16384
+#: Threads of a one-row block (``kCtaThreads`` of the source).
+CTA_THREADS = 512
+
+
+class ELLWidthError(ValueError):
+    """An ELL bucket width outside 1 .. ``MAX_WIDTH``: no layout of the
+    kernels K1/K2 takes it."""
+
+
+def check_ell_width(width: int) -> None:
+    """Raise ``ELLWidthError`` unless 0 < ``width`` <= ``MAX_WIDTH``."""
+    if not 0 < width <= MAX_WIDTH:
+        raise ELLWidthError(f"ELL width {width} is outside the kernels' "
+                            f"range 1 .. {MAX_WIDTH}")
 
 
 def sort_capacity(width: int) -> int:
-    """Keys per warp in shared memory: the next power of two >= ``width``,
-    at least 32 (a row of up to 32 slots is grouped in registers)."""
+    """Keys per warp (per block above ``WARP_MAX_WIDTH``) in shared memory:
+    the next power of two >= ``width``, at least 32 (a row of up to 32
+    slots is grouped in registers)."""
     cap = 32
     while cap < width:
         cap *= 2
@@ -50,18 +71,22 @@ def sort_capacity(width: int) -> int:
 
 
 def warps_for_width(width: int) -> int:
-    """Warps per CUDA block: at most 8, and few enough that their sort
-    buffers fit 48 KB."""
-    if not 0 < width <= MAX_WIDTH:
-        raise ValueError(f"ELL width {width} is outside the kernel's range "
-                         f"1 .. {MAX_WIDTH}")
+    """Warps per CUDA block: up to ``WARP_MAX_WIDTH`` at most 8, and few
+    enough that their sort buffers fit 48 KB; above it the
+    ``CTA_THREADS`` of one row's block."""
+    check_ell_width(width)
+    if width > WARP_MAX_WIDTH:
+        return CTA_THREADS // 32
     return min(8, _SMEM_BYTES // (_SLOT_BYTES * sort_capacity(width)))
 
 
 def block_rows_for_width(width: int) -> int:
-    """Rows per CUDA block: one per thread at widths <= ``LANE_SLOTS``,
-    else one per warp."""
-    return warps_for_width(width) * (32 if width <= LANE_SLOTS else 1)
+    """Rows per CUDA block: one per thread at widths <= ``LANE_SLOTS``, one
+    per warp up to ``WARP_MAX_WIDTH``, one per block above."""
+    warps = warps_for_width(width)
+    if width > WARP_MAX_WIDTH:
+        return 1
+    return warps * (32 if width <= LANE_SLOTS else 1)
 
 
 def dense_scan_tile(c, w, sig, k_i, c_own, sig_own, m):
@@ -198,6 +223,8 @@ def launch_louvain_scan(rows, indptr, indices, weights, comm, sigma, k, m,
               _build.current_stream_handle(dev))
     _build.check(code, "louvain_scan")
     louvain_scan.launches += 1
+    if width > WARP_MAX_WIDTH:
+        louvain_scan.cta_launches += 1
     return out_c, out_dq, err
 
 
@@ -224,3 +251,6 @@ def louvain_scan(rows, indptr, indices, weights, comm, sigma, k, m, *,
 
 
 louvain_scan.launches = 0
+#: Launches of the one-row-per-block layout (widths above 1024), also
+#: counted in ``launches``.
+louvain_scan.cta_launches = 0

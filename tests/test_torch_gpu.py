@@ -1,7 +1,9 @@
 """The PyTorch port's CUDA kernels on the card: K1, K2, K3 and K4 against
-their plain PyTorch versions on the same CUDA tensors, the batch apply's
-kernel backend against its sort backend, and ``louvain()`` and
-``louvain_dynamic()`` on the card against the committed sbm goldens.
+their plain PyTorch versions on the same CUDA tensors (K1/K2 in all three
+row layouts, the one-row-per-block layout for widths above 1024 included),
+the batch apply's kernel backend against its sort backend, and ``louvain()``
+and ``louvain_dynamic()`` on the card against the committed sbm goldens,
+``refine="leiden"`` included.
 
 Every test here is marked ``gpu`` and skips without a card (the decision is
 made inside the ``cuda`` fixture, never at import).  The machine with the
@@ -27,6 +29,7 @@ import pytest
 import torch
 
 from _k3_bounds import k3_tolerances
+from _wide_rows import hub_graph_slots, wide_csr_arrays
 from repro_torch import (LouvainConfig, apply_edge_batch, build_csr, louvain,
                          louvain_dynamic, make_edge_batch, sbm_edge_stream,
                          sbm_graph)
@@ -163,6 +166,97 @@ def test_k1_k2_equal_plain_on_default_buckets(cuda, gate_fraction,
                           n_cap, True)
             for a, b in zip(got, want):
                 assert torch.equal(a, b), (lo, hi, round_ix)
+
+
+def _wide_csr(rng, n, degs, integer_w, dev):
+    """``_wide_rows.wide_csr_arrays`` as tensors on ``dev``."""
+    csr, state, deg, m = wide_csr_arrays(rng, n, degs, integer_w)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    return (tuple(t(x) for x in csr), {k: t(v) for k, v in state.items()},
+            deg, torch.tensor(m, device=dev))
+
+
+@pytest.mark.parametrize("integer_w", [True, False])
+@pytest.mark.parametrize("gate_fraction", [1, 2])
+@pytest.mark.parametrize("width", [1100, 2048, 4096, 8192, 16384])
+def test_k1_k2_cta_rows_equal_plain_on_the_card(cuda, width, gate_fraction,
+                                                 integer_w):
+    """The one-row-per-block layout (widths above 1024) bit-equal to the
+    plain versions: rows of degree 1025, the width, one below it, a power
+    of two plus one and random degrees in between, a self-loop row, a
+    one-community row and a tie row of that size, ten narrow rows and pad
+    rows, in random order."""
+    rng = np.random.default_rng(width + 10 * gate_fraction + integer_w)
+    degs = [width, width - 1, 1025, min(width, 2049)]
+    degs += list(rng.integers(1025, width + 1, 4))
+    csr, st, deg, m = _wide_csr(rng, 3000, degs, integer_w, cuda)
+    n_cap = st["comm"].numel() - 1
+    wide = np.flatnonzero((deg > 1024) & (deg <= width))
+    narrow = rng.choice(np.flatnonzero(deg <= 16), 10, replace=False)
+    rows = torch.from_numpy(np.concatenate([
+        rng.permutation(np.concatenate([wide, narrow])),
+        np.full(7, n_cap)]).astype(np.int32)).to(cuda)
+    n1, n2 = ops.louvain_fused.cta_launches, ops.louvain_scan.cta_launches
+    got = _k1_k2(rows, csr, st, m, width, 77, gate_fraction, n_cap, False)
+    want = _k1_k2(rows, csr, st, m, width, 77, gate_fraction, n_cap, True)
+    torch.cuda.synchronize()
+    assert (ops.louvain_fused.cta_launches,
+            ops.louvain_scan.cta_launches) == (n1 + 1, n2 + 1)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert bool((got[0] >= 0).any())
+    # The tie row (vertex 2) goes to the smaller of its two communities.
+    r2 = int(torch.nonzero(rows == 2)[0])
+    ties = sorted(int(c) for c in torch.unique(st["comm"][csr[1][
+        int(csr[0][2]):int(csr[0][3])].long()]))
+    assert int(got[0][r2]) == ties[0]
+
+
+def _rmat_state(g, seed):
+    """A mid-sweep state of graph ``g`` on its device: half the vertices in
+    communities of n/3 ids, Sigma and sizes consistent, a random
+    frontier."""
+    from repro_torch.core.graph import segment_sum
+    from repro_torch.core.modularity import community_weights
+    rng = np.random.default_rng(seed)
+    n, n_cap, dev = g.n_valid, g.n_cap, g.device
+    comm = np.arange(n_cap + 1, dtype=np.int32)
+    joined = rng.random(n) < 0.5
+    comm[:n][joined] = rng.integers(0, n // 3, int(joined.sum()))
+    comm = torch.from_numpy(comm).to(dev)
+    valid = torch.arange(n_cap + 1, device=dev) < n
+    sizes = segment_sum(valid.to(torch.int32), comm, n_cap + 1)
+    front = torch.from_numpy(rng.random(n_cap + 1) < 0.8).to(dev) & valid
+    return dict(comm=comm, sigma=community_weights(g, comm), sizes=sizes,
+                k=g.vertex_weights(), front=front)
+
+
+@pytest.mark.parametrize("width", [2048, 4096])
+def test_k1_k2_cta_rows_equal_plain_on_rmat_hubs(cuda, width):
+    """An R-MAT graph (scale 14, rows up to degree 3,582): the bucket
+    (256, width] of ``ell_widths=(16, 64, 256, width)``, every row of it
+    one block, bit-equal to the plain versions in the first round's
+    singleton state and in a mid-sweep state."""
+    from repro_torch import rmat_graph
+    from repro_torch.core.graph import ell_bucket_rows
+    g = rmat_graph(14, 16, seed=0, device=cuda)
+    rows, _ = ell_bucket_rows(g, (16, 64, 256, width))
+    wide = rows[3]
+    deg = g.indptr[1:] - g.indptr[:-1]
+    assert int(deg[wide[wide < g.n_cap].long()].max()) > 1024
+    m = g.total_weight()
+    csr = (g.indptr, g.indices, g.weights)
+    valid = torch.arange(g.n_cap + 1, device=cuda) < g.n_valid
+    singles = dict(comm=torch.arange(g.n_cap + 1, dtype=torch.int32,
+                                     device=cuda),
+                   sigma=g.vertex_weights(), sizes=valid.to(torch.int32),
+                   k=g.vertex_weights(), front=valid)
+    for st in (singles, _rmat_state(g, width)):
+        got = _k1_k2(wide, csr, st, m, width, 3, 2, g.n_cap, False)
+        want = _k1_k2(wide, csr, st, m, width, 3, 2, g.n_cap, True)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert bool(got[4].any())
 
 
 @pytest.mark.parametrize("total", [0, 1, 2047, 2048, 2049, 4095, 4096, 4097,
@@ -303,6 +397,51 @@ def test_louvain_on_the_card_reproduces_sbm_goldens(cuda):
         res = louvain(g, cfg)
         np.testing.assert_array_equal(res.membership, gold[key])
         assert coarsen.coarsen_groups.launches > before
+
+
+def test_louvain_leiden_on_the_card_reproduces_sbm_goldens(cuda):
+    """``single_leiden__sbm`` (sort-reduce scan + K3), ``ell_leiden__sbm``
+    through K1 and through K2, and ``dynamic_leiden__sbm_stream`` with K4
+    on every batch."""
+    gold = np.load(GOLDEN)
+    g, _ = sbm_graph(8, 16, 0.4, 0.01, seed=2, device=cuda)
+    for cfg, key, fn in (
+            (LouvainConfig(refine="leiden"), "single_leiden__sbm",
+             coarsen.coarsen_groups),
+            (LouvainConfig(refine="leiden", use_ell_kernel=True),
+             "ell_leiden__sbm", ops.louvain_fused),
+            (LouvainConfig(refine="leiden", scan_backend="ell"),
+             "ell_leiden__sbm", ops.louvain_scan)):
+        before = fn.launches
+        res = louvain(g, cfg)
+        np.testing.assert_array_equal(res.membership, gold[key])
+        assert fn.launches > before
+        assert all(p.refine_iterations and p.n_refined for p in res.passes)
+    init, batches = sbm_edge_stream(device=cuda)
+    before = resolve.resolve_groups.launches
+    res = louvain_dynamic(init, batches,
+                          config=LouvainConfig(refine="leiden"))
+    np.testing.assert_array_equal(res.membership,
+                                  gold["dynamic_leiden__sbm_stream"])
+    assert resolve.resolve_groups.launches == before + len(batches)
+
+
+def test_wide_ell_widths_on_the_card_equal_the_cpu(cuda):
+    """``ell_widths=(16, 64, 256, 2048)``: the card's K1 and K2 routes
+    (the hub row in a one-row block) give the CPU's membership."""
+    widths = (16, 64, 256, 2048)
+    s, d, w, n = hub_graph_slots()
+    want = louvain(build_csr(s, d, w, n, symmetrize=True, device="cpu"),
+                   LouvainConfig(use_ell_kernel=True, ell_widths=widths))
+    g = build_csr(s, d, w, n, symmetrize=True, device=cuda)
+    for cfg, fn in ((LouvainConfig(use_ell_kernel=True, ell_widths=widths),
+                     ops.louvain_fused),
+                    (LouvainConfig(scan_backend="ell", ell_widths=widths),
+                     ops.louvain_scan)):
+        before = fn.cta_launches
+        got = louvain(g, cfg)
+        np.testing.assert_array_equal(got.membership, want.membership)
+        assert fn.cta_launches > before
 
 
 def test_wrappers_reject_bad_inputs_on_the_card(cuda):

@@ -396,8 +396,22 @@ def test_block_rows_for_width_fit_shared_memory(width, rows):
             <= 48 * 1024)
 
 
+@pytest.mark.parametrize("width", [1025, 2048, 2049, 4096, 8192, 16384])
+def test_block_rows_for_wide_widths_take_one_row_per_block(width):
+    """Above 1024 one row takes a whole block, whose sort buffer (12 B per
+    slot of the next power of two) fits the 227 KB a Hopper block may opt
+    in to."""
+    assert ops.block_rows_for_width(width) == 1
+    assert k2.warps_for_width(width) * 32 == k2.CTA_THREADS
+    cap = k2.sort_capacity(width)
+    assert cap >= width and cap & (cap - 1) == 0 and cap < 2 * width
+    assert cap * 12 <= 227 * 1024
+
+
 def test_block_rows_for_width_rejects_too_wide_rows():
     with pytest.raises(ValueError):
-        ops.block_rows_for_width(2048)
+        ops.block_rows_for_width(k2.MAX_WIDTH + 1)
+    with pytest.raises(k2.ELLWidthError):
+        ops.block_rows_for_width(1 << 15)
     with pytest.raises(ValueError):
         ops.block_rows_for_width(0)

@@ -1,8 +1,7 @@
 """Rules the PyTorch port keeps: it imports neither JAX, nor the JAX package
 ``repro``, nor networkx; its entry points run on the card unless the caller
-asks for the CPU, and raise without one; options outside the ported slices
-raise ``NotImplementedError`` (options a later slice ported run and equal
-the reference)."""
+asks for the CPU, and raise without one; options a later slice ported run
+and equal the reference."""
 
 import ast
 import dataclasses
@@ -109,21 +108,21 @@ def _jax_and_port_sbm():
 @pytest.mark.parametrize("kwargs", [{"refine": "leiden"},
                                     {"scan_backend": "compact"}])
 def test_options_outside_the_slice_raise(kwargs):
-    """Leiden refinement still raises, naming its ROADMAP item; the compact
-    scanner, ported since, is accepted and runs like the reference."""
-    if kwargs == {"refine": "leiden"}:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LouvainConfig(**kwargs)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            config_from_dict(kwargs)
-        return
+    """Both options were outside the first slice and raised; Leiden
+    refinement and the compact scanner are ported now, so each is accepted
+    (also through ``config_from_dict``) and runs like the reference."""
     assert config_from_dict(kwargs) == LouvainConfig(**kwargs)
     jg, tg = _jax_and_port_sbm()
     frontier = np.arange(tg.n_cap + 1) % 12 == 0
     want = jlouvain(jg, JConfig(**kwargs), init_frontier=frontier)
     got = louvain(tg, LouvainConfig(**kwargs), init_frontier=frontier)
     np.testing.assert_array_equal(got.membership, want.membership)
-    assert got.passes[0].scan_backend == "compact"
+    assert ([(p.n_communities, p.n_refined, p.refine_iterations)
+             for p in got.passes]
+            == [(p.n_communities, p.n_refined, p.refine_iterations)
+                for p in want.passes])
+    if kwargs == {"scan_backend": "compact"}:
+        assert got.passes[0].scan_backend == "compact"
 
 
 @pytest.mark.parametrize("kwargs", [{"init_membership": np.zeros(8, int)},
