@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of GVE-Louvain on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--scale 22]
+    python3 chip_smoke.py [--scale 22] [--streams 16] [--stream-scale 18]
 
 Run from the root of a checkout (it imports ``src/repro_torch``).  Phases,
 each timed; any failure exits non-zero:
@@ -40,7 +40,18 @@ each timed; any failure exits non-zero:
      deletions) through ``louvain_dynamic()`` on phase 4's graph, applied
      by the batch-apply kernel K4; the final graph must equal the host CSR
      of the final edge set and a run with the sort backend, and Q must stay
-     within 1% of a cold ``louvain()`` on the final graph.
+     within 1% of a cold ``louvain()`` on the final graph;
+  6. serve a fleet of ``--streams`` R-MAT tenants (scale ``--stream-scale``,
+     default 16 at scale 18, ~8M directed slots each, one shared envelope)
+     through the batched drivers: the cold ``louvain_batched`` (refine
+     "none" and "leiden") must equal each tenant's ``louvain()`` with K3
+     launched once per fleet aggregation; ``louvain_dynamic_batched`` over
+     8 steps of phase 5's mix per tenant must equal each tenant's
+     ``louvain_dynamic()`` (membership, final graph, frontier sizes) with
+     K4 launched once per step; fleet K3/K4 held against their plain
+     versions on the fleet's flat, stream-keyed slot lists (and over 20
+     more calls); the sbm goldens through a one-stream fleet; a fleet that
+     overflows its envelope regrows and equals the amply provisioned one.
 
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, time, plain time and bound; the last line
@@ -83,6 +94,12 @@ KERNELS = {
                        "src/repro/kernels/aggregate/coarsen.py:113"),
     "resolve_groups": ("src/repro_torch/csrc/batch_apply.cu",
                        "src/repro/kernels/batch_apply/resolve.py:134"),
+    # K3/K4 launched once per fleet operation over a fleet's flat,
+    # stream-keyed slot list (phase 6).
+    "coarsen_groups_fleet": ("src/repro_torch/csrc/coarsen.cu",
+                             "src/repro/kernels/aggregate/coarsen.py:113"),
+    "resolve_groups_fleet": ("src/repro_torch/csrc/batch_apply.cu",
+                             "src/repro/kernels/batch_apply/resolve.py:134"),
 }
 
 #: Phase 5: the batch mix of the DF-Louvain dynamic evaluation (Sahu,
@@ -98,6 +115,12 @@ F1_WIDTHS = (16, 64, 256, 2048)
 #: Rows per call of the plain K1/K2 over that bucket: (rows, 2048) tiles of
 #: a few hundred MB each.
 PLAIN_CHUNK_ROWS = 8192
+
+#: Phase 6: a serving fleet of R-MAT tenants (Graph500 a/b/c), seeds from
+#: FLEET_SEED0, each with phase 5's stream mix: STREAM_BATCHES steps of
+#: 1e-4 |E| entries, 80% inserts of held-out edges, 20% deletions.
+FLEET_SEED0 = 100
+RMAT_ABC = (0.57, 0.19, 0.19)
 
 
 def log(phase: str, msg: str) -> None:
@@ -697,7 +720,8 @@ def longest_group(torch, s_ci, s_cj) -> int:
 def phase_full(torch, ops, args, dev, report):
     from repro_torch import LouvainConfig, louvain, membership_modularity
     from repro_torch import rmat_graph
-    from repro_torch.core.graph import ell_bucket_rows
+    from repro_torch.core.aggregate import sorted_fleet_aggregate_slots
+    from repro_torch.core.graph import ell_bucket_rows, stack_graphs
     from repro_torch.kernels.aggregate import coarsen
     launch_fns = {"louvain_fused": ops.louvain_fused,
                   "louvain_scan": ops.louvain_scan,
@@ -914,8 +938,10 @@ def phase_full(torch, ops, args, dev, report):
     scanner = FusedELLScanner(g, buckets, leftover, st["k"], m,
                               gate_fraction=2)
     engine = MoveEngine(scanner, EngineConfig())
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    st_round = MoveState(st["comm"], st["sigma"], st["front"], 0, zero, zero)
+    zero = torch.zeros(1, dtype=torch.float32, device=dev)
+    st_round = MoveState(st["comm"], st["sigma"], st["front"],
+                         np.zeros(1, np.int64), zero, zero,
+                         scanner.stream_of == 0)
     t_round = time_ms(torch, lambda: engine.one_round(st_round, st["front"],
                                                       0), 3)
     t_hub = (time_ms(torch, lambda: scanner._hub_scan(
@@ -928,16 +954,15 @@ def phase_full(torch, ops, args, dev, report):
         f"{t_round - t_hub - t_k1:.4f}")
     del scanner, engine, st, st0
 
-    # K3 on the first aggregation's sorted slot list.
+    # K3 on the first aggregation's sorted slot list: a graph aggregates
+    # as a one-stream fleet, whose flat sentinel is n_cap + 1.
     comm0 = torch.full((n_cap + 1,), n_cap, dtype=torch.int32, device=dev)
     comm0[:n] = torch.from_numpy(res.levels[0].astype(np.int32)).to(dev)
-    ci, cj = comm0[g.src], comm0[g.indices]
-    key = ci.to(torch.int64) * (n_cap + 1) + cj.to(torch.int64)
-    order = torch.sort(key, stable=True).indices
-    s_ci, s_cj, s_w = ci[order], cj[order], g.weights[order]
-    del key, order, ci, cj
-    got = coarsen.coarsen_groups(s_ci, s_cj, s_w, sent=n_cap)
-    want = coarsen.coarsen_groups_ref(s_ci, s_cj, s_w, sent=n_cap)
+    s_ci, s_cj, s_w = sorted_fleet_aggregate_slots(stack_graphs([g]),
+                                                   comm0[None])
+    k3_sent = n_cap + 1
+    got = coarsen.coarsen_groups(s_ci, s_cj, s_w, sent=k3_sent)
+    want = coarsen.coarsen_groups_ref(s_ci, s_cj, s_w, sent=k3_sent)
     torch.cuda.synchronize()
     require(all(torch.equal(a, b) for a, b in zip(got, want)),
             "K3 differs from its plain version on the first aggregation")
@@ -949,14 +974,15 @@ def phase_full(torch, ops, args, dev, report):
         f"({coarsen.CHUNK_SLOTS}-slot tiles)")
     del want
     repeat_identical(torch, lambda: coarsen.coarsen_groups(
-        s_ci, s_cj, s_w, sent=n_cap), got, 20, "K3 on the first aggregation")
+        s_ci, s_cj, s_w, sent=k3_sent), got, 20,
+        "K3 on the first aggregation")
     log("kernels", "K3 first aggregation: 20 more calls bit-identical")
     del got
     times["coarsen_groups"] = (
         time_ms(torch, lambda: coarsen.coarsen_groups(s_ci, s_cj, s_w,
-                                                      sent=n_cap), 10),
+                                                      sent=k3_sent), 10),
         time_ms(torch, lambda: coarsen.coarsen_groups_ref(s_ci, s_cj, s_w,
-                                                          sent=n_cap), 3))
+                                                          sent=k3_sent), 3))
     bounds["coarsen_groups"] = 12 * total + 17 * (total + 1)
     ones = torch.ones(total, dtype=torch.int32, device=dev)
     t_cumsum = time_ms(torch, lambda: torch.cumsum(ones, 0,
@@ -1212,10 +1238,12 @@ def phase_stream(torch, g, dev, report):
             f"streamed Q {q_dyn} more than 1% below the cold {q_static}")
     del res_s, fin_s, static
 
-    # K4 on the first batch's real sorted slot list.
+    # K4 on the first batch's real sorted slot list: a graph's batch
+    # applies as a one-stream fleet's, whose flat sentinel is n_cap + 1.
     slots = sorted_batch_slots(init, batches[0])
-    got = resolve.resolve_groups(*slots, sent=n_cap)
-    want = resolve.resolve_groups_ref(*slots, sent=n_cap)
+    k4_sent = n_cap + 1
+    got = resolve.resolve_groups(*slots, sent=k4_sent)
+    want = resolve.resolve_groups_ref(*slots, sent=k4_sent)
     torch.cuda.synchronize()
     require(same_records(torch, got, want),
             "K4 differs from its plain version on the first batch")
@@ -1226,13 +1254,13 @@ def phase_stream(torch, g, dev, report):
         f"longest group {longest_group(torch, slots[0], slots[1])} slots")
     del want
     repeat_identical(torch, lambda: resolve.resolve_groups(
-        *slots, sent=n_cap), got, 20, "K4 on the first batch")
+        *slots, sent=k4_sent), got, 20, "K4 on the first batch")
     log("kernels", "K4 first batch: 20 more calls bit-identical")
     del got
-    ms = time_ms(torch, lambda: resolve.resolve_groups(*slots, sent=n_cap),
-                 10)
+    ms = time_ms(torch, lambda: resolve.resolve_groups(*slots,
+                                                       sent=k4_sent), 10)
     plain_ms = time_ms(torch, lambda: resolve.resolve_groups_ref(
-        *slots, sent=n_cap), 3)
+        *slots, sent=k4_sent), 3)
     sort_ms = time_ms(torch, lambda: sorted_batch_slots(init, batches[0]), 3)
     bound_bytes = 13 * total + 18 * (total + 1)
     log("stream", f"K4 on {total} slots: {ms:.4f} ms (plain "
@@ -1244,10 +1272,365 @@ def phase_stream(torch, g, dev, report):
                                plain_ms, bound_bytes, total))
 
 
+def rmat_tenant(torch, scale: int, seed: int, dev):
+    """One tenant of phase 6: an R-MAT graph (Graph500 a/b/c, edge factor
+    ``EDGE_FACTOR``) drawn on the card from torch's generator seeded
+    ``seed`` (``rmat_graph``'s recipe; it draws on the host, where a fleet
+    of them would spend most of the phase).  Returns its undirected edges
+    ``(us, ud)``, u < v, without self loops or repeats, as int32 tensors
+    in ascending (u, v) order."""
+    a, b, c = RMAT_ABC
+    n = 1 << scale
+    m = n * EDGE_FACTOR
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    src = torch.zeros(m, dtype=torch.int64, device=dev)
+    dst = torch.zeros(m, dtype=torch.int64, device=dev)
+    for bit in range(scale):
+        r = torch.rand(m, generator=gen, device=dev)
+        go_right = (r > a + b) & (r <= a + b + c)
+        go_down = r > a + b + c
+        pick_b = (r > a) & (r <= a + b)
+        src += (go_right | go_down).to(torch.int64) << bit
+        dst += (pick_b | go_down).to(torch.int64) << bit
+    u, v = torch.minimum(src, dst), torch.maximum(src, dst)
+    keep = u != v
+    key = torch.unique(u[keep] * n + v[keep])
+    return (key // n).to(torch.int32), (key % n).to(torch.int32)
+
+
+def fleet_streams(torch, args, dev):
+    """Phase 6's fleet: ``args.streams`` tenants at ``args.stream_scale``,
+    each with phase 5's stream recipe (1e-3 |E| of its undirected edges
+    held out, ``STREAM_BATCHES`` batches of 1e-4 |E| entries, 80% inserts
+    of held-out edges and 20% deletions, its own ``default_rng(seed)``),
+    all in one ``(n_cap, e_cap)`` envelope: ``e_cap`` the next power of
+    two at or above the largest tenant's initial slots plus its inserts,
+    ``b_cap`` the next power of two at or above the largest batch.
+    Returns (graphs, streams, entries per step)."""
+    from repro_torch import build_csr, make_edge_batch
+    from repro_torch.configs.louvain_arch import _pow2_at_least
+    n = 1 << args.stream_scale
+    edges = [rmat_tenant(torch, args.stream_scale, FLEET_SEED0 + s, dev)
+             for s in range(args.streams)]
+    n_und = np.array([us.numel() for us, _ in edges])
+    # Phase 5's sizes; a rehearsal at a small scale keeps 5 entries a batch.
+    b_size = np.maximum(n_und // 10000, 5)
+    n_ins = b_size * 4 // 5
+    n_del = b_size - n_ins
+    n_hold = np.maximum(n_und // 1000, STREAM_BATCHES * n_ins)
+    e_cap = _pow2_at_least(int(np.max(
+        2 * (n_und - n_hold) + 2 * STREAM_BATCHES * n_ins)))
+    b_cap = _pow2_at_least(int(b_size.max()))
+    graphs, streams = [], []
+    for s, (us, ud) in enumerate(edges):
+        rng = np.random.default_rng(FLEET_SEED0 + s)
+        pick = rng.choice(int(n_und[s]),
+                          int(n_hold[s] + STREAM_BATCHES * n_del[s]),
+                          replace=False)
+        hold, dele = pick[:n_hold[s]], pick[n_hold[s]:]
+        keep = torch.ones(int(n_und[s]), dtype=torch.bool, device=dev)
+        keep[torch.from_numpy(hold).to(dev)] = False
+        graphs.append(build_csr(
+            us[keep], ud[keep],
+            torch.ones(int(keep.sum()), dtype=torch.float32, device=dev), n,
+            n_cap=n, e_cap=e_cap, symmetrize=True, dedup=False, device=dev))
+        us_h, ud_h = us.cpu().numpy(), ud.cpu().numpy()
+        batches = []
+        for i in range(STREAM_BATCHES):
+            idx = np.concatenate([hold[i * n_ins[s]:(i + 1) * n_ins[s]],
+                                  dele[i * n_del[s]:(i + 1) * n_del[s]]])
+            w = np.concatenate([np.ones(n_ins[s]), np.zeros(n_del[s])])
+            perm = rng.permutation(len(idx))
+            batches.append(make_edge_batch(us_h[idx[perm]], ud_h[idx[perm]],
+                                           w[perm], n, b_cap=b_cap,
+                                           device=dev))
+        streams.append(batches)
+    return graphs, streams, b_size
+
+
+def device_profile(torch, fn, top: int = 6):
+    """One call of ``fn`` under ``torch.profiler``: (profiled wall ms, work
+    on the card: device operations run, busy ms as the union of their
+    intervals, and the ``top`` kernel names by device ms).  The profiler
+    slows the host, not the card, so busy ms hold and the wall does not."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy, end = 0.0, float("-inf")
+    by_name = {}
+    for e in sorted(ops, key=lambda e: e.time_range.start):
+        a, b = e.time_range.start, e.time_range.end
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+        by_name[e.name] = by_name.get(e.name, 0.0) + (b - a) / 1e3
+    names = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return wall_ms, len(ops), busy / 1e3, [(k[:60], round(v, 3))
+                                           for k, v in names]
+
+
+def same_graph(torch, a, b) -> bool:
+    """Two ``CSRGraph``s with equal buffers, bit for bit."""
+    return (all(torch.equal(getattr(a, k), getattr(b, k))
+                for k in ("indptr", "indices", "src"))
+            and torch.equal(a.weights.view(torch.int32),
+                            b.weights.view(torch.int32))
+            and (a.n_valid, a.e_valid) == (b.n_valid, b.e_valid))
+
+
+def phase_fleet(torch, args, dev, report):
+    """Batched multi-stream serving: the fleet against its tenants served
+    alone, K3/K4 launched once per fleet operation and held against their
+    plain versions, the sbm goldens through a one-stream fleet, and a
+    fleet regrow."""
+    from repro_torch import (FleetCapacityOverflow, LouvainConfig, build_csr,
+                             louvain, louvain_batched, louvain_dynamic,
+                             louvain_dynamic_batched, make_edge_batch,
+                             sbm_graph, stack_batches, stack_graphs)
+    from repro_torch.core.aggregate import sorted_fleet_aggregate_slots
+    from repro_torch.core.delta import sorted_fleet_slots
+    from repro_torch.kernels.aggregate import coarsen
+    from repro_torch.kernels.batch_apply import resolve
+
+    t = time.perf_counter()
+    graphs, streams, b_size = fleet_streams(torch, args, dev)
+    torch.cuda.synchronize()
+    S, g0 = len(graphs), graphs[0]
+    n, n_cap, e_cap = g0.n_valid, g0.n_cap, g0.e_cap
+    b_cap = streams[0][0].b_cap
+    fleet = stack_graphs(graphs)
+    log("fleet", f"{S} R-MAT tenants, scale {args.stream_scale}, edge factor "
+        f"{EDGE_FACTOR}, seeds {FLEET_SEED0}-{FLEET_SEED0 + S - 1}: "
+        f"{n} vertices each, {int(fleet.e_valid.min())}-"
+        f"{int(fleet.e_valid.max())} directed slots, envelope n_cap {n_cap} "
+        f"e_cap {e_cap} ({S * e_cap} fleet slots); {STREAM_BATCHES} steps of "
+        f"{int(b_size.min())}-{int(b_size.max())} entries per tenant, b_cap "
+        f"{b_cap}; set up in {time.perf_counter() - t:.2f} s")
+
+    # Cold start: the fleet against each tenant's louvain() (sort-reduce
+    # scan + K3), for both refine modes; one K3 launch per fleet
+    # aggregation.
+    cold = {}
+    for refine in ("none", "leiden"):
+        cfg = LouvainConfig(refine=refine)
+        coarsen.coarsen_groups.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        res = louvain_batched(fleet, cfg)
+        torch.cuda.synchronize()
+        fleet_s = time.perf_counter() - t
+        k3_fleet = coarsen.coarsen_groups.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        require(k3_fleet == res.n_passes - 1 and k3_fleet > 0,
+                f"refine={refine}: K3 launched {k3_fleet} times over "
+                f"{res.n_passes} fleet passes")
+        mem = res.membership.cpu().numpy()
+        coarsen.coarsen_groups.launches = 0
+        solo_s = 0.0
+        for s, g in enumerate(graphs):
+            solo = louvain(g, cfg)
+            solo_s += solo.total_seconds
+            require(np.array_equal(mem[s, :n], solo.membership)
+                    and res.n_communities[s] == solo.n_communities,
+                    f"refine={refine}: tenant {s}'s fleet membership differs "
+                    f"from its louvain()")
+        log("fleet", f"cold louvain_batched(refine={refine!r}): "
+            f"{res.n_passes} passes, communities "
+            f"{res.n_communities.tolist()}, {fleet_s:.3f} s, K3 launched "
+            f"{k3_fleet} times, peak memory {peak:.2f} GiB; {S} solo "
+            f"louvain() {solo_s:.3f} s in all, K3 launched "
+            f"{coarsen.coarsen_groups.launches} times; every tenant equal")
+        cold[refine] = (mem, k3_fleet)
+
+    # K3 on the fleet's pass-0 partition: one sorted, stream-keyed list.
+    first = louvain_batched(fleet, LouvainConfig(max_passes=1)).membership
+    comm = torch.cat([first, torch.full((S, 1), n_cap, dtype=torch.int32,
+                                        device=dev)], 1)
+    s_ci, s_cj, s_w = sorted_fleet_aggregate_slots(fleet, comm)
+    sent = fleet.sentinel
+    del first, comm
+    got = coarsen.coarsen_groups(s_ci, s_cj, s_w, sent=sent)
+    want = coarsen.coarsen_groups_ref(s_ci, s_cj, s_w, sent=sent)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            "fleet K3 differs from its plain version on the pass-0 slots")
+    k3_err = float((got[4] - want[4]).abs().max())
+    total = s_ci.numel()
+    log("kernels", f"fleet K3: exact on {total} slots of {S} streams, "
+        f"{int(got[0].sum())} groups, the longest "
+        f"{longest_group(torch, s_ci, s_cj)} slots")
+    del want
+    repeat_identical(torch, lambda: coarsen.coarsen_groups(
+        s_ci, s_cj, s_w, sent=sent), got, 20, "fleet K3")
+    del got
+    k3_ms = time_ms(torch, lambda: coarsen.coarsen_groups(
+        s_ci, s_cj, s_w, sent=sent), 10)
+    k3_plain = time_ms(torch, lambda: coarsen.coarsen_groups_ref(
+        s_ci, s_cj, s_w, sent=sent), 3)
+    k3_bytes = 12 * total + 17 * (total + 1)
+    log("fleet", f"fleet K3 on {total} slots: {k3_ms:.4f} ms (plain "
+        f"{k3_plain:.4f} ms); bytes once {k3_bytes}, "
+        f"{k3_ms / (k3_bytes / HBM_BYTES_PER_S * 1e3):.3f}x the bound")
+    report.append(kernel_entry("coarsen_groups_fleet", cold["none"][1],
+                               k3_err, k3_ms, k3_plain, k3_bytes, total))
+    del s_ci, s_cj, s_w
+
+    # Serving: the fleet against 16 solo louvain_dynamic streams from the
+    # cold memberships; one K4 launch per step.
+    prevs = [cold["none"][0][s, :n] for s in range(S)]
+    updates = int(sum(b.b_valid for st in streams for b in st))
+    resolve.resolve_groups.launches = 0
+    coarsen.coarsen_groups.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = louvain_dynamic_batched(graphs, streams, prevs=prevs)
+    torch.cuda.synchronize()
+    k4_fleet = resolve.resolve_groups.launches
+    k3_serve = coarsen.coarsen_groups.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, p in enumerate(res.pass_stats):
+        log("fleet", f"step {i}: apply_seconds {res.apply_seconds[i]:.6f} "
+            f"update_seconds {res.update_seconds[i]:.6f} iterations "
+            f"{p.iterations} frontier max {p.frontier_size} screening "
+            f"{p.screening} scan_backend {p.scan_backend} downgraded "
+            f"{p.downgraded}")
+    fleet_ups = updates / res.total_seconds
+    log("fleet", f"louvain_dynamic_batched: {res.total_seconds:.3f} s for "
+        f"{updates} entries of {S} tenants, fleet updates_per_second "
+        f"{fleet_ups:.4f}, launches K4 {k4_fleet} K3 {k3_serve}, regrows "
+        f"{res.n_regrows}, peak memory {peak:.2f} GiB")
+    require(k4_fleet == STREAM_BATCHES,
+            f"fleet K4 launched {k4_fleet} times over {STREAM_BATCHES} steps")
+    solo_s, k4_solo = 0.0, 0
+    for s, g in enumerate(graphs):
+        resolve.resolve_groups.launches = 0
+        solo = louvain_dynamic(g, streams[s], prev=prevs[s])
+        k4_solo += resolve.resolve_groups.launches
+        solo_s += solo.total_seconds
+        require(np.array_equal(res.stream_membership(s), solo.membership),
+                f"tenant {s}: fleet membership differs from its stream's")
+        require(same_graph(torch, res.graphs.stream(s), solo.graph),
+                f"tenant {s}: fleet final graph differs from its stream's")
+        require(res.frontier_sizes[:, s].tolist()
+                == [b.frontier_size for b in solo.batch_stats],
+                f"tenant {s}: frontier sizes differ from its stream's")
+    log("fleet", f"{S} solo louvain_dynamic: {solo_s:.3f} s in all, "
+        f"updates_per_second {updates / solo_s:.4f}, K4 launched {k4_solo} "
+        f"times; fleet / solo updates_per_second "
+        f"{fleet_ups / (updates / solo_s):.3f}; every tenant's membership, "
+        f"final graph and frontier sizes equal")
+    step_s = res.apply_seconds[0] + res.update_seconds[0]
+    del res
+
+    # Where a step's time goes: the first step once more under the
+    # profiler, for the fleet and for one tenant alone.
+    from repro_torch.core.multistream import _serve_step
+    mem0 = torch.from_numpy(np.stack(prevs).astype(np.int32)).to(dev)
+    batch0 = stack_batches([st[0] for st in streams])
+    solo0 = louvain_dynamic(graphs[0], streams[0][:1], prev=prevs[0])
+    for what, fn, wall_s in (
+            ("fleet step", lambda: _serve_step(
+                fleet, batch0, mem0, "community", LouvainConfig(), False,
+                "auto"), step_s),
+            ("solo step (tenant 0)", lambda: louvain_dynamic(
+                graphs[0], streams[0][:1], prev=prevs[0]),
+             solo0.total_seconds)):
+        p_ms, n_ops, busy_ms, top = device_profile(torch, fn)
+        log("fleet", f"profile of one {what}: {n_ops} device operations, "
+            f"device busy {busy_ms:.3f} ms, {p_ms:.3f} ms profiled wall, "
+            f"{wall_s * 1e3:.3f} ms unprofiled (idle share "
+            f"{1 - busy_ms / (wall_s * 1e3):.3f}); top by device ms "
+            f"{json.dumps(top)}")
+    del mem0, batch0, solo0
+
+    # K4 on the first step's flat, stream-keyed sorted slots.
+    slots = sorted_fleet_slots(fleet, stack_batches([st[0] for st in streams]))
+    got = resolve.resolve_groups(*slots, sent=sent)
+    want = resolve.resolve_groups_ref(*slots, sent=sent)
+    torch.cuda.synchronize()
+    require(same_records(torch, got, want),
+            "fleet K4 differs from its plain version on the first step")
+    k4_err = float((got[4] - want[4]).abs().max())
+    total = slots[0].numel()
+    log("kernels", f"fleet K4 first step: bit for bit on {total} sorted "
+        f"slots, {int(got[0].sum())} kept, {int(got[5].sum())} changed")
+    del want
+    repeat_identical(torch, lambda: resolve.resolve_groups(
+        *slots, sent=sent), got, 20, "fleet K4 on the first step")
+    del got
+    k4_ms = time_ms(torch, lambda: resolve.resolve_groups(*slots, sent=sent),
+                    10)
+    k4_plain = time_ms(torch, lambda: resolve.resolve_groups_ref(
+        *slots, sent=sent), 3)
+    k4_bytes = 13 * total + 18 * (total + 1)
+    log("fleet", f"fleet K4 on {total} slots: {k4_ms:.4f} ms (plain "
+        f"{k4_plain:.4f} ms); bytes once {k4_bytes}, "
+        f"{k4_ms / (k4_bytes / HBM_BYTES_PER_S * 1e3):.3f}x the bound")
+    report.append(kernel_entry("resolve_groups_fleet", k4_fleet, k4_err,
+                               k4_ms, k4_plain, k4_bytes, total))
+    del slots, fleet, graphs, streams
+
+    # The sbm goldens through a one-stream fleet.
+    gold = np.load(GOLDEN)
+    g, _ = sbm_graph(8, 16, 0.4, 0.01, seed=2, device=dev)
+    for key, cfg in (("single__sbm", LouvainConfig()),
+                     ("single_leiden__sbm", LouvainConfig(refine="leiden"))):
+        coarsen.coarsen_groups.launches = 0
+        res = louvain_batched(stack_graphs([g]), cfg)
+        require(np.array_equal(res.membership[0, :g.n_valid].cpu().numpy(),
+                               gold[key]),
+                f"{key} not reproduced by a one-stream fleet")
+        require(coarsen.coarsen_groups.launches == res.n_passes - 1 > 0,
+                f"{key}: K3 launched {coarsen.coarsen_groups.launches} "
+                f"times over {res.n_passes} passes")
+    log("fleet", "single__sbm and single_leiden__sbm reproduced by a "
+        "one-stream louvain_batched")
+
+    # Regrow: a two-stream fleet with two spare slots and a batch of four
+    # new edges.
+    full, _ = sbm_graph(4, 8, 0.5, 0.05, seed=1, device=dev)
+    e = full.e_valid
+    tight = build_csr(full.src[:e], full.indices[:e], full.weights[:e],
+                      full.n_valid, e_cap=e + 2, device=dev)
+    batch = make_edge_batch([0, 1, 2, 3], [17, 18, 19, 20], [1.0] * 4,
+                            tight.n_cap, b_cap=4, device=dev)
+    prevs = [louvain(tight).membership] * 2
+    try:
+        louvain_dynamic_batched([tight, tight], [[batch], [batch]],
+                                prevs=prevs, grow_capacity=False)
+        raise Failure("the tight fleet did not overflow")
+    except FleetCapacityOverflow as exc:
+        overflow = (exc.step, exc.e_need, exc.e_cap)
+    grown = louvain_dynamic_batched([tight, tight], [[batch], [batch]],
+                                    prevs=prevs)
+    ample = build_csr(full.src[:e], full.indices[:e], full.weights[:e],
+                      full.n_valid, e_cap=grown.graphs.e_cap, device=dev)
+    ref = louvain_dynamic_batched([ample, ample], [[batch], [batch]],
+                                  prevs=prevs)
+    require(grown.n_regrows >= 1 and ref.n_regrows == 0
+            and np.array_equal(grown.membership, ref.membership)
+            and all(same_graph(torch, grown.graphs.stream(s),
+                               ref.graphs.stream(s)) for s in range(2)),
+            "the regrown fleet differs from the amply provisioned one")
+    log("fleet", f"regrow: FleetCapacityOverflow (step, e_need, e_cap) "
+        f"{overflow} without growth; with growth {grown.n_regrows} regrow to "
+        f"e_cap {grown.graphs.e_cap}, equal to the amply provisioned fleet")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22,
                     help="R-MAT scale of phase 4 (2^scale vertices)")
+    ap.add_argument("--streams", type=int, default=16,
+                    help="tenants of phase 6's serving fleet")
+    ap.add_argument("--stream-scale", type=int, default=18,
+                    help="R-MAT scale of each phase 6 tenant")
     args = ap.parse_args()
 
     import torch
@@ -1273,7 +1656,9 @@ def main() -> int:
                          ("full", lambda: state.update(g=phase_full(
                              torch, ops, args, dev, report))),
                          ("stream", lambda: phase_stream(
-                             torch, state.pop("g"), dev, report))):
+                             torch, state.pop("g"), dev, report)),
+                         ("fleet", lambda: phase_fleet(
+                             torch, args, dev, report))):
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize()

@@ -1,7 +1,8 @@
-"""GVE-Louvain in PyTorch: the single-device pass loop and the streaming
-entry point ``louvain_dynamic``, with the ELL move kernels (K1, K2), the
-aggregation kernel (K3) and the batch-apply kernel (K4) hand-written in CUDA
-for Hopper (``repro_torch/csrc``).
+"""GVE-Louvain in PyTorch: the single-device pass loop, the streaming
+entry point ``louvain_dynamic`` and the batched multi-stream drivers
+(``louvain_batched``, ``louvain_dynamic_batched``), with the ELL move
+kernels (K1, K2), the aggregation kernel (K3) and the batch-apply kernel
+(K4) hand-written in CUDA for Hopper (``repro_torch/csrc``).
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); on a CPU tensor every kernel wrapper runs its plain
@@ -14,10 +15,21 @@ from repro_torch.core.dynamic import (BatchUpdateStats, DynamicResult,
 from repro_torch.core.graph import CSRGraph, build_csr, from_networkx
 from repro_torch.core.louvain import (LouvainConfig, LouvainResult, PassStats,
                                       louvain, membership_modularity)
-from repro_torch.data.graphs import rmat_graph, sbm_edge_stream, sbm_graph
+from repro_torch.core.multistream import (BatchedDynamicResult,
+                                          BatchedLouvainResult, FleetBatch,
+                                          FleetCapacityOverflow, FleetGraph,
+                                          louvain_batched,
+                                          louvain_dynamic_batched,
+                                          stack_batches, stack_graphs)
+from repro_torch.data.graphs import (rmat_graph, sbm_edge_stream, sbm_graph,
+                                     sbm_holdout_stream)
 
-__all__ = ["BatchUpdateStats", "CSRGraph", "DynamicResult", "EdgeBatch",
-           "LouvainConfig", "LouvainResult", "PassStats", "apply_edge_batch",
-           "build_csr", "from_networkx", "louvain", "louvain_dynamic",
-           "make_edge_batch", "membership_modularity", "rmat_graph",
-           "sbm_edge_stream", "sbm_graph"]
+__all__ = ["BatchUpdateStats", "BatchedDynamicResult", "BatchedLouvainResult",
+           "CSRGraph", "DynamicResult", "EdgeBatch", "FleetBatch",
+           "FleetCapacityOverflow", "FleetGraph", "LouvainConfig",
+           "LouvainResult", "PassStats", "apply_edge_batch", "build_csr",
+           "from_networkx", "louvain", "louvain_batched", "louvain_dynamic",
+           "louvain_dynamic_batched", "make_edge_batch",
+           "membership_modularity", "rmat_graph", "sbm_edge_stream",
+           "sbm_graph", "sbm_holdout_stream", "stack_batches",
+           "stack_graphs"]

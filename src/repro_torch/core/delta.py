@@ -23,10 +23,12 @@ the (src, dst) key alone would put the forward slot of entry i before the
 reverse slot of an earlier entry j < i with the same key: for the batch
 ``[(1, 2, w=3), (2, 1, w=5)]`` the reference resolves both directions to 5,
 a key-only sort would resolve (2, 1) to 3 — an asymmetric graph.  The
-single-device apply therefore interleaves the batch's directed slots as
-``fwd0, rev0, fwd1, rev1, ...`` so that list order is rank order and one
-stable key sort equals the reference's lexsort; a list whose ranks are out
-of order gets two stable sorts (rank, then key).
+apply therefore interleaves the batch's directed slots as ``fwd0, rev0,
+fwd1, rev1, ...`` so that list order is rank order and one stable key sort
+equals the reference's lexsort (``sort_slots``, the reference's
+``sort_reduce_apply_slots`` on any list, gives a list whose ranks are out
+of order two stable sorts: rank, then key).  A graph's batch applies as a
+one-stream fleet's (``apply_fleet_batch``).
 """
 
 from __future__ import annotations
@@ -38,8 +40,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.louvain_arch import resolve_apply_backend
-from repro_torch.core.graph import (CSRGraph, resolve_device, scatter_slots,
-                                    segment_sum)
+from repro_torch.core.graph import (CSRGraph, FleetGraph, resolve_device,
+                                    scatter_fleet_records, scatter_slots,
+                                    segment_sum, stack_graphs, stack_rows)
 from repro_torch.kernels.batch_apply.resolve import resolve_groups
 
 
@@ -126,18 +129,31 @@ def sort_reduce_apply_slots(all_src, all_dst, all_w, rank, is_batch,
     backend = resolve_apply_backend(backend, all_src.device)
     s_src, s_dst, s_w, s_batch = sort_slots(all_src, all_dst, all_w, rank,
                                             is_batch, sent)
+    keep, pos, r_src, r_dst, r_w, chg_src, chg_dst = resolve_sorted_slots(
+        s_src, s_dst, s_w, s_batch, sent, backend)
+    e_new = keep.sum()
+    pos = torch.where(keep & (pos < out_cap), pos, out_cap)
+    out_src, out_dst, out_w = scatter_slots(
+        pos, torch.where(keep, r_src, sent), torch.where(keep, r_dst, sent),
+        torch.where(keep, r_w, 0.0), sent, out_cap)
+    return out_src, out_dst, out_w, e_new, chg_src, chg_dst
 
+
+def resolve_sorted_slots(s_src, s_dst, s_w, s_batch, sent: int,
+                         backend: str):
+    """Resolve a (src, dst, rank)-sorted slot list into one record per
+    group: ``(keep, pos, r_src, r_dst, r_w, chg_src, chg_dst)``.  ``keep``
+    marks the records of live groups (real key, resolved weight > 0),
+    ``pos`` their rank among the kept ones, ``r_*`` the group's key and
+    resolved weight; ``chg_*`` hold the endpoints of every group whose
+    weight changed (``sent`` elsewhere).  ``"kernel"`` is K4 (its records
+    sit one slot after each group); ``"sort"`` the segment-reduction chain
+    (records on each group's last slot)."""
     if backend == "kernel":
         keep, pos, f_src, f_dst, f_w, chg = resolve_groups(
             s_src, s_dst, s_w, s_batch, sent=sent)
-        e_new = keep.sum()
-        pos = torch.where(keep & (pos < out_cap), pos, out_cap)
-        out_src, out_dst, out_w = scatter_slots(
-            pos, torch.where(keep, f_src, sent),
-            torch.where(keep, f_dst, sent), torch.where(keep, f_w, 0.0),
-            sent, out_cap)
-        return (out_src, out_dst, out_w, e_new,
-                torch.where(chg, f_src, sent), torch.where(chg, f_dst, sent))
+        return (keep, pos, f_src, f_dst, f_w, torch.where(chg, f_src, sent),
+                torch.where(chg, f_dst, sent))
 
     total = s_src.shape[0]
     s_sent = s_src == sent
@@ -158,95 +174,70 @@ def sort_reduce_apply_slots(all_src, all_dst, all_w, rank, is_batch,
 
     # Compact live groups (w > 0, real key) back into sorted slot order.
     keep = is_last & ~s_sent & (new_w[gid] > 0.0)
-    e_new = keep.sum()
     pos = torch.cumsum(keep, 0) - 1
-    pos = torch.where(keep & (pos < out_cap), pos, out_cap)
-    out_src, out_dst, out_w = scatter_slots(
-        pos, torch.where(keep, s_src, sent), torch.where(keep, s_dst, sent),
-        torch.where(keep, new_w[gid], 0.0), sent, out_cap)
-
     hit = changed_group[gid] > 0
-    return (out_src, out_dst, out_w, e_new, torch.where(hit, s_src, sent),
-            torch.where(hit, s_dst, sent))
+    return (keep, pos, s_src, s_dst, new_w[gid],
+            torch.where(hit, s_src, sent), torch.where(hit, s_dst, sent))
 
 
-def batch_slots(graph: CSRGraph, batch: EdgeBatch):
-    """The unified directed-slot list of one batch apply:
-    ``(all_src, all_dst, all_w, rank, is_batch)`` with dead slots keyed
-    ``(n_cap, n_cap)``, existing slots first, then the batch's directed
-    slots interleaved as ``fwd0, rev0, fwd1, rev1, ...`` (rank order; see
-    the module docstring).  Self loops get ONE slot (the reverse is dead).
-    """
-    n_cap, e_cap = graph.n_cap, graph.e_cap
-    b_cap = batch.b_cap
-    dev = graph.device
-    if batch.src.device != dev:
-        raise ValueError(f"batch on {batch.src.device}, graph on {dev}")
+def _directed_slots(src, indices, weights, e_valid, b_src, b_dst, b_w,
+                    b_valid, n_cap: int):
+    """The unified directed-slot lists ``(all_src, all_dst, all_w,
+    is_batch)`` along the last axis: a graph's slots (live below
+    ``e_valid``), then its batch's directed slots interleaved as ``fwd0,
+    rev0, fwd1, rev1, ...``; dead slots keyed ``(n_cap, n_cap)``.  Leading
+    axes (a fleet's streams) take ``e_valid``/``b_valid`` as (S, 1)
+    tensors."""
+    e_cap, b_cap = src.shape[-1], b_src.shape[-1]
+    dev = src.device
+    lead = b_src.shape[:-1]
     b_idx = torch.arange(b_cap, device=dev)
-    b_live = ((b_idx < batch.b_valid) & (batch.src < n_cap)
-              & (batch.dst < n_cap))
-    u = torch.where(b_live, batch.src, n_cap).to(torch.int32)
-    v = torch.where(b_live, batch.dst, n_cap).to(torch.int32)
+    b_live = (b_idx < b_valid) & (b_src < n_cap) & (b_dst < n_cap)
+    u = torch.where(b_live, b_src, n_cap).to(torch.int32)
+    v = torch.where(b_live, b_dst, n_cap).to(torch.int32)
     rev_live = b_live & (u != v)
-    d_src = torch.stack([u, torch.where(rev_live, v, n_cap)], 1).reshape(-1)
-    d_dst = torch.stack([v, torch.where(rev_live, u, n_cap)], 1).reshape(-1)
-    d_w = torch.stack([batch.weight, torch.where(rev_live, batch.weight, 0.0)],
-                      1).reshape(-1)
+    d_src = torch.stack([u, torch.where(rev_live, v, n_cap)],
+                        -1).reshape(*lead, -1)
+    d_dst = torch.stack([v, torch.where(rev_live, u, n_cap)],
+                        -1).reshape(*lead, -1)
+    d_w = torch.stack([b_w, torch.where(rev_live, b_w, 0.0)],
+                      -1).reshape(*lead, -1)
 
-    all_src = torch.cat([graph.src, d_src.to(torch.int32)])
-    all_dst = torch.cat([graph.indices, d_dst.to(torch.int32)])
-    all_w = torch.cat([graph.weights, d_w]).to(torch.float32)
+    all_src = torch.cat([src, d_src.to(torch.int32)], -1)
+    all_dst = torch.cat([indices, d_dst.to(torch.int32)], -1)
+    all_w = torch.cat([weights, d_w], -1).to(torch.float32)
     e_idx = torch.arange(e_cap, device=dev)
-    exist_live = (e_idx < graph.e_valid) & (graph.src < n_cap)
-    slot_live = torch.cat([exist_live, (d_src < n_cap) | (d_dst < n_cap)])
+    exist_live = (e_idx < e_valid) & (src < n_cap)
+    slot_live = torch.cat([exist_live, (d_src < n_cap) | (d_dst < n_cap)],
+                          -1)
     is_batch = torch.cat([torch.zeros(e_cap, dtype=torch.bool, device=dev),
                           torch.ones(2 * b_cap, dtype=torch.bool, device=dev)])
-    rank = torch.cat([torch.zeros(e_cap, dtype=torch.int32, device=dev),
-                      1 + torch.arange(2 * b_cap, dtype=torch.int32,
-                                       device=dev) // 2])
     dead = ~(slot_live & (all_src < n_cap) & (all_dst < n_cap))
     return (torch.where(dead, n_cap, all_src),
-            torch.where(dead, n_cap, all_dst), all_w, rank, is_batch)
+            torch.where(dead, n_cap, all_dst), all_w,
+            is_batch.expand(all_src.shape))
 
 
 def sorted_batch_slots(graph: CSRGraph, batch: EdgeBatch):
-    """The (src, dst, rank)-sorted slot list that K4 resolves for one batch:
-    ``(s_src, s_dst, s_w, s_batch)``."""
-    return sort_slots(*batch_slots(graph, batch), graph.n_cap)
+    """The sorted slot list that K4 resolves for one batch: ``(s_src,
+    s_dst, s_w, s_batch)``, that of a one-stream fleet
+    (``sorted_fleet_slots``; dead slots key as its flat sentinel
+    n_cap + 1)."""
+    return sorted_fleet_slots(stack_graphs([graph]), stack_batches([batch]))
 
 
 def _apply_edge_batch(graph: CSRGraph, batch: EdgeBatch,
                       backend: str = "auto"):
-    """Returns (graph', touched_mask, e_new_uncapped).  Reads ``e_new`` and
-    the new ``n_valid`` to the host in one transfer (the port's
-    ``CSRGraph`` keeps them as host ints)."""
-    n_cap, e_cap = graph.n_cap, graph.e_cap
-    dev = graph.device
-    all_src, all_dst, all_w, rank, is_batch = batch_slots(graph, batch)
-    out_src, out_dst, out_w, e_new, chg_src, chg_dst = sort_reduce_apply_slots(
-        all_src, all_dst, all_w, rank, is_batch, n_cap, e_cap, backend)
-
-    live_rows = out_src < n_cap
-    counts = segment_sum(live_rows.to(torch.int32),
-                         torch.where(live_rows, out_src, n_cap), n_cap + 1)
-    indptr = torch.zeros(n_cap + 1, dtype=torch.int32, device=dev)
-    indptr[1:] = torch.cumsum(counts[:n_cap], 0, dtype=torch.int32)
-
-    # Touched vertices: endpoints of groups whose weight actually changed
-    # (True written at repeated indices is idempotent; slot n_cap stays off).
-    touched = torch.zeros(n_cap + 1, dtype=torch.bool, device=dev)
-    touched[chg_src.to(torch.int64)] = True
-    touched[chg_dst.to(torch.int64)] = True
-    touched[n_cap] = False
-
-    # Batch endpoints may extend the valid-vertex prefix (still < n_cap).
-    max_end = torch.max(torch.where(
-        touched, torch.arange(n_cap + 1, device=dev), -1))
-    e_new, max_end = torch.stack([e_new.to(torch.int64), max_end]).tolist()
-    out = CSRGraph(indptr=indptr, indices=out_dst, weights=out_w,
-                   src=out_src, n_valid=max(graph.n_valid, max_end + 1),
-                   e_valid=min(e_new, e_cap))
-    return out, touched, e_new
+    """Returns (graph', touched_mask, e_new_uncapped): ``apply_fleet_batch``
+    of a one-stream fleet, which reads ``e_new`` and the new ``n_valid``
+    to the host in one transfer (the port's ``CSRGraph`` keeps them as
+    host ints)."""
+    if batch.src.device != graph.device:
+        raise ValueError(f"batch on {batch.src.device}, graph on "
+                         f"{graph.device}")
+    out, touched, e_new, _ = apply_fleet_batch(
+        stack_graphs([graph]), stack_batches([batch]), backend)
+    return out.stream(0), touched[0], int(e_new[0])
 
 
 def grow_graph_capacity(graph: CSRGraph, e_cap_new: int) -> CSRGraph:
@@ -286,3 +277,104 @@ def apply_edge_batch(graph: CSRGraph, batch: EdgeBatch, *, grow: bool = False,
         grown = grow_graph_capacity(graph, max(2 * graph.e_cap, e_new))
         out, touched, e_new = _apply_edge_batch(grown, batch, backend)
     return out, touched
+
+
+# ---------------------------------------------------------------------------
+# The fleet form: one apply for every stream of a batched serving step.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FleetBatch:
+    """S padded edge batches of one ``b_cap``, stacked along axis 0:
+    src, dst (S, b_cap) int32, weight (S, b_cap) float32, b_valid (S,)
+    host ints."""
+
+    src: torch.Tensor
+    dst: torch.Tensor
+    weight: torch.Tensor
+    b_valid: np.ndarray
+
+    @property
+    def b_cap(self) -> int:
+        return self.src.shape[1]
+
+
+def stack_batches(batches) -> FleetBatch:
+    """Stack equal-capacity edge batches along a new leading stream axis."""
+    b0 = batches[0]
+    for b in batches[1:]:
+        if b.b_cap != b0.b_cap:
+            raise ValueError(
+                f"batch capacities differ: {b.b_cap} vs {b0.b_cap}")
+    return FleetBatch(src=stack_rows([b.src for b in batches]),
+                      dst=stack_rows([b.dst for b in batches]),
+                      weight=stack_rows([b.weight for b in batches]),
+                      b_valid=np.array([b.b_valid for b in batches],
+                                       np.int64))
+
+
+def sorted_fleet_slots(fleet: FleetGraph, batch: FleetBatch):
+    """The fleet's unified slot list, keyed ``(stream, src, dst)`` in flat
+    ids (``FleetGraph.flat_ids``; dead slots of every stream key as the
+    flat sentinel G and sort last) and put in order by ONE stable sort:
+    ``(s_src, s_dst, s_w, s_batch)``, which K4 resolves with ``sent=G``.
+    Within a stream the list is in rank order (``_directed_slots``), and
+    live keys of two streams never meet, so the stable key sort is the
+    reference's (stream, src, dst, rank) order."""
+    dev = fleet.device
+    if batch.src.device != dev or batch.src.shape[0] != fleet.n_streams:
+        raise ValueError(f"a batch of {batch.src.shape[0]} streams on "
+                         f"{batch.src.device} for a fleet of "
+                         f"{fleet.n_streams} on {dev}")
+    ev = torch.from_numpy(fleet.e_valid).to(dev)[:, None]
+    bv = torch.from_numpy(batch.b_valid).to(dev)[:, None]
+    all_src, all_dst, all_w, is_batch = _directed_slots(
+        fleet.src, fleet.indices, fleet.weights, ev, batch.src, batch.dst,
+        batch.weight, bv, fleet.n_cap)
+    f_src, f_dst = fleet.flat_ids(all_src), fleet.flat_ids(all_dst)
+    del all_src, all_dst
+    key = f_src.to(torch.int64)
+    key.mul_(fleet.sentinel + 1).add_(f_dst)
+    order = torch.sort(key, stable=True).indices
+    del key
+    return (f_src[order], f_dst[order], all_w.reshape(-1)[order],
+            is_batch.reshape(-1)[order])
+
+
+def apply_fleet_batch(fleet: FleetGraph, batch: FleetBatch,
+                      backend: str = "auto"):
+    """One edge batch per stream, applied to the whole fleet at once: one
+    slot-list build, one stable key sort, one group resolve (K4 with
+    ``backend="kernel"``: ONE launch for all S streams) and one scatter.
+    Each stream's graph, touched set and edge count equal its own
+    ``_apply_edge_batch`` bit for bit (K4 selects weights, never sums).
+
+    Returns ``(fleet', touched, e_new, n_touched)``: touched is (S, n_cap
+    + 1) bool on the device; ``e_new`` (uncapped; above ``e_cap`` the
+    stream overflowed and its slots past the envelope were dropped) and
+    ``n_touched`` are (S,) host arrays, read with the new ``n_valid`` in
+    one transfer for the whole fleet.
+    """
+    backend = resolve_apply_backend(backend, fleet.device)
+    S, n_cap, e_cap = fleet.n_streams, fleet.n_cap, fleet.e_cap
+    sent = fleet.sentinel
+    s_src, s_dst, s_w, s_batch = sorted_fleet_slots(fleet, batch)
+    keep, pos, r_src, r_dst, r_w, chg_src, chg_dst = resolve_sorted_slots(
+        s_src, s_dst, s_w, s_batch, sent, backend)
+    out_src, out_dst, out_w, counts, indptr = scatter_fleet_records(
+        fleet, keep, pos, r_src, r_dst, r_w, e_cap)
+
+    touched = torch.zeros(sent + 1, dtype=torch.bool, device=fleet.device)
+    touched[chg_src.to(torch.int64)] = True
+    touched[chg_dst.to(torch.int64)] = True
+    touched = touched[:sent].view(S, n_cap + 1)
+    touched[:, n_cap] = False
+    idx = torch.arange(n_cap + 1, device=fleet.device)
+    max_end = torch.max(torch.where(touched, idx, -1), 1).values
+    host = torch.cat([counts, max_end, touched.sum(1)]).cpu().numpy()
+    e_new, max_end, n_touched = host[:S], host[S:2 * S], host[2 * S:]
+    out = FleetGraph(indptr=indptr, indices=out_dst, weights=out_w,
+                     src=out_src,
+                     n_valid=np.maximum(fleet.n_valid, max_end + 1),
+                     e_valid=np.minimum(e_new, e_cap))
+    return out, touched, e_new, n_touched

@@ -1,8 +1,9 @@
 """The bulk-synchronous move engine of the PyTorch port (``repro.core.engine``).
 
 ``MoveEngine`` owns the round loop of Algorithm 2: a sweep is
-``gate_fraction`` gated rounds, and sweeps run until the sweep's total dQ is
-at most the tolerance or the iteration cap is reached.  A scanner backend
+``gate_fraction`` gated rounds, and each stream sweeps until its sweep's
+total dQ is at most its tolerance or the iteration cap is reached (a graph
+is one stream; a fleet's flat view holds many).  A scanner backend
 supplies only the per-vertex best-move scan and a thin topology surface.
 JAX's ``lax.while_loop`` becomes a host loop that reads one scalar (the
 sweep's dQ) from the device per sweep.  The streaming seed-frontier policy
@@ -16,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.graph import segment_sum
@@ -48,16 +50,20 @@ def round_gate(ids: torch.Tensor, round_ix, gate_fraction: int) -> torch.Tensor:
 
 @dataclasses.dataclass
 class MoveState:
-    """Loop state of one local-moving phase.  ``comm``/``sigma`` are the
-    (sent + 1,) community state; ``iters`` is a host int; ``dq``/``dq_sum``
-    are 0-d float32 device tensors."""
+    """Loop state of one local-moving phase of the scanner's S streams (a
+    graph is one; a fleet's ``FleetView`` holds S).  ``comm``/``sigma``
+    are the (sent + 1,) community state; ``iters`` is an (S,) host int
+    array; ``dq``/``dq_sum`` are (S,) float32 device tensors; ``live``
+    masks the vertices of the streams still sweeping.  ``MoveEngine.run``
+    hands one stream's back as a host int and 0-d tensors."""
 
     comm: torch.Tensor
     sigma: torch.Tensor
     frontier: torch.Tensor
-    iters: int
+    iters: np.ndarray
     dq: torch.Tensor
     dq_sum: torch.Tensor
+    live: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,8 +99,11 @@ def gated_move_mask(best_c: torch.Tensor, best_dq: torch.Tensor,
 class MoveEngine:
     """The one BSP round loop.  ``scanner`` supplies:
 
-    attributes ``sentinel``, ``local_ids``, ``k_local``, ``move_valid``,
-    ``frontier_valid``; methods ``scan(comm, sigma, frontier)``,
+    attributes ``sentinel``, ``local_ids``, ``n_streams``, ``gate_ids``
+    (the stream-local ids the round gate hashes), ``stream_of`` (each
+    vertex slot's stream; ``n_streams`` for the sentinel), ``k_local``,
+    ``move_valid``, ``frontier_valid``; methods ``scan(comm, sigma,
+    frontier)``,
     ``comm_local``, ``count_ones``, ``psum``, ``combine_sigma``,
     ``gather_comm``, ``gather_mask``, ``mark_neighbors``; and optionally
     ``decide_moves(comm, sigma, frontier, comm_l, sizes, round_ix)`` ->
@@ -113,7 +122,7 @@ class MoveEngine:
         frontier = st.frontier if cfg.use_pruning else frontier0
         comm_l = sc.comm_local(st.comm)
 
-        gate = (round_gate(sc.local_ids, round_ix, cfg.gate_fraction)
+        gate = (round_gate(sc.gate_ids, round_ix, cfg.gate_fraction)
                 if cfg.gate_fraction > 1 else None)
         sizes = sc.psum(segment_sum(sc.count_ones(comm_l), comm_l, sent + 1))
 
@@ -125,8 +134,14 @@ class MoveEngine:
             best_c, best_dq = sc.scan(st.comm, st.sigma, frontier)
             do_move = gated_move_mask(best_c, best_dq, comm_l, sizes,
                                       frontier, sent, sc.move_valid, gate)
+        do_move = do_move & st.live
 
-        dq = sc.psum(torch.sum(torch.where(do_move, best_dq, 0.0)))
+        # Each stream's dQ over its block of vertex slots, accumulated in
+        # float64 and rounded once: the same sum whatever the block's
+        # padding or the number of streams beside it.
+        moved_dq = torch.where(do_move, best_dq, 0.0)[:sent]
+        dq = sc.psum(torch.sum(moved_dq.view(sc.n_streams, -1), 1,
+                               dtype=torch.float64).to(torch.float32))
         moved_k = torch.where(do_move, sc.k_local, 0.0)
         add = segment_sum(moved_k, torch.where(do_move, best_c, sent),
                           sent + 1)
@@ -143,27 +158,49 @@ class MoveEngine:
         if gate is not None:
             frontier_new = frontier_new | (frontier & ~gate)
         return MoveState(comm, sigma, frontier_new, st.iters, st.dq + dq,
-                         st.dq_sum + dq)
+                         st.dq_sum + dq, st.live)
 
     def run(self, comm0: torch.Tensor, sigma0: torch.Tensor,
-            frontier0: torch.Tensor, tolerance: float) -> MoveState:
-        """Algorithm 2: sweeps until total dQ <= tolerance or the cap.
+            frontier0: torch.Tensor, tolerance) -> MoveState:
+        """Algorithm 2: each stream sweeps until its own dQ <= its own
+        tolerance or the cap.  ``tolerance`` is one float (the scanner's
+        one stream: the state comes back with a host int ``iters`` and
+        0-d ``dq``/``dq_sum``) or one per stream.
 
-        The comparison is the reference's float32 one: the sweep's float32
-        dQ against the float32-rounded tolerance.
+        Sweeps run in lockstep; a stream that stopped stays frozen (its
+        vertices leave ``live``), so a stream whose tolerance is +inf runs
+        no sweep, and running streams have swept equally often, so the
+        round index is each one's own.  The comparison is the reference's
+        float32 one: the sweep's float32 dQ against the float32-rounded
+        tolerance.  One host read per sweep.
         """
-        cfg = self.config
-        tol = float(torch.tensor(tolerance, dtype=torch.float32))
-        zero = torch.zeros((), dtype=torch.float32, device=comm0.device)
-        st = MoveState(comm0, sigma0, frontier0, 0, zero, zero)
-        dq = float("inf")          # the loop always runs at least one sweep
-        while st.iters < cfg.max_iterations and dq > tol:
+        cfg, sc = self.config, self.scanner
+        tol = np.atleast_1d(np.asarray(tolerance, np.float32))
+        if tol.shape != (sc.n_streams,):
+            raise ValueError(f"{tol.shape[0]} tolerances for "
+                             f"{sc.n_streams} streams")
+        dev = comm0.device
+        zero = torch.zeros(sc.n_streams, dtype=torch.float32, device=dev)
+        st = MoveState(comm0, sigma0, frontier0,
+                       np.zeros(sc.n_streams, np.int64), zero, zero, None)
+        dq = np.full(sc.n_streams, np.inf, np.float32)  # >= 1 sweep each
+        sweeps = 0
+        while True:
+            running = (st.iters < cfg.max_iterations) & (dq > tol)
+            if not running.any():
+                break
+            run_t = torch.from_numpy(np.append(running, False)).to(dev)
+            st.live = run_t[sc.stream_of]
             st.dq = zero
-            base = st.iters * cfg.gate_fraction
             for r in range(cfg.gate_fraction):
-                st = self.one_round(st, frontier0, base + r)
-            st.iters += 1
-            dq = float(st.dq)      # the sweep's one host sync
+                st = self.one_round(st, frontier0,
+                                    sweeps * cfg.gate_fraction + r)
+            st.iters = st.iters + running
+            sweeps += 1
+            dq = np.where(running, st.dq.cpu().numpy(), dq)
+        if np.ndim(tolerance) == 0:
+            return dataclasses.replace(st, iters=int(st.iters[0]),
+                                       dq=st.dq[0], dq_sum=st.dq_sum[0])
         return st
 
 
@@ -178,8 +215,10 @@ def sanitize_outer(outer: torch.Tensor, n_valid: int,
     Invalid vertex slots (id >= ``n_valid``) pin to the sentinel; a stale
     label (< 0 or >= ``n_valid``, e.g. an earlier capacity's sentinel) on a
     valid slot falls back to the vertex's own singleton, never to another
-    community's id.  The scalar-``n_valid`` form of the reference's; its
-    live-mask form serves the sharded layouts only.
+    community's id.  The scalar-``n_valid`` form of the reference's (over
+    a fleet, ``n_valid`` is a ``FleetView``'s per-vertex thresholds, which
+    compare the same way); its live-mask form serves the sharded layouts
+    only.
     """
     ids = torch.arange(outer.shape[0], dtype=torch.int32,
                        device=outer.device)
@@ -195,11 +234,11 @@ def assert_outer_sane(outer: torch.Tensor, n_valid: int,
     """Raise ``ValueError`` if a stale outer id would reach a constrained
     sweep: a valid slot whose label lies outside [0, ``n_valid``), or an
     invalid slot not at the sentinel.  One host read.  Nothing in the
-    single-device paths calls it: their refine phases sanitize on the
-    device instead, as the reference's jitted sweeps do (its check is a
-    no-op under ``jit``).  It is kept for the drivers that hand outer
-    labels across devices or streams, ROADMAP items 8 and 10, which are
-    to call it where a stale id must fail loudly."""
+    single-device or multi-stream paths calls it: their refine phases
+    sanitize on the device instead, as the reference's jitted sweeps do
+    (its check is a no-op under ``jit``).  It is kept for the sharded
+    driver, which hands outer labels across devices (ROADMAP item 10) and
+    is to call it where a stale id must fail loudly."""
     ids = torch.arange(outer.shape[0], device=outer.device)
     valid = ids < n_valid
     bad = ((valid & ((outer < 0) | (outer >= n_valid)))
@@ -265,7 +304,7 @@ class ConstrainedScanner:
                 comm, sigma, frontier, comm_l, sizes, round_ix)
         else:
             best_c, best_dq = self.inner.scan(comm, sigma, frontier)
-            gate = (round_gate(self.local_ids, round_ix, self.gate_fraction)
+            gate = (round_gate(self.gate_ids, round_ix, self.gate_fraction)
                     if self.gate_fraction > 1 else None)
             do_move = gated_move_mask(best_c, best_dq, comm_l, sizes,
                                       frontier, sent, self.move_valid, gate)
@@ -279,10 +318,19 @@ class ReplicatedScannerBase:
     """Topology surface shared by the single-device backends (sort-reduce
     and ELL): local layout == replicated layout, all collectives identity."""
 
-    def __init__(self, sentinel: int, n_valid: int, k: torch.Tensor):
+    def __init__(self, sentinel: int, n_valid, k: torch.Tensor,
+                 n_streams: int = 1):
+        """The vertex slots below ``sentinel`` are ``n_streams`` equal
+        blocks, one per stream (a fleet's ``core.graph.FleetView``; a graph
+        is one block).  ``n_valid`` is an int, or a (sentinel + 1,) tensor
+        of per-vertex thresholds."""
         self.sentinel = sentinel
+        self.n_streams = n_streams
         self.local_ids = torch.arange(sentinel + 1, dtype=torch.int32,
                                       device=k.device)
+        block = max(sentinel // n_streams, 1)
+        self.gate_ids = torch.remainder(self.local_ids, block)
+        self.stream_of = torch.clamp(self.local_ids // block, max=n_streams)
         self.k_local = k
         valid = self.local_ids < n_valid
         self.move_valid: Optional[torch.Tensor] = valid
@@ -353,6 +401,25 @@ def affected_frontier(touched: torch.Tensor, membership: torch.Tensor,
         return fc
     small = fv.sum() * AUTO_SCREEN_TOUCHED_DENOM <= n_valid
     return torch.where(small, fv, fc)
+
+
+def resolve_screening_host(mode: Optional[str],
+                           touched_frac: Optional[float]
+                           ) -> Tuple[Optional[str], bool]:
+    """Host-side ``"auto"`` screening of the batched drivers: the mode of a
+    fleet step from the previous step's worst touched fraction (|touched| /
+    n_valid, max over the streams).  Returns ``(mode, downgraded)``:
+    modes other than ``"auto"`` pass unchanged; ``"auto"`` picks
+    ``"vertex"`` at or below 1 / ``AUTO_SCREEN_TOUCHED_DENOM``, else
+    ``"community"``, and with no measurement yet (the first step) the safe
+    ``"community"``, flagged as a downgrade."""
+    if mode != "auto":
+        return mode, False
+    if touched_frac is None:
+        return "community", True
+    if touched_frac * AUTO_SCREEN_TOUCHED_DENOM <= 1.0:
+        return "vertex", False
+    return "community", False
 
 
 def normalize_screening(screening) -> Optional[str]:

@@ -105,9 +105,18 @@ class CSRGraph:
         """(n_cap + 1,) float32 — K_i, with a trailing sentinel slot (= 0)."""
         return segment_sum(self.weights, self.src, self.n_cap + 1)
 
+    @property
+    def n_streams(self) -> int:
+        """A graph is one stream (a fleet's ``FleetView`` holds S)."""
+        return 1
+
     def total_weight(self) -> torch.Tensor:
-        """0-d float32 m = sum(w) / 2, kept on the device."""
-        return torch.sum(self.weights) * 0.5
+        """0-d float32 m = sum(w) / 2, kept on the device: the sum
+        accumulates in float64 and rounds once, so it does not depend on
+        the buffer's padding or summation order while it is exact in
+        float64 (integer weights below 2^53)."""
+        return torch.sum(self.weights, dtype=torch.float64).to(
+            torch.float32) * 0.5
 
 
 def _host_or_tensor(x, np_dtype, dtype: torch.dtype,
@@ -193,14 +202,14 @@ def from_networkx(g, *, n_cap: int | None = None, e_cap: int | None = None,
                      device=device)
 
 
-def rebucket_capacity(graph: CSRGraph, *, n_cap_new: int,
-                      e_cap_new: int) -> CSRGraph:
+def rebucket_capacity(graph, *, n_cap_new: int, e_cap_new: int):
     """Copy a graph into buffers of another capacity (shrink OR grow).
 
     Live data must fit the target and sit in a compact edge prefix (true of
     ``build_csr`` and ``aggregate_graph`` outputs).  Vertex-id arrays
     rewrite the sentinel (old ``n_cap`` -> new); valid ids are < ``n_valid``
-    and survive either direction unchanged.
+    and survive either direction unchanged.  ``graph`` may be a
+    ``FleetGraph``: every stream goes to the one new capacity.
     """
     n_cap, e_cap = graph.n_cap, graph.e_cap
     lim = min(n_cap, n_cap_new)
@@ -210,20 +219,22 @@ def rebucket_capacity(graph: CSRGraph, *, n_cap_new: int,
 
     def resize_e(x, fill):
         if e_cap_new <= e_cap:
-            return x[:e_cap_new]
-        return torch.cat([x, torch.full((e_cap_new - e_cap,), fill,
-                                        dtype=x.dtype, device=x.device)])
+            return x[..., :e_cap_new].contiguous()
+        return torch.cat([x, torch.full(x.shape[:-1] + (e_cap_new - e_cap,),
+                                        fill, dtype=x.dtype,
+                                        device=x.device)], -1)
 
+    indptr = graph.indptr
     if n_cap_new <= n_cap:
-        indptr = graph.indptr[: n_cap_new + 1]
+        indptr = indptr[..., : n_cap_new + 1]
     else:
-        indptr = torch.cat([graph.indptr,
-                            graph.indptr[-1:].expand(n_cap_new - n_cap)])
-    return CSRGraph(indptr=indptr.contiguous(),
-                    indices=remap(resize_e(graph.indices, n_cap)),
-                    weights=resize_e(graph.weights, 0.0),
-                    src=remap(resize_e(graph.src, n_cap)),
-                    n_valid=graph.n_valid, e_valid=graph.e_valid)
+        indptr = torch.cat([indptr, indptr[..., -1:].expand(
+            *indptr.shape[:-1], n_cap_new - n_cap)], -1)
+    return dataclasses.replace(
+        graph, indptr=indptr.contiguous(),
+        indices=remap(resize_e(graph.indices, n_cap)),
+        weights=resize_e(graph.weights, 0.0),
+        src=remap(resize_e(graph.src, n_cap)))
 
 
 def rebucket_graph(graph: CSRGraph, n_cap_new: int,
@@ -236,6 +247,296 @@ def rebucket_graph(graph: CSRGraph, n_cap_new: int,
             f"e_cap_new={e_cap_new}")
     return rebucket_capacity(graph, n_cap_new=int(n_cap_new),
                              e_cap_new=int(e_cap_new))
+
+
+def empty_like_caps(n_cap: int, e_cap: int, device="cuda") -> CSRGraph:
+    """An all-padding graph buffer (used as the coarse-graph target)."""
+    dev = resolve_device(device)
+    return CSRGraph(
+        indptr=torch.zeros(n_cap + 1, dtype=torch.int32, device=dev),
+        indices=torch.full((e_cap,), n_cap, dtype=torch.int32, device=dev),
+        weights=torch.zeros(e_cap, dtype=torch.float32, device=dev),
+        src=torch.full((e_cap,), n_cap, dtype=torch.int32, device=dev),
+        n_valid=0, e_valid=0)
+
+
+def connected_total_weight_check(graph: CSRGraph) -> float:
+    """Debug helper: host-side 2m."""
+    return float(graph.weights.cpu().numpy().sum())
+
+
+# ---------------------------------------------------------------------------
+# A fleet of equal-capacity graphs (batched multi-stream serving).
+# ---------------------------------------------------------------------------
+
+#: Flat vertex and sort-key ids of a fleet are int32 on the card (the
+#: kernels K3/K4 take int32 keys and one int32 sentinel).
+_INT32_LIMIT = 2 ** 31
+
+
+@dataclasses.dataclass
+class FleetGraph:
+    """S graphs of one ``(n_cap, e_cap)`` envelope, stacked along axis 0.
+
+    indptr  : (S, n_cap + 1) int32; indices, src : (S, e_cap) int32 in
+    stream-local vertex ids (padding ``n_cap``); weights : (S, e_cap)
+    float32; n_valid, e_valid : (S,) host int64 arrays.  ``stream(s)``
+    takes stream s out as a ``CSRGraph``; ``view()`` is the flat layout in
+    which one launch serves every stream (``FleetView``).
+    """
+
+    indptr: torch.Tensor
+    indices: torch.Tensor
+    weights: torch.Tensor
+    src: torch.Tensor
+    n_valid: np.ndarray
+    e_valid: np.ndarray
+
+    def __post_init__(self):
+        self.n_valid = np.asarray(self.n_valid, np.int64).reshape(-1)
+        self.e_valid = np.asarray(self.e_valid, np.int64).reshape(-1)
+        if (self.n_streams * (self.n_cap + 1) + 1 >= _INT32_LIMIT
+                or self.n_streams * self.e_cap >= _INT32_LIMIT):
+            raise ValueError(
+                f"fleet of {self.n_streams} streams at n_cap {self.n_cap}, "
+                f"e_cap {self.e_cap} exceeds the int32 flat id space")
+
+    @property
+    def n_streams(self) -> int:
+        return self.indptr.shape[0]
+
+    @property
+    def n_cap(self) -> int:
+        return self.indptr.shape[1] - 1
+
+    @property
+    def e_cap(self) -> int:
+        return self.indices.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.indices.device
+
+    @property
+    def sentinel(self) -> int:
+        """The flat sentinel ``S * (n_cap + 1)``: one past every stream's
+        block of vertex slots."""
+        return self.n_streams * (self.n_cap + 1)
+
+    def stream(self, s: int) -> CSRGraph:
+        return CSRGraph(indptr=self.indptr[s], indices=self.indices[s],
+                        weights=self.weights[s], src=self.src[s],
+                        n_valid=int(self.n_valid[s]),
+                        e_valid=int(self.e_valid[s]))
+
+    def take(self, rows) -> "FleetGraph":
+        """The sub-fleet of streams ``rows`` (host ints), in that order."""
+        rows = np.asarray(rows, np.int64)
+        ix = torch.from_numpy(rows).to(self.device)
+        return FleetGraph(indptr=self.indptr[ix], indices=self.indices[ix],
+                          weights=self.weights[ix], src=self.src[ix],
+                          n_valid=self.n_valid[rows],
+                          e_valid=self.e_valid[rows])
+
+    def offsets(self) -> torch.Tensor:
+        """(S, 1) int32 first flat id of each stream's block."""
+        return (torch.arange(self.n_streams, dtype=torch.int32,
+                             device=self.device) * (self.n_cap + 1))[:, None]
+
+    def flat_ids(self, x: torch.Tensor) -> torch.Tensor:
+        """(S, k) stream-local vertex ids -> (S * k,) int32 flat ids; ids
+        outside [0, n_cap) (sentinels, unassigned) become the flat
+        sentinel.  int32 throughout: flat ids stay below 2^31."""
+        x = x.to(torch.int32)
+        own = (x >= 0) & (x < self.n_cap)
+        return torch.where(own, x + self.offsets(),
+                           self.sentinel).reshape(-1)
+
+    def flat_vertex_ids(self, x: torch.Tensor) -> torch.Tensor:
+        """(S, n_cap + 1) per-vertex ids -> (G + 1,) flat, the trailing flat
+        sentinel slot pointing at itself (G = ``sentinel``)."""
+        tail = torch.full((1,), self.sentinel, dtype=torch.int32,
+                          device=self.device)
+        return torch.cat([self.flat_ids(x), tail])
+
+    def local_vertex_ids(self, flat: torch.Tensor) -> torch.Tensor:
+        """Inverse of ``flat_vertex_ids``: (G + 1,) flat ids -> (S,
+        n_cap + 1) stream-local ids, the flat sentinel -> ``n_cap``."""
+        sent, n_cap = self.sentinel, self.n_cap
+        f = flat[:sent].view(self.n_streams, n_cap + 1).to(torch.int32)
+        return torch.where(f >= sent, n_cap, f - self.offsets())
+
+    def flat_vertex_mask(self, mask: torch.Tensor) -> torch.Tensor:
+        """(S, n_cap + 1) bool -> (G + 1,) bool, the sentinel slot False."""
+        tail = torch.zeros(1, dtype=torch.bool, device=self.device)
+        return torch.cat([mask.reshape(-1), tail])
+
+    def local_vertex_mask(self, flat: torch.Tensor) -> torch.Tensor:
+        """Inverse of ``flat_vertex_mask``."""
+        return flat[:self.sentinel].view(self.n_streams, self.n_cap + 1)
+
+    def thresholds(self, counts) -> torch.Tensor:
+        """(G + 1,) int64 per-vertex thresholds of (S,) per-stream counts:
+        flat id f of stream s is below count_s iff f < its threshold
+        s * (n_cap + 1) + count_s (the sentinel slot's is 0)."""
+        c = torch.as_tensor(np.asarray(counts), device=self.device)
+        return torch.cat([(self.offsets()[:, 0].to(torch.int64)
+                           + c).repeat_interleave(
+            self.n_cap + 1), torch.zeros(1, dtype=torch.int64,
+                                         device=self.device)])
+
+    def total_weight(self) -> torch.Tensor:
+        """(S,) float32 m_s = sum(w_s) / 2, kept on the device, accumulated
+        as ``CSRGraph.total_weight()`` accumulates it (float64, one
+        rounding): each stream's equals its own graph's."""
+        return torch.sum(self.weights, dim=1, dtype=torch.float64).to(
+            torch.float32) * 0.5
+
+    def view(self) -> "FleetView":
+        """The fleet as one graph of G + 1 vertex slots holding every
+        stream's live slots and no padding (see ``FleetView``)."""
+        dev = self.device
+        ev = torch.from_numpy(self.e_valid).to(dev)
+        live = torch.nonzero((torch.arange(self.e_cap, device=dev)[None, :]
+                              < ev[:, None]).reshape(-1)).flatten()
+        m = self.total_weight().repeat_interleave(self.n_cap + 1)
+        return FleetView(
+            indices=self.flat_ids(self.indices)[live],
+            weights=self.weights.reshape(-1)[live],
+            src=self.flat_ids(self.src)[live],
+            n_valid=self.thresholds(self.n_valid),
+            m=torch.cat([m, torch.zeros(1, dtype=m.dtype, device=dev)]),
+            n_streams=self.n_streams, sentinel=self.sentinel)
+
+
+def scatter_fleet_records(fleet: FleetGraph, keep: torch.Tensor,
+                          pos: torch.Tensor, r_src: torch.Tensor,
+                          r_dst: torch.Tensor, r_w: torch.Tensor,
+                          e_cap: int):
+    """Scatter the records of one fleet-wide group resolve (K3/K4 or their
+    sort chains over flat, stream-keyed slots) back into per-stream slot
+    buffers of ``e_cap`` slots.
+
+    ``keep`` marks the records to write, ``pos`` is each one's rank among
+    all kept records of the fleet.  The records follow the sorted slot
+    list (each on or next to its group's slots, K3/K4's first one carrying
+    the phantom key -2), so their keys' streams never decrease along it:
+    a stream's records are contiguous, and a record's position in its
+    stream is ``pos`` minus the kept records before the stream's first.
+    Records past ``e_cap`` are dropped (an overflow the caller reads from
+    the counts).  Returns ``(src, dst, w, counts, indptr)``: (S, e_cap)
+    buffers in stream-local ids, the (S,) uncapped kept counts as a device
+    tensor, and the (S, n_cap + 1) CSR offsets.
+    """
+    S, n_cap = fleet.n_streams, fleet.n_cap
+    N, sent = n_cap + 1, fleet.sentinel
+    dev = fleet.device
+    # int32 throughout (flat ids and positions stay below 2^31).  The flat
+    # sentinel G = S * N of the dead keys falls in "stream" S, the phantom
+    # key -2 in "stream" -1.
+    r_src, r_dst = r_src.to(torch.int32), r_dst.to(torch.int32)
+    stream_all = torch.div(r_src, N, rounding_mode="floor")
+    first = torch.searchsorted(stream_all, torch.arange(
+        S + 1, dtype=torch.int32, device=dev))
+    kept = torch.cumsum(keep, 0, dtype=torch.int32)
+    offs = torch.where(first > 0, kept[torch.clamp(first - 1, min=0)], 0)
+    del kept
+    counts = offs[1:] - offs[:-1]
+    stream = torch.where(keep, stream_all, S)
+    del stream_all
+    lpos = pos.to(torch.int32) - torch.index_select(offs, 0, stream)
+    ok = keep & (lpos < e_cap)
+    base = stream * N
+    loc_src = torch.where(ok, r_src - base, n_cap)
+    loc_dst = torch.where(ok & (r_dst < sent), r_dst - base, n_cap)
+    del base
+    out_src, out_dst, out_w = scatter_slots(
+        torch.where(ok, stream * e_cap + lpos, S * e_cap), loc_src, loc_dst,
+        torch.where(ok, r_w, 0.0).to(torch.float32), n_cap, S * e_cap)
+    out_src = out_src.view(S, e_cap)
+    # Each stream's slots lie in (src, dst) order with its padding (n_cap)
+    # last, so row v starts at the first slot whose src is >= v.
+    ids = torch.arange(N, dtype=torch.int32, device=dev).expand(S, N)
+    indptr = torch.searchsorted(out_src, ids.contiguous()).to(torch.int32)
+    return (out_src, out_dst.view(S, e_cap), out_w.view(S, e_cap),
+            counts, indptr)
+
+
+@dataclasses.dataclass
+class FleetView:
+    """A fleet flattened into one graph: stream s's vertex v is flat id
+    ``s * (n_cap + 1) + v``, G = ``S * (n_cap + 1)`` is the flat sentinel,
+    and the slot list is every stream's live slots in order, without the
+    envelope's padding.  Flat ids keep the order within each stream, so
+    sort keys, min-id tie-breaks and the singleton-swap guard compare what
+    they compare when the stream runs alone, and the sort-reduce scan of
+    an order-preserving subset holding every live slot is the full scan's
+    (``local_move.best_moves_slots``).  Leaving the padding out spares the
+    segment sums S envelopes' worth of atomic adds to one address.
+
+    It is what the sort-reduce move phase reads of a ``CSRGraph``
+    (``indices``, ``weights``, ``src``, ``n_valid``, ``n_cap`` — the
+    sentinel —, ``e_cap``, ``n_streams``, ``vertex_weights()``,
+    ``total_weight()``), with S streams where a graph has one: the engine
+    splits the vertex slots below the sentinel into ``n_streams`` equal
+    blocks and keeps one dQ and one stop per block.  ``n_valid`` is a
+    (G + 1,) tensor of per-vertex thresholds (flat id f is valid iff
+    f < n_valid[f]) and ``total_weight()`` each vertex's own stream's m.
+    """
+
+    indices: torch.Tensor
+    weights: torch.Tensor
+    src: torch.Tensor
+    n_valid: torch.Tensor
+    m: torch.Tensor
+    n_streams: int
+    sentinel: int
+
+    @property
+    def n_cap(self) -> int:
+        return self.sentinel
+
+    @property
+    def e_cap(self) -> int:
+        return self.indices.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.indices.device
+
+    def vertex_weights(self) -> torch.Tensor:
+        """(G + 1,) float32 K of every flat vertex slot (sentinel 0)."""
+        return segment_sum(self.weights, self.src, self.sentinel + 1)
+
+    def total_weight(self) -> torch.Tensor:
+        """(G + 1,) float32: each vertex slot's stream's m (0 at G)."""
+        return self.m
+
+
+def stack_rows(xs) -> torch.Tensor:
+    """``torch.stack`` of equal-shape tensors; one tensor becomes a
+    one-row view of itself, not a copy (a graph served as a one-stream
+    fleet)."""
+    return xs[0][None] if len(xs) == 1 else torch.stack(xs)
+
+
+def stack_graphs(graphs) -> FleetGraph:
+    """Stack equal-capacity graphs along a new leading stream axis."""
+    g0 = graphs[0]
+    for g in graphs[1:]:
+        if g.n_cap != g0.n_cap or g.e_cap != g0.e_cap:
+            raise ValueError(
+                f"stream capacities differ: ({g.n_cap}, {g.e_cap}) vs "
+                f"({g0.n_cap}, {g0.e_cap}) — provision one shared envelope")
+        if g.device != g0.device:
+            raise ValueError(f"streams on {g.device} and {g0.device}")
+    return FleetGraph(
+        indptr=stack_rows([g.indptr for g in graphs]),
+        indices=stack_rows([g.indices for g in graphs]),
+        weights=stack_rows([g.weights for g in graphs]),
+        src=stack_rows([g.src for g in graphs]),
+        n_valid=[g.n_valid for g in graphs],
+        e_valid=[g.e_valid for g in graphs])
 
 
 # ---------------------------------------------------------------------------

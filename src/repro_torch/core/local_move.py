@@ -55,7 +55,8 @@ def best_moves_slots(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
     order-preserving subset of it: a vertex whose live slots are all present
     gets exactly the full-scan answer (same weights, added in the same
     order).  Ties go to the smallest community id; a vertex with no
-    candidate gets (n_cap, -inf).
+    candidate gets (n_cap, -inf).  ``m`` is 0-d, or (n_cap + 1,) per vertex
+    (over a fleet, each vertex's own stream's m); it is read per slot.
     """
     own = (comm[dst] == comm[src]) & (dst != src)
     k_to_own = segment_sum(torch.where(own, w, 0.0), src, n_cap + 1)
@@ -63,7 +64,7 @@ def best_moves_slots(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
     _, s_src, s_c, k_i_to_c = _scan_communities_slots(src, dst, w, comm)
     c_own = comm[s_src]
     dq = delta_modularity(k_i_to_c, k_to_own[s_src], k[s_src], sigma[s_c],
-                          sigma[c_own], m)
+                          sigma[c_own], m.expand(n_cap + 1)[s_src])
     valid = ((s_c != c_own) & (s_src != n_cap) & (s_c != n_cap)
              & frontier[s_src])
     dq = torch.where(valid, dq, _NEG_INF)
@@ -134,10 +135,11 @@ def compact_best_moves(graph: CSRGraph, comm, sigma, k, frontier, m,
 
 
 class SortReduceScanner(ReplicatedScannerBase):
-    """Engine backend: CSR sort-reduce scan on a single device."""
+    """Engine backend: CSR sort-reduce scan on a single device, of a
+    ``CSRGraph`` or of a whole fleet's ``FleetView``."""
 
     def __init__(self, graph: CSRGraph, k: torch.Tensor, m: torch.Tensor):
-        super().__init__(graph.n_cap, graph.n_valid, k)
+        super().__init__(graph.n_cap, graph.n_valid, k, graph.n_streams)
         self.graph = graph
         self.m = m
 
@@ -199,6 +201,10 @@ def move_phase(graph: CSRGraph, comm0, sigma0, frontier0, tolerance: float,
     constrained sweep instead: the scanner sees the cross-outer-masked
     topology (``cross_outer_masked``) inside a ``ConstrainedScanner``,
     while ``k`` and ``m`` stay the unmasked graph's.
+
+    ``graph`` may be a fleet's ``FleetView`` with one tolerance per stream
+    (an (S,) array): then each stream stops on its own dQ
+    (``MoveEngine.run``), and ``iters`` and ``dq_sum`` are per stream.
     """
     k = graph.vertex_weights()
     m = graph.total_weight()

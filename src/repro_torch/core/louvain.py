@@ -27,10 +27,12 @@ from repro_torch.configs.louvain_arch import (COMPACT_WORK_FRAC,
                                               resolve_agg_backend,
                                               resolve_coarse_capacity,
                                               resolve_scan_backend)
-from repro_torch.core.aggregate import aggregate_graph, renumber_communities
+from repro_torch.core.aggregate import (aggregate_fleet,
+                                        renumber_communities_fleet)
 from repro_torch.core.ell_move import move_phase_ell
 from repro_torch.core.engine import affected_frontier
-from repro_torch.core.graph import CSRGraph, rebucket_capacity
+from repro_torch.core.graph import (CSRGraph, FleetGraph, rebucket_capacity,
+                                    stack_graphs)
 from repro_torch.core.local_move import move_phase
 from repro_torch.core.modularity import community_weights, modularity
 from repro_torch.kernels.louvain_scan.louvain_scan import check_ell_width
@@ -97,6 +99,13 @@ class PassStats:
     scan_backend: Optional[str] = None
     refine_iterations: Optional[int] = None  # constrained-sweep iterations
     n_refined: Optional[int] = None      # refined (aggregation) communities
+    #: Screening granularity a batched serving step ran with ("community" |
+    #: "vertex" | None): the batched driver resolves "auto" on the host and
+    #: records the concrete choice.
+    screening: Optional[str] = None
+    #: True when a requested "auto" knob was downgraded to a concrete
+    #: choice (the batched driver's record, see ``core/multistream.py``).
+    downgraded: Optional[bool] = None
 
 
 @dataclasses.dataclass
@@ -164,16 +173,49 @@ def warm_init(graph: CSRGraph, membership: torch.Tensor,
     return comm0, sigma0, frontier0
 
 
-def _renumber_and_fold(comm: torch.Tensor, n_valid: int,
+def _renumber_and_fold(comm: torch.Tensor, n_valid,
                        global_comm: torch.Tensor):
-    """Renumber pass-level communities and fold them into the dendrogram
-    lookup.  ``global_comm`` stays at the original capacity; its invalid
-    slots hold stale sentinels that clamp into the current sentinel slot
-    (the reference's clamped gather)."""
-    n_cap = comm.shape[0] - 1
-    comm_new, n_comms = renumber_communities(comm, n_valid, n_cap)
-    folded = comm_new[torch.clamp(global_comm, max=n_cap)]
+    """Renumber each stream's pass-level communities and fold them into its
+    dendrogram lookup: ``comm`` (S, n_cap + 1), ``n_valid`` (S,) host
+    ints, ``global_comm`` (S, n_cap0) at the original capacity, whose
+    invalid slots hold stale sentinels that clamp into the current
+    sentinel slot (the reference's clamped gather).  Returns (comm_new,
+    (S,) host counts, folded)."""
+    n_cap = comm.shape[1] - 1
+    comm_new, n_comms = renumber_communities_fleet(comm, n_valid)
+    folded = torch.gather(comm_new, 1, torch.clamp(global_comm, max=n_cap)
+                          .to(torch.int64))
     return comm_new, n_comms, folded
+
+
+def _renumber_and_fold_one(comm: torch.Tensor, n_valid: int,
+                           global_comm: torch.Tensor):
+    """``_renumber_and_fold`` of one graph: 1-D rows, a host int count."""
+    comm_new, n_comms, folded = _renumber_and_fold(comm[None], [n_valid],
+                                                   global_comm[None])
+    return comm_new[0], int(n_comms[0]), folded[0]
+
+
+def _move_phase(graph, comm0, sigma0, frontier0, tolerance, *,
+                config: LouvainConfig, backend: str):
+    """One local-moving phase on the scanner ``backend`` (``"full"``,
+    ``"compact"``, ``"ell"`` or ``"ell_fused"``) from a (C, Sigma,
+    frontier) start; returns (comm, iters, dq_sum).  ``graph`` may be a
+    fleet's ``FleetView`` with one tolerance per stream (the batched
+    driver, ``core/multistream.py``, on the sort-reduce scanners)."""
+    if backend in ("ell", "ell_fused"):
+        return move_phase_ell(
+            graph, comm0, sigma0, frontier0, tolerance,
+            max_iterations=config.max_iterations,
+            use_pruning=config.use_pruning,
+            gate_fraction=config.gate_fraction, widths=config.ell_widths,
+            fused=backend == "ell_fused")
+    return move_phase(
+        graph, comm0, sigma0, frontier0, tolerance,
+        max_iterations=config.max_iterations, use_pruning=config.use_pruning,
+        gate_fraction=config.gate_fraction,
+        work_cap=(compact_work_cap(graph.e_cap, config.compact_cap_frac)
+                  if backend == "compact" else 0))
 
 
 def _refine_phase(graph: CSRGraph, outer: torch.Tensor, tolerance: float,
@@ -183,11 +225,28 @@ def _refine_phase(graph: CSRGraph, outer: torch.Tensor, tolerance: float,
     constrained sweep (``move_phase(refine_outer=outer)``) yields a
     partition that refines ``outer``; returns (comm, iters, dq_sum).
     ``k``/``m`` are the full graph's: the constraint restricts candidates,
-    not the objective."""
+    not the objective.  ``graph`` may be a fleet's ``FleetView`` with one
+    tolerance per stream."""
     comm0, sigma0, frontier0 = singleton_init(graph)
     return move_phase(graph, comm0, sigma0, frontier0, tolerance,
                       max_iterations=max_iterations, use_pruning=use_pruning,
                       gate_fraction=gate_fraction, refine_outer=outer)
+
+
+def _aggregate_phase(fleet: FleetGraph, comm_ren: torch.Tensor, n_comms,
+                     *, backend: str, use_ladder: bool) -> FleetGraph:
+    """Aggregation of every stream (``aggregate_fleet``; a graph is a
+    one-stream fleet) and, with ``use_ladder``, the re-bucket down to one
+    capacity tier for the fleet, from its largest coarse graph."""
+    gb = aggregate_fleet(fleet, comm_ren, n_comms, backend=backend)
+    if use_ladder:
+        n_cap_new, e_cap_new = resolve_coarse_capacity(
+            int(gb.n_valid.max()), int(gb.e_valid.max()), gb.n_cap,
+            gb.e_cap)
+        if (n_cap_new, e_cap_new) != (gb.n_cap, gb.e_cap):
+            gb = rebucket_capacity(gb, n_cap_new=n_cap_new,
+                                   e_cap_new=e_cap_new)
+    return gb
 
 
 def _leiden_warm_membership(comm_ren: torch.Tensor, outer_ren: torch.Tensor,
@@ -297,21 +356,8 @@ def louvain(graph: CSRGraph, config: LouvainConfig = LouvainConfig(), *,
         backend = resolve_scan_backend(config.scan_backend,
                                        use_ell_kernel=config.use_ell_kernel,
                                        frontier_frac=frontier_frac)
-        if backend in ("ell", "ell_fused"):
-            comm, iters, dq_sum = move_phase_ell(
-                g, comm0, sigma0, frontier0, tol,
-                max_iterations=config.max_iterations,
-                use_pruning=config.use_pruning,
-                gate_fraction=config.gate_fraction, widths=config.ell_widths,
-                fused=backend == "ell_fused")
-        else:
-            comm, iters, dq_sum = move_phase(
-                g, comm0, sigma0, frontier0, tol,
-                max_iterations=config.max_iterations,
-                use_pruning=config.use_pruning,
-                gate_fraction=config.gate_fraction,
-                work_cap=(compact_work_cap(g.e_cap, config.compact_cap_frac)
-                          if backend == "compact" else 0))
+        comm, iters, dq_sum = _move_phase(g, comm0, sigma0, frontier0, tol,
+                                          config=config, backend=backend)
         _sync(dev)
         t1a = time.perf_counter()
 
@@ -337,13 +383,13 @@ def louvain(graph: CSRGraph, config: LouvainConfig = LouvainConfig(), *,
             # Two folds off the same pre-pass global_comm: the outer fold is
             # what the pass reports, the refined fold is what aggregation
             # and the dendrogram chain follow.
-            outer_ren, n_report, level = _renumber_and_fold(
+            outer_ren, n_report, level = _renumber_and_fold_one(
                 comm, g.n_valid, global_comm)
-            comm_ren, n_comms, folded = _renumber_and_fold(
+            comm_ren, n_comms, folded = _renumber_and_fold_one(
                 refined, g.n_valid, global_comm)
         else:
-            comm_ren, n_comms, folded = _renumber_and_fold(comm, g.n_valid,
-                                                           global_comm)
+            comm_ren, n_comms, folded = _renumber_and_fold_one(
+                comm, g.n_valid, global_comm)
             level, n_report = folded, n_comms
         global_comm = folded
         n_verts = g.n_valid
@@ -359,13 +405,9 @@ def louvain(graph: CSRGraph, config: LouvainConfig = LouvainConfig(), *,
 
         pass_caps = (g.n_cap, g.e_cap)
         if not (converged or low_shrink or p == config.max_passes - 1):
-            g = aggregate_graph(g, comm_ren, n_comms, backend=agg_backend)
-            if config.use_ladder:
-                n_cap_new, e_cap_new = resolve_coarse_capacity(
-                    n_comms, g.e_valid, g.n_cap, g.e_cap)
-                if (n_cap_new, e_cap_new) != (g.n_cap, g.e_cap):
-                    g = rebucket_capacity(g, n_cap_new=n_cap_new,
-                                          e_cap_new=e_cap_new)
+            g = _aggregate_phase(stack_graphs([g]), comm_ren[None],
+                                 [n_comms], backend=agg_backend,
+                                 use_ladder=config.use_ladder).stream(0)
             if refine_on:
                 warm_flat = _leiden_warm_membership(comm_ren, outer_ren,
                                                     n_verts, n_comms)

@@ -1,6 +1,7 @@
 """Synthetic graph generators of the PyTorch port (``repro.data.graphs``):
-R-MAT (web-like power-law) and SBM (planted communities), and the held-out
-SBM edge stream of the streaming goldens.
+R-MAT (web-like power-law) and SBM (planted communities), the held-out
+SBM edge stream of the streaming goldens and the held-out SBM streams of
+the multi-stream tests.
 
 The random draws are the reference's own ``np.random.default_rng`` calls in
 the same order, so a seed gives byte-identical edges; the CSR is then built
@@ -98,3 +99,40 @@ def sbm_edge_stream(device="cuda"):
                                device=dev)
                for i in range(8)]
     return init, batches
+
+
+def sbm_holdout_stream(seed: int, *, n_communities: int = 8, size: int = 16,
+                       p_in: float = 0.4, p_out: float = 0.01,
+                       n_cap: int | None = None, e_cap: int | None = None,
+                       n_hold: int = 32, n_steps: int = 4, b_cap: int = 8,
+                       device="cuda"):
+    """One streaming scenario of the multi-stream tests: an SBM (graph seed
+    ``seed``) with ``n_hold`` undirected edges held out (``default_rng(
+    seed)``) and fed back as ``n_steps`` batches, striding round-robin over
+    the holdout.  Returns (initial graph, batches, full graph) on
+    ``device``, the reference's inputs byte for byte.  (``sbm_edge_stream``
+    is another stream: graph seed 2, holdout seed 0, 40 edges.)"""
+    from repro_torch.core.delta import make_edge_batch
+    dev = resolve_device(device)
+    full, _ = sbm_graph(n_communities, size, p_in, p_out, seed=seed,
+                        device=dev)
+    e = full.e_valid
+    src = full.src[:e].cpu().numpy()
+    dst = full.indices[:e].cpu().numpy()
+    w = full.weights[:e].cpu().numpy()
+    und = src < dst
+    us, ud, uw = src[und], dst[und], w[und]
+    rng = np.random.default_rng(seed)
+    hold = rng.choice(len(us), n_hold, replace=False)
+    keep = np.ones(len(us), bool)
+    keep[hold] = False
+    init = build_csr(np.concatenate([us[keep], ud[keep]]),
+                     np.concatenate([ud[keep], us[keep]]),
+                     np.concatenate([uw[keep], uw[keep]]), full.n_valid,
+                     n_cap=n_cap, e_cap=e_cap if e_cap is not None else e + 8,
+                     device=dev)
+    batches = [make_edge_batch(us[hold[i::n_steps]], ud[hold[i::n_steps]],
+                               uw[hold[i::n_steps]], init.n_cap, b_cap=b_cap,
+                               device=dev)
+               for i in range(n_steps)]
+    return init, batches, full

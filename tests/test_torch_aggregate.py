@@ -152,8 +152,7 @@ def _graphs(seed: int, integer_w: bool):
 def test_renumber_matches_reference(seed):
     jg, tg, comm = _graphs(seed, True)
     jc, jn = jrenumber(jnp.asarray(comm), jg.n_valid, jg.n_cap)
-    tc, tn = renumber_communities(torch.from_numpy(comm), tg.n_valid,
-                                  tg.n_cap)
+    tc, tn = renumber_communities(torch.from_numpy(comm), tg.n_valid)
     np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
     assert int(jn) == tn
 
@@ -166,8 +165,7 @@ def test_aggregate_matches_reference_and_oracle(seed, backend, jax_backend,
                                                 integer_w):
     jg, tg, comm = _graphs(seed, integer_w)
     jc, jn = jrenumber(jnp.asarray(comm), jg.n_valid, jg.n_cap)
-    tc, tn = renumber_communities(torch.from_numpy(comm), tg.n_valid,
-                                  tg.n_cap)
+    tc, tn = renumber_communities(torch.from_numpy(comm), tg.n_valid)
     jcoarse = jaggregate(jg, jc, jn, backend=jax_backend)
     tcoarse = aggregate_graph(tg, tc, tn, backend=backend)
     assert (tcoarse.n_valid, tcoarse.e_valid) == (int(jcoarse.n_valid),
@@ -199,7 +197,6 @@ def test_aggregate_matches_reference_and_oracle(seed, backend, jax_backend,
 
 def test_unknown_backend_raises():
     _, tg, comm = _graphs(0, True)
-    tc, tn = renumber_communities(torch.from_numpy(comm), tg.n_valid,
-                                  tg.n_cap)
+    tc, tn = renumber_communities(torch.from_numpy(comm), tg.n_valid)
     with pytest.raises(ValueError):
         aggregate_graph(tg, tc, tn, backend="pallas")

@@ -296,8 +296,9 @@ def test_overflow_raises_and_grow_rebuckets(backend):
 
 
 def test_sorted_batch_slots_feed_the_resolve():
-    """``sorted_batch_slots`` is the list K4 resolves: its records compact
-    into the same graph the apply returns."""
+    """``sorted_batch_slots`` is the list K4 resolves (a one-stream
+    fleet's, dead slots at its flat sentinel n_cap + 1): its records
+    compact into the same graph the apply returns."""
     rng = np.random.default_rng(5)
     _, tg = random_graph(rng)
     bsrc, bdst, bw = random_batch(rng, tg.n_cap, 10, 16)
@@ -305,7 +306,7 @@ def test_sorted_batch_slots_feed_the_resolve():
     s_src, s_dst, s_w, s_batch = sorted_batch_slots(tg, tb)
     assert s_src.shape == (tg.e_cap + 32,)
     keep, pos, f_src, f_dst, f_w, _ = resolve_groups_ref(
-        s_src, s_dst, s_w, s_batch, sent=tg.n_cap)
+        s_src, s_dst, s_w, s_batch, sent=tg.n_cap + 1)
     g2, _ = apply_edge_batch(tg, tb, backend="sort")
     e = g2.e_valid
     assert int(keep.sum()) == e

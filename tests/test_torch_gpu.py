@@ -1,9 +1,10 @@
 """The PyTorch port's CUDA kernels on the card: K1, K2, K3 and K4 against
 their plain PyTorch versions on the same CUDA tensors (K1/K2 in all three
 row layouts, the one-row-per-block layout for widths above 1024 included),
-the batch apply's kernel backend against its sort backend, and ``louvain()``
+the batch apply's kernel backend against its sort backend, ``louvain()``
 and ``louvain_dynamic()`` on the card against the committed sbm goldens,
-``refine="leiden"`` included.
+``refine="leiden"`` included, and the batched multi-stream drivers against
+the solo ones, with K3/K4 launched once per fleet operation.
 
 Every test here is marked ``gpu`` and skips without a card (the decision is
 made inside the ``cuda`` fixture, never at import).  The machine with the
@@ -30,9 +31,15 @@ import torch
 
 from _k3_bounds import k3_tolerances
 from _wide_rows import hub_graph_slots, wide_csr_arrays
-from repro_torch import (LouvainConfig, apply_edge_batch, build_csr, louvain,
-                         louvain_dynamic, make_edge_batch, sbm_edge_stream,
-                         sbm_graph)
+from repro_torch import (FleetCapacityOverflow, LouvainConfig,
+                         apply_edge_batch, build_csr, louvain,
+                         louvain_batched, louvain_dynamic,
+                         louvain_dynamic_batched, make_edge_batch,
+                         sbm_edge_stream, sbm_graph, sbm_holdout_stream,
+                         stack_batches, stack_graphs)
+from repro_torch.core.aggregate import (aggregate_fleet,
+                                        sorted_fleet_aggregate_slots)
+from repro_torch.core.delta import apply_fleet_batch, sorted_fleet_slots
 from repro_torch.kernels.aggregate import coarsen
 from repro_torch.kernels.batch_apply import resolve
 from repro_torch.kernels.louvain_scan import ops
@@ -611,3 +618,114 @@ def test_louvain_dynamic_on_the_card_reproduces_sbm_stream_golden(cuda):
         np.testing.assert_array_equal(res.membership,
                                       gold["dynamic__sbm_stream"])
         assert resolve.resolve_groups.launches == before + len(batches)
+
+
+# -- batched multi-stream serving: K3/K4 once per fleet operation -----------
+
+def _sbm_fleet(dev):
+    """The reference fleet of the multi-stream tests (``sbm_holdout_stream``
+    seeds 10-13, n_cap 128, e_cap 1400, 4 steps of b_cap 8)."""
+    cases = [sbm_holdout_stream(seed, n_cap=128, e_cap=1400, n_hold=32,
+                                n_steps=4, b_cap=8, device=dev)
+             for seed in (10, 11, 12, 13)]
+    return [c[0] for c in cases], [c[1] for c in cases]
+
+
+def test_fleet_k4_k3_launch_once_and_equal_plain_on_the_card(cuda):
+    """The fleet apply launches K4 once for all four streams and the fleet
+    aggregation K3 once; on the fleet's flat, stream-keyed slot lists both
+    equal their plain versions bit for bit, and each stream's result equals
+    its own apply / aggregation."""
+    graphs, streams = _sbm_fleet(cuda)
+    fleet = stack_graphs(graphs)
+    sent = fleet.sentinel
+    for step in range(len(streams[0])):
+        batch = stack_batches([s[step] for s in streams])
+        slots = sorted_fleet_slots(fleet, batch)
+        got = resolve.resolve_groups(*slots, sent=sent)
+        want = resolve.resolve_groups_ref(*slots, sent=sent)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+        before = resolve.resolve_groups.launches
+        fleet2, touched, e_new, _ = apply_fleet_batch(fleet, batch)
+        assert resolve.resolve_groups.launches == before + 1
+        for s in range(len(graphs)):
+            want_g, want_t = apply_edge_batch(
+                fleet.stream(s), streams[s][step], backend="sort")
+            got_g = fleet2.stream(s)
+            for name in ("indptr", "indices", "weights", "src"):
+                assert torch.equal(getattr(got_g, name),
+                                   getattr(want_g, name)), (step, s, name)
+            assert torch.equal(touched[s], want_t)
+        fleet = fleet2
+    first = louvain_batched(fleet, LouvainConfig(max_passes=1)).membership
+    comm = torch.cat([first, torch.full((fleet.n_streams, 1), fleet.n_cap,
+                                        dtype=torch.int32, device=cuda)], 1)
+    s_ci, s_cj, s_w = sorted_fleet_aggregate_slots(fleet, comm)
+    got = coarsen.coarsen_groups(s_ci, s_cj, s_w, sent=sent)
+    want = coarsen.coarsen_groups_ref(s_ci, s_cj, s_w, sent=sent)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    n_comms = [int(c.max()) + 1 for c in first]
+    before = coarsen.coarsen_groups.launches
+    coarse = aggregate_fleet(fleet, comm, n_comms, backend="kernel")
+    assert coarsen.coarsen_groups.launches == before + 1
+    sort = aggregate_fleet(fleet, comm, n_comms, backend="sort")
+    for name in ("indptr", "indices", "weights", "src"):
+        assert torch.equal(getattr(coarse, name), getattr(sort, name)), name
+    np.testing.assert_array_equal(coarse.e_valid, sort.e_valid)
+
+
+@pytest.mark.parametrize("refine", ["none", "leiden"])
+def test_fleet_equals_solo_drivers_on_the_card(cuda, refine):
+    graphs, streams = _sbm_fleet(cuda)
+    cfg = LouvainConfig(refine=refine)
+    before = coarsen.coarsen_groups.launches
+    res = louvain_batched(stack_graphs(graphs), cfg)
+    assert coarsen.coarsen_groups.launches == before + res.n_passes - 1
+    for s, g in enumerate(graphs):
+        np.testing.assert_array_equal(
+            res.membership[s, :g.n_valid].cpu().numpy(),
+            louvain(g, cfg).membership)
+    before = resolve.resolve_groups.launches
+    dyn = louvain_dynamic_batched(graphs, streams, config=cfg)
+    assert resolve.resolve_groups.launches == before + len(streams[0])
+    for s, g in enumerate(graphs):
+        solo = louvain_dynamic(g, streams[s], config=cfg)
+        np.testing.assert_array_equal(dyn.stream_membership(s),
+                                      solo.membership)
+        got = dyn.graphs.stream(s)
+        for name in ("indptr", "indices", "weights", "src"):
+            assert torch.equal(getattr(got, name),
+                               getattr(solo.graph, name)), (s, name)
+        assert list(dyn.frontier_sizes[:, s]) == [
+            b.frontier_size for b in solo.batch_stats]
+
+
+def test_fleet_regrow_on_the_card(cuda):
+    """A two-stream fleet without room for a batch of new edges regrows,
+    replays the step and equals the fleet provisioned amply up front."""
+    full, _ = sbm_graph(4, 8, 0.5, 0.05, seed=1, device=cuda)
+    e = full.e_valid
+    tight = build_csr(full.src[:e], full.indices[:e], full.weights[:e],
+                      full.n_valid, e_cap=e + 2, device=cuda)
+    batch = make_edge_batch([0, 1, 2, 3], [17, 18, 19, 20], [1.0] * 4,
+                            tight.n_cap, b_cap=4, device=cuda)
+    prevs = [louvain(tight).membership] * 2
+    with pytest.raises(FleetCapacityOverflow, match="overflows capacity"):
+        louvain_dynamic_batched([tight, tight], [[batch], [batch]],
+                                prevs=prevs, grow_capacity=False)
+    grown = louvain_dynamic_batched([tight, tight], [[batch], [batch]],
+                                    prevs=prevs)
+    assert grown.n_regrows >= 1
+    ample = build_csr(full.src[:e], full.indices[:e], full.weights[:e],
+                      full.n_valid, e_cap=grown.graphs.e_cap, device=cuda)
+    ref = louvain_dynamic_batched([ample, ample], [[batch], [batch]],
+                                  prevs=prevs)
+    assert ref.n_regrows == 0
+    np.testing.assert_array_equal(grown.membership, ref.membership)
+    for s in range(2):
+        for name in ("indptr", "indices", "weights", "src"):
+            assert torch.equal(getattr(grown.graphs.stream(s), name),
+                               getattr(ref.graphs.stream(s), name))

@@ -317,8 +317,8 @@ def test_leiden_warm_membership_equals_reference_on_corpora(corpora, name):
     outer = torch.from_numpy(outer_of(jg))
     refined, _, _ = _refine_phase(tg, outer, TOL, max_iterations=20,
                                   use_pruning=True)
-    outer_ren, _ = renumber_communities(outer, tg.n_valid, tg.n_cap)
-    comm_ren, n_agg = renumber_communities(refined, tg.n_valid, tg.n_cap)
+    outer_ren, _ = renumber_communities(outer, tg.n_valid)
+    comm_ren, n_agg = renumber_communities(refined, tg.n_valid)
     want = jwarm(jnp.asarray(comm_ren.numpy()), jnp.asarray(outer_ren.numpy()),
                  jnp.int32(tg.n_valid), jnp.int32(n_agg))
     got = _leiden_warm_membership(comm_ren, outer_ren, tg.n_valid, n_agg)

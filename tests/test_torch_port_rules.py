@@ -17,7 +17,9 @@ import torch
 
 import repro_torch
 from repro_torch import (LouvainConfig, apply_edge_batch, build_csr, louvain,
-                         louvain_dynamic, make_edge_batch, sbm_graph)
+                         louvain_batched, louvain_dynamic,
+                         louvain_dynamic_batched, make_edge_batch, sbm_graph,
+                         sbm_holdout_stream, stack_graphs)
 from repro_torch.interop import config_from_dict, graph_from_numpy
 
 from repro.core.louvain import LouvainConfig as JConfig, louvain as jlouvain
@@ -87,6 +89,15 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     assert touched.device.type == "cpu" and bool(touched[0])
     dyn = louvain_dynamic(g, [batch])
     assert dyn.membership.shape == (8,) and dyn.graph.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sbm_holdout_stream(0, n_hold=4)
+    fleet = stack_graphs([g, g])
+    res = louvain_batched(fleet)
+    assert res.membership.shape == (2, 8)
+    assert res.membership.device.type == "cpu"
+    bat = louvain_dynamic_batched([g, g], [[batch], [batch]])
+    assert bat.membership.shape == (2, 8)
+    assert bat.graphs.device.type == "cpu"
 
 
 def test_config_keeps_the_reference_fields_and_defaults():
