@@ -11,8 +11,9 @@ each timed; any failure exits non-zero:
   2. hold each kernel (K1, K2, K3, K4) against its plain PyTorch version on
      the card, bit for bit: K1/K2 on random CSR buckets (degrees 0 to 256,
      self-loop rows, one-community rows, exact ties, integer and float
-     weights) and, for their one-row-per-block layout, on buckets of a
-     width in (1024, 4096] and of 16,384; K3/K4 on random sorted slot lists
+     weights) and, for their one-row-per-block layouts, on buckets of a
+     width in (1024, 4096], of 16,384 (shared memory) and of 32,768 (global
+     scratch), integer and float weights; K3/K4 on random sorted slot lists
      (groups over hundreds of 4096-slot tiles; K3 on float weights within
      m * 2^-23 * sum |w| over the m slots summed), each also bit-identical
      over repeated calls; then all four on the real inputs of phases 4 and
@@ -32,10 +33,12 @@ each timed; any failure exits non-zero:
      membership, Q against refine="none", connectivity audits with scipy:
      no more disconnected communities than refine="none", and a refine
      phase's communities each inside one outer community); then
-     ``ell_widths=(16, 64, 256, 2048)`` through K1 and K2, whose 2048-wide
-     bucket takes the one-row-per-block layout (one membership, that of
-     the default widths; every row of that bucket bit-equal to the plain
-     versions; its time, plain time and bound);
+     ``ell_widths=(16, 64, 256, 2048, 32768)`` through K1 and K2, whose
+     2048-wide bucket takes the one-row-per-block layout in shared memory
+     and whose 32768-wide bucket (the hub rows of degree 2049 to 32768)
+     the one in global scratch (one membership, that of the default
+     widths; every row of those buckets bit-equal to the plain versions;
+     their times, plain times and bounds);
   5. stream 8 edge batches of 1e-4 |E| (80% inserts of held-out edges, 20%
      deletions) through ``louvain_dynamic()`` on phase 4's graph, applied
      by the batch-apply kernel K4; the final graph must equal the host CSR
@@ -51,7 +54,17 @@ each timed; any failure exits non-zero:
      K4 launched once per step; fleet K3/K4 held against their plain
      versions on the fleet's flat, stream-keyed slot lists (and over 20
      more calls); the sbm goldens through a one-stream fleet; a fleet that
-     overflows its envelope regrows and equals the amply provisioned one.
+     overflows its envelope regrows and equals the amply provisioned one;
+  7. the sharded driver ``distributed_louvain`` over ``torch.distributed``:
+     (a) through NCCL at world size 1 on the card, the ``sharded__sbm`` and
+     ``sharded_leiden__sbm`` goldens under the gather and the delta
+     exchange; (b) phase 4's R-MAT graph at world size 1 (NCCL, gather),
+     which must give phase 4's ``louvain()`` membership, with K3 launched
+     twice per sharded aggregation and both launches of the first one
+     held against the plain version; (c) 4 gloo ranks on the one card
+     (collectives staged through pinned host memory; their wall time is
+     no multi-GPU number) at R-MAT scale ``--sharded-scale`` under gather
+     and delta, equal to world size 1 on the same graph.
 
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, time, plain time and bound; the last line
@@ -98,6 +111,16 @@ KERNELS = {
     # stream-keyed slot list (phase 6).
     "coarsen_groups_fleet": ("src/repro_torch/csrc/coarsen.cu",
                              "src/repro/kernels/aggregate/coarsen.py:113"),
+    # K1/K2 in their one-row-per-block layout in global scratch (widths
+    # above 16,384).
+    "louvain_fused_wide": ("src/repro_torch/csrc/louvain_scan.cu",
+                           "src/repro/kernels/louvain_scan/fused.py:111"),
+    "louvain_scan_wide": ("src/repro_torch/csrc/louvain_scan.cu",
+                          "src/repro/kernels/louvain_scan/louvain_scan.py:90"),
+    # K3 in the sharded aggregation (phase 7): the local partial reduce and
+    # the owner-side re-reduce, two launches per aggregation.
+    "coarsen_groups_sharded": ("src/repro_torch/csrc/coarsen.cu",
+                               "src/repro/kernels/aggregate/coarsen.py:113"),
     "resolve_groups_fleet": ("src/repro_torch/csrc/batch_apply.cu",
                              "src/repro/kernels/batch_apply/resolve.py:134"),
 }
@@ -109,12 +132,18 @@ STREAM_BATCHES = 8
 STREAM_B_CAP = 8192
 
 #: Phase 4's wide-row run: the default widths plus a 2048-wide bucket
-#: (degrees 257 to 2048), which K1/K2 scan one row per block.
-F1_WIDTHS = (16, 64, 256, 2048)
+#: (degrees 257 to 2048), which K1/K2 scan one row per block in shared
+#: memory, and a 32768-wide one (degrees 2049 to 32768), one row per block
+#: in global scratch.
+F1_WIDTHS = (16, 64, 256, 2048, 32768)
 
-#: Rows per call of the plain K1/K2 over that bucket: (rows, 2048) tiles of
-#: a few hundred MB each.
-PLAIN_CHUNK_ROWS = 8192
+#: Slots per call of the plain K1/K2 over those buckets: (rows, width)
+#: tiles of a few hundred MB each.
+PLAIN_CHUNK_SLOTS = 8192 * 2048
+
+#: Phase 7: ranks and R-MAT seed of the staged gloo run on the one card.
+SHARDED_RANKS = 4
+SHARDED_SEED = 7
 
 #: Phase 6: a serving fleet of R-MAT tenants (Graph500 a/b/c), seeds from
 #: FLEET_SEED0, each with phase 5's stream mix: STREAM_BATCHES steps of
@@ -360,10 +389,10 @@ def phase_kernels_random(torch, ops, dev):
             f"weights, gate_fraction 1/2/4) bit for bit; max |dQ - plain| "
             f"{err:.3e}")
 
-    from repro_torch.kernels.louvain_scan.louvain_scan import MAX_WIDTH
+    from repro_torch.kernels.louvain_scan.louvain_scan import SMEM_MAX_WIDTH
     # The tie row holds degs[1] rounded down to even slots: above 1024 for
-    # every width drawn here.
-    for width in (int(rng.integers(1100, 4097)), MAX_WIDTH):
+    # every width drawn here.  32768 takes the global-scratch layout.
+    for width in (int(rng.integers(1100, 4097)), SMEM_MAX_WIDTH, 32768):
         for integer_w in (True, False):
             degs = [width, width - 1, 1025, min(width, 2049)]
             degs += list(rng.integers(1025, width + 1, 4))
@@ -384,7 +413,9 @@ def phase_kernels_random(torch, ops, dev):
                 int(csr[0][2]):int(csr[0][3])].long()]).min())
             require(int(got[0][r2]) == tie,
                     f"K2 broke the exact tie of a {deg[2]}-slot row")
-        log("kernels", f"K1/K2 one row per block, width {width}: "
+        layout = ("global scratch" if width > SMEM_MAX_WIDTH
+                  else "shared memory")
+        log("kernels", f"K1/K2 one row per block ({layout}), width {width}: "
             f"{len(wide)} rows of degree (1024, {width}] (self-loop, "
             f"one-community and tie rows of {degs[0]}/{degs[1]} slots), 10 "
             f"narrow and 7 pad rows x 2 random CSRs (integer and float "
@@ -740,12 +771,15 @@ def phase_full(torch, ops, args, dev, report):
     def drive(cfg, needs, what):
         for fn in launch_fns.values():
             fn.launches = 0
-        ops.louvain_fused.cta_launches = ops.louvain_scan.cta_launches = 0
+        for fn in (ops.louvain_fused, ops.louvain_scan):
+            fn.cta_launches = fn.wide_launches = 0
         torch.cuda.reset_peak_memory_stats()
         res = louvain(g, cfg)
         counts = {k: fn.launches for k, fn in launch_fns.items()}
         counts["louvain_fused_cta"] = ops.louvain_fused.cta_launches
         counts["louvain_scan_cta"] = ops.louvain_scan.cta_launches
+        counts["louvain_fused_wide"] = ops.louvain_fused.wide_launches
+        counts["louvain_scan_wide"] = ops.louvain_scan.wide_launches
         for i, p in enumerate(res.passes):
             log("full", f"{what} pass {i}: n_cap {p.n_cap} e_cap {p.e_cap} "
                 f"iterations {p.iterations} communities {p.n_communities} "
@@ -847,23 +881,24 @@ def phase_full(torch, ops, args, dev, report):
             "a refined community spans two outer communities")
     del res_l, res_l2, outer, refined
 
-    # Wide rows: a 2048-wide bucket in the one-row-per-block layout.
+    # Wide rows: a 2048-wide bucket in the one-row-per-block layout in
+    # shared memory, a 32768-wide one in global scratch.
     res_f, counts_f = drive(LouvainConfig(use_ell_kernel=True,
                                           ell_widths=F1_WIDTHS),
                             ("louvain_fused", "louvain_fused_cta",
-                             "coarsen_groups"),
+                             "louvain_fused_wide", "coarsen_groups"),
                             f"louvain(use_ell_kernel=True, ell_widths="
                             f"{F1_WIDTHS})")
     res_f2, counts_f2 = drive(LouvainConfig(scan_backend="ell",
                                             ell_widths=F1_WIDTHS),
                               ("louvain_scan", "louvain_scan_cta",
-                               "coarsen_groups"),
+                               "louvain_scan_wide", "coarsen_groups"),
                               f"louvain(scan_backend='ell', ell_widths="
                               f"{F1_WIDTHS})")
     require(np.array_equal(res_f.membership, res_f2.membership)
             and np.array_equal(res_f.membership, res.membership),
-            "ell_widths with a 2048-wide bucket: the K1 and K2 paths and the "
-            "default widths do not give one membership")
+            "ell_widths with 2048- and 32768-wide buckets: the K1 and K2 "
+            "paths and the default widths do not give one membership")
     log("full", f"ell_widths={F1_WIDTHS}: the K1 and K2 paths give the "
         f"default widths' membership")
     del res_f, res_f2
@@ -1008,32 +1043,40 @@ def phase_full(torch, ops, args, dev, report):
         report.append(kernel_entry(name, launches[name], errs[name],
                                    *times[name], bounds[name],
                                    op_counts[name]))
-    wide_rows_check(torch, ops, g, report,
-                    {"louvain_fused_cta": counts_f["louvain_fused_cta"],
-                     "louvain_scan_cta": counts_f2["louvain_scan_cta"]})
-    return g
+    for tag in ("cta", "wide"):
+        wide_rows_check(torch, ops, g, report, tag,
+                        {f"louvain_fused_{tag}":
+                         counts_f[f"louvain_fused_{tag}"],
+                         f"louvain_scan_{tag}":
+                         counts_f2[f"louvain_scan_{tag}"]})
+    return g, res.membership, res.levels[0]
 
 
-def wide_rows_check(torch, ops, g, report, launches):
-    """K1/K2 in the one-row-per-block layout on phase 4's graph: the
-    2048-wide bucket of ``F1_WIDTHS`` (degrees 257 to 2048) in the first
-    round's state (every valid vertex a singleton and in the frontier),
-    launched over the whole bucket, as the F1 run launches it.  Every row
-    must equal the plain versions bit for bit; these run over the bucket
-    in chunks of ``PLAIN_CHUNK_ROWS`` rows (their (rows, 2048) tiles),
-    timed once with CUDA events.  The bucket's times, plain times and
-    bounds give the ``kernels`` line's entries."""
+def wide_rows_check(torch, ops, g, report, tag, launches):
+    """K1/K2 in a one-row-per-block layout on phase 4's graph: ``tag``
+    "cta" is the 2048-wide bucket of ``F1_WIDTHS`` (degrees 257 to 2048,
+    shared memory), "wide" the 32768-wide one (degrees 2049 to 32768,
+    global scratch), in the first round's state (every valid vertex a
+    singleton and in the frontier), launched over the whole bucket, as
+    the F1 run launches it.  Every row must equal the plain versions bit
+    for bit; these run over the bucket in chunks of
+    ``PLAIN_CHUNK_SLOTS`` slots (their (rows, width) tiles), timed once
+    with CUDA events.  The bucket's times, plain times and bounds give the
+    ``kernels`` line's entries."""
     from repro_torch.core.graph import ell_bucket_rows
     n_cap = g.n_cap
     m = g.total_weight()
     csr = (g.indptr, g.indices, g.weights)
     st = real_state(torch, g)
     rows, _ = ell_bucket_rows(g, F1_WIDTHS)
-    wide = rows[-1]
-    width = F1_WIDTHS[-1]
+    at = -1 if tag == "wide" else -2
+    wide = rows[at]
+    width = F1_WIDTHS[at]
+    lo_deg = F1_WIDTHS[at - 1]
+    chunk = max(1, PLAIN_CHUNK_SLOTS // width)
     real = wide[wide < n_cap]
     deg = g.indptr[real.long() + 1] - g.indptr[real.long()]
-    n_above = int((deg > 1024).sum())
+    n_above = int((deg > lo_deg).sum())
 
     def k1(rows_, launch=ops.louvain_fused):
         return launch(rows_, *csr, st["comm"], st["sigma"], st["sizes"],
@@ -1048,17 +1091,17 @@ def wide_rows_check(torch, ops, g, report, launches):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        outs = [fn(wide[i:i + PLAIN_CHUNK_ROWS])
-                for i in range(0, wide.numel(), PLAIN_CHUNK_ROWS)]
+        outs = [fn(wide[i:i + chunk])
+                for i in range(0, wide.numel(), chunk)]
         end.record()
         torch.cuda.synchronize()
         return [torch.cat(x) for x in zip(*outs)], start.elapsed_time(end)
 
     err, plain_ms, best = {}, {}, None
     for name, fn, plain in (
-            ("louvain_fused_cta", k1,
+            (f"louvain_fused_{tag}", k1,
              lambda r: k1(r, ops.louvain_fused_rows_ref)),
-            ("louvain_scan_cta", k2,
+            (f"louvain_scan_{tag}", k2,
              lambda r: k2(r, ops.louvain_scan_rows_ref))):
         got = fn(wide)
         want, plain_ms[name] = plain_chunks(plain)
@@ -1071,15 +1114,15 @@ def wide_rows_check(torch, ops, g, report, launches):
                      if bool(fin.any()) else 0.0)
         best = got[0] if best is None else best
         del got, want
-    log("kernels", f"K1/K2 one row per block, first round: bit for bit on "
-        f"all {real.numel()} rows of the {width}-wide bucket ({n_above} of "
-        f"degree (1024, {width}]), plain versions in chunks of "
-        f"{PLAIN_CHUNK_ROWS} rows")
+    log("kernels", f"K1/K2 one row per block ({tag}), first round: bit for "
+        f"bit on all {real.numel()} rows of the {width}-wide bucket "
+        f"({n_above} of degree ({lo_deg}, {width}]), plain versions in "
+        f"chunks of {chunk} rows")
 
     b1, b2, n_ops, counts = scan_work(torch, g, [(width, wide)], st["comm"],
                                       best)
-    t = {"louvain_fused_cta": time_ms(torch, lambda: k1(wide), 10),
-         "louvain_scan_cta": time_ms(torch, lambda: k2(wide), 10)}
+    t = {f"louvain_fused_{tag}": time_ms(torch, lambda: k1(wide), 10),
+         f"louvain_scan_{tag}": time_ms(torch, lambda: k2(wide), 10)}
     t1_alone = time_ms(torch, lambda: k1(wide, ops.launch_louvain_fused), 10)
     t2_alone = time_ms(torch, lambda: k2(wide, ops.launch_louvain_scan), 10)
 
@@ -1089,13 +1132,14 @@ def wide_rows_check(torch, ops, g, report, launches):
 
     log("full", f"the {width}-wide bucket ({wide.numel()} rows, "
         f"{counts['slots']} slots) per round: K1 "
-        f"{t['louvain_fused_cta']:.4f} ms (launch alone {t1_alone:.4f} ms, "
-        f"plain {plain_ms['louvain_fused_cta']:.4f} ms), K2 "
-        f"{t['louvain_scan_cta']:.4f} ms (launch alone {t2_alone:.4f} ms, "
-        f"plain {plain_ms['louvain_scan_cta']:.4f} ms); bounds K1 "
+        f"{t[f'louvain_fused_{tag}']:.4f} ms (launch alone {t1_alone:.4f} "
+        f"ms, plain {plain_ms[f'louvain_fused_{tag}']:.4f} ms), K2 "
+        f"{t[f'louvain_scan_{tag}']:.4f} ms (launch alone {t2_alone:.4f} ms, "
+        f"plain {plain_ms[f'louvain_scan_{tag}']:.4f} ms); bounds K1 "
         f"{bound(b1, n_ops):.4f} ms ({b1} B), K2 {bound(b2, n_ops):.4f} ms "
         f"({b2} B), operations {n_ops}; " + json.dumps(counts))
-    for name, b in (("louvain_fused_cta", b1), ("louvain_scan_cta", b2)):
+    for name, b in ((f"louvain_fused_{tag}", b1),
+                    (f"louvain_scan_{tag}", b2)):
         report.append(kernel_entry(name, launches[name], err[name], t[name],
                                    plain_ms[name], b, n_ops))
 
@@ -1623,6 +1667,171 @@ def phase_fleet(torch, args, dev, report):
         f"e_cap {grown.graphs.e_cap}, equal to the amply provisioned fleet")
 
 
+def sharded_k3_check(torch, g, level0, report, launches):
+    """Both K3 launches of the first sharded aggregation of phase 4's graph
+    at world size 1 (one rank owns every vertex: n_pad = n, and its slice
+    is the live slots in CSR order), held against the plain version on the
+    same inputs: the local partial reduce over the rank's relabelled slots
+    and the owner-side re-reduce over the gathered partial records.  The
+    local one's time, plain time and bound give the ``kernels`` line's
+    entry."""
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.kernels.aggregate import coarsen
+    n, e = g.n_valid, g.e_valid
+    dev = g.indices.device
+    sent = n
+    comm = torch.full((n + 1,), sent, dtype=torch.int32, device=dev)
+    comm[:n] = torch.from_numpy(level0.astype(np.int32)).to(dev)
+    src_l, dst_l, w_l = g.src[:e], g.indices[:e], g.weights[:e]
+    local = dist_mod.sorted_relabelled_slots(src_l, dst_l, w_l, comm, sent)
+    partial = dist_mod.reduce_sorted_slots(*local, sent, e)
+    owner = dist_mod.owner_sorted_slots(*partial[:3], 0, n, sent)
+    times = {}
+    for what, slots in (("local partial reduce", local),
+                        ("owner-side re-reduce", owner)):
+        got = coarsen.coarsen_groups(*slots, sent=sent)
+        want = coarsen.coarsen_groups_ref(*slots, sent=sent)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"K3 differs from its plain version in the sharded "
+                f"aggregation's {what}")
+        total = slots[0].numel()
+        times[what] = (
+            time_ms(torch, lambda: coarsen.coarsen_groups(*slots, sent=sent),
+                    5),
+            time_ms(torch, lambda: coarsen.coarsen_groups_ref(*slots,
+                                                              sent=sent), 2),
+            12 * total + 17 * (total + 1), total, int(got[0].sum()))
+        del got, want
+        log("sharded", f"K3 in the first sharded aggregation, {what}: exact "
+            f"on {total} slots ({times[what][4]} groups); "
+            f"{times[what][0]:.4f} ms (plain {times[what][1]:.4f} ms), "
+            f"{times[what][0] / (times[what][2] / HBM_BYTES_PER_S * 1e3):.3f}"
+            f"x its bound")
+    ms, plain, n_bytes, total, _ = times["local partial reduce"]
+    report.append(kernel_entry("coarsen_groups_sharded", launches, 0.0, ms,
+                               plain, n_bytes, total))
+
+
+def phase_sharded(torch, args, dev, report, g, membership, level0):
+    import shutil
+    import tempfile
+    from repro_torch import (ShardGroup, distributed_louvain, rmat_graph,
+                             sbm_graph)
+    from repro_torch.core import collectives
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.kernels.aggregate import coarsen
+    gold = np.load(GOLDEN)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-store-")
+    group = ShardGroup.init("nccl", 0, 1,
+                            "file://" + os.path.join(tmp, "store"),
+                            device=dev)
+    try:
+        # (a) the sharded sbm goldens through NCCL at world size 1.
+        sbm, _ = sbm_graph(8, 16, 0.4, 0.01, seed=2, device=dev)
+        for refine in ("none", "leiden"):
+            key = f"sharded{'_leiden' if refine == 'leiden' else ''}__sbm"
+            for cb in ("gather", "delta"):
+                coarsen.coarsen_groups.launches = 0
+                mem, _, stats = distributed_louvain(sbm, group,
+                                                    comm_backend=cb,
+                                                    refine=refine)
+                require(np.array_equal(mem, gold[key]),
+                        f"{key} not reproduced under comm_backend={cb}")
+                require(coarsen.coarsen_groups.launches
+                        == 2 * (len(stats) - 1),
+                        f"{key}: K3 not launched twice per aggregation")
+                log("sharded", f"{key} reproduced through NCCL at world size "
+                    f"1, comm_backend={cb}: rounds "
+                    f"{[s['comm_rounds'] for s in stats]}, fallback rounds "
+                    f"{[s['comm_fallback_rounds'] for s in stats]}, K3 "
+                    f"launches {coarsen.coarsen_groups.launches}")
+
+        # (b) phase 4's graph at world size 1, gather exchange.
+        coarsen.coarsen_groups.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        mem, n_comms, stats = distributed_louvain(g, group,
+                                                  comm_backend="gather")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = coarsen.coarsen_groups.launches
+        loop_s = sum(s["seconds"] for s in stats)
+        for i, s in enumerate(stats):
+            log("sharded", f"R-MAT scale {args.scale} pass {i}: n_pad "
+                f"{s['n_pad']} e_per_shard {s['e_per_shard']} iterations "
+                f"{s['iterations']} communities {s['n_communities']} "
+                f"comm_rounds {s['comm_rounds']} comm_bytes "
+                f"{s['comm_bytes']} phase_s " + json.dumps(
+                    {k: round(v, 6) for k, v in s["phase_seconds"].items()}))
+        log("sharded", f"distributed_louvain at world size 1 (NCCL, gather) "
+            f"on R-MAT scale {args.scale}: {wall:.3f} s wall incl. the host "
+            f"partition, pass loop {loop_s:.3f} s, "
+            f"{g.e_valid / wall:.4e} edges/s ({g.e_valid / loop_s:.4e} over "
+            f"the pass loop), {n_comms} communities, comm_rounds "
+            f"{sum(s['comm_rounds'] for s in stats)}, comm_bytes "
+            f"{sum(s['comm_bytes'] for s in stats)}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K3 "
+            f"launches {launches}")
+        if not np.array_equal(mem, membership):
+            first = int(np.flatnonzero(mem != membership)[0])
+            raise Failure(f"sharded R-MAT membership differs from phase 4's "
+                          f"louvain() first at vertex {first}: {mem[first]} "
+                          f"against {membership[first]}")
+        require(launches == 2 * (len(stats) - 1) and launches > 0,
+                f"K3 launched {launches} times over {len(stats) - 1} sharded "
+                f"aggregations")
+        log("sharded", "the sharded membership equals phase 4's louvain()")
+        sharded_k3_check(torch, g, level0, report, launches)
+
+        # (c) world size 1 on the staged run's graph.
+        g18 = rmat_graph(args.sharded_scale, EDGE_FACTOR, seed=SHARDED_SEED,
+                         device=dev)
+        want = {}
+        for cb in ("gather", "delta"):
+            want[cb] = distributed_louvain(g18, group, comm_backend=cb)[0]
+        require(np.array_equal(want["gather"], want["delta"]),
+                "gather and delta differ at world size 1")
+    finally:
+        group.destroy()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    graphs = {"rmat": {k: getattr(g18, k).cpu().numpy()
+                       for k in ("indptr", "indices", "weights", "src")}}
+    graphs["rmat"].update(n_valid=g18.n_valid, e_valid=g18.e_valid)
+    runs = [("rmat", {"comm_backend": "gather"}),
+            ("rmat", {"comm_backend": "auto"})]
+    del g18
+    t = time.perf_counter()
+    out = collectives.launch(dist_mod.rank_runs, SHARDED_RANKS, graphs, runs,
+                             backend="gloo",
+                             devices=[str(dev)] * SHARDED_RANKS,
+                             timeout=300)
+    wall = time.perf_counter() - t
+    for (_, kwargs), res, cb in zip(runs, out[0]["results"],
+                                    ("gather", "delta")):
+        mem, n_comms, stats = res
+        require(np.array_equal(mem, want[cb]),
+                f"{SHARDED_RANKS} staged gloo ranks ({cb}) differ from world "
+                f"size 1")
+        require(all(np.array_equal(o["results"][runs.index(
+            ("rmat", kwargs))][0], mem) for o in out),
+                "the staged ranks disagree")
+        log("sharded", f"{SHARDED_RANKS} gloo ranks on one card, R-MAT scale "
+            f"{args.sharded_scale}, comm_backend {stats[0]['comm_backend']}: "
+            f"equal to world size 1 ({n_comms} communities); rounds "
+            f"{[s['comm_rounds'] for s in stats]}, fallback rounds "
+            f"{[s['comm_fallback_rounds'] for s in stats]}, comm_bytes "
+            f"{sum(s['comm_bytes'] for s in stats)}, e_per_shard "
+            f"{[s['e_per_shard'] for s in stats]}")
+    log("sharded", f"staged gloo run: bytes staged through pinned host "
+        f"memory per rank {[o['staged_bytes'] for o in out]}, collectives "
+        f"per rank {[o['collectives'] for o in out]}; {wall:.2f} s wall for "
+        f"both runs incl. {SHARDED_RANKS} process starts (host-staged "
+        f"collectives on one card: not a multi-GPU number)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22,
@@ -1631,6 +1840,8 @@ def main() -> int:
                     help="tenants of phase 6's serving fleet")
     ap.add_argument("--stream-scale", type=int, default=18,
                     help="R-MAT scale of each phase 6 tenant")
+    ap.add_argument("--sharded-scale", type=int, default=18,
+                    help="R-MAT scale of phase 7's staged gloo ranks")
     args = ap.parse_args()
 
     import torch
@@ -1653,12 +1864,17 @@ def main() -> int:
                          ("kernels", lambda: phase_kernels_random(
                              torch, ops, dev)),
                          ("goldens", lambda: phase_goldens(torch, dev)),
-                         ("full", lambda: state.update(g=phase_full(
-                             torch, ops, args, dev, report))),
+                         ("full", lambda: state.update(zip(
+                             ("g", "membership", "level0"), phase_full(
+                                 torch, ops, args, dev, report)))),
                          ("stream", lambda: phase_stream(
-                             torch, state.pop("g"), dev, report)),
+                             torch, state["g"], dev, report)),
                          ("fleet", lambda: phase_fleet(
-                             torch, args, dev, report))):
+                             torch, args, dev, report)),
+                         ("sharded", lambda: phase_sharded(
+                             torch, args, dev, report, state.pop("g"),
+                             state.pop("membership"),
+                             state.pop("level0")))):
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize()

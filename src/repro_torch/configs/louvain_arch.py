@@ -124,3 +124,90 @@ def resolve_coarse_capacity(n_comms: int, e_valid: int,
     n_new = n_tier if n_tier * LADDER_HYSTERESIS <= n_cap else n_cap
     e_new = e_tier if e_tier * LADDER_HYSTERESIS <= e_cap else e_cap
     return n_new, e_new
+
+
+# ---------------------------------------------------------------------------
+# Sharded paths: communication backend, state layout, re-sharding.
+# ---------------------------------------------------------------------------
+
+#: Accepted values of the sharded driver's ``comm_backend``: ``"gather"``
+#: exchanges the owned membership slice, the moved mask and the dense
+#: Sigma and community-size arrays every round; ``"delta"`` ships only the
+#: movers as bit-packed (index, label) lanes and rebuilds Sigma and sizes
+#: from the replicated vertex weights and membership, with a dense
+#: fallback when a round's movers exceed the cap.
+COMM_BACKENDS = ("auto", "gather", "delta")
+
+#: Mover-buffer capacity as a fraction of ``v_per_shard``.
+DELTA_MOVE_CAP_FRAC = 4
+
+#: Mover-buffer floor — tiny shards keep a usable buffer.
+DELTA_MOVE_CAP_MIN = 8
+
+
+def delta_move_cap(v_per: int) -> int:
+    """Mover-buffer capacity for a shard owning ``v_per`` vertices: a round
+    overflows exactly when its movers do."""
+    return max(1, min(int(v_per),
+                      max(int(v_per) // DELTA_MOVE_CAP_FRAC,
+                          DELTA_MOVE_CAP_MIN)))
+
+
+def resolve_comm_backend(backend: str, n_shards: int) -> str:
+    """``"auto"`` is ``"delta"`` on more than one shard and ``"gather"`` on
+    one; explicit values pass through."""
+    if backend not in COMM_BACKENDS:
+        raise ValueError(f"comm_backend must be one of {COMM_BACKENDS}; "
+                         f"got {backend!r}")
+    if backend == "auto":
+        return "delta" if n_shards > 1 else "gather"
+    return backend
+
+
+#: Accepted values of ``state_layout``: every shard holds the full
+#: membership, Sigma, sizes and K (``"replicated"``), or per-vertex state
+#: stays with its owner and only boundary labels and touched-community
+#: deltas travel (``"hybrid"``).
+STATE_LAYOUTS = ("auto", "replicated", "hybrid")
+
+#: ``"auto"`` engages the hybrid layout only when the measured boundary
+#: fraction is at most this.
+HYBRID_BOUNDARY_FRAC_MAX = 0.5
+
+#: Touched-community lane capacity as a multiple of the mover cap (a mover
+#: touches at most two communities).
+HYBRID_TOUCHED_CAP_FRAC = 2
+
+
+def hybrid_touched_cap(v_per: int) -> int:
+    """Touched-community lane capacity of a hybrid delta round."""
+    return HYBRID_TOUCHED_CAP_FRAC * delta_move_cap(v_per)
+
+
+def resolve_state_layout(layout: str, n_shards: int,
+                         boundary_frac: float | None = None) -> str:
+    """``"auto"`` is ``"hybrid"`` on more than one shard whose measured
+    boundary fraction is at most ``HYBRID_BOUNDARY_FRAC_MAX``, else
+    ``"replicated"`` (also without a measurement); explicit values pass
+    through."""
+    if layout not in STATE_LAYOUTS:
+        raise ValueError(f"state_layout must be one of {STATE_LAYOUTS}; "
+                         f"got {layout!r}")
+    if layout == "auto":
+        if (n_shards > 1 and boundary_frac is not None
+                and boundary_frac <= HYBRID_BOUNDARY_FRAC_MAX):
+            return "hybrid"
+        return "replicated"
+    return layout
+
+
+#: Accepted values of ``reshard``.
+RESHARD_MODES = ("none", "auto")
+
+
+def resolve_reshard(mode: str) -> str:
+    """Validate the ``reshard`` knob (``"none"`` | ``"auto"``)."""
+    if mode not in RESHARD_MODES:
+        raise ValueError(f"reshard must be one of {RESHARD_MODES}; "
+                         f"got {mode!r}")
+    return mode

@@ -1,0 +1,946 @@
+"""Sharded static GVE-Louvain over ``torch.distributed``
+(``repro.core.distributed``, replicated state layout).
+
+  - 1-D **vertex partition**: rank s owns the vertices ``[s * v_per, (s +
+    1) * v_per)`` and every directed slot whose source it owns, in one
+    ``(e_per_shard,)`` slice on its device.  Every rank builds the same host
+    partition (``partition_graph_host``, deterministic numpy) and keeps its
+    slice.
+  - **Replicated community state**: C, Sigma and K, ``(n_pad + 1,)`` each,
+    on every rank.  K is owned per vertex (all of a vertex's slots live on
+    its owner), so the replicated K is an ``all_gather`` of the owned
+    slices.  Per round, the ``"gather"`` backend (``ShardedScanner``)
+    gathers the owned membership slices and moved masks and sums the dense
+    Sigma deltas and community sizes across ranks; the ``"delta"`` backend
+    (``DeltaShardedScanner``) ships only the movers, bit-packed, and
+    rebuilds Sigma and sizes from the replicated K and membership.
+  - **Distributed aggregation**: each rank reduces its relabelled slots,
+    an ``all_gather`` shares the partial records, and each rank re-reduces
+    the rows it owns in the coarse partition.  Both reductions resolve
+    their sorted groups in the kernel K3 (``coarsen_records``).
+
+Every rank runs the same pass loop and takes every host decision (sweep
+stop, overflow branch, ladder tier, overflow retry, pass stop) from a
+replicated value, so no two ranks branch apart.  Float sums across ranks
+are gathers of the partials added in rank order (``ShardGroup.psum``).
+
+Not ported yet (ROADMAP): the hybrid state layout and skew-aware
+re-sharding on more than one rank; both raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.louvain_arch import (LADDER_SLACK, _pow2_at_least,
+                                              delta_move_cap,
+                                              hybrid_touched_cap,
+                                              resolve_coarse_capacity,
+                                              resolve_comm_backend,
+                                              resolve_reshard,
+                                              resolve_state_layout)
+from repro_torch.core.aggregate import coarsen_records
+from repro_torch.core.collectives import ShardGroup
+from repro_torch.core.comm import (CommPlan, comm_plan, compact_movers,
+                                   label_bits, pack_bits, packed_lanes,
+                                   phase_bytes, unpack_bits)
+from repro_torch.core.engine import (ConstrainedScanner, EngineConfig,
+                                     MoveEngine, assert_outer_sane,
+                                     mask_cross_outer_slots, sanitize_outer)
+from repro_torch.core.graph import CSRGraph, scatter_slots, segment_sum
+from repro_torch.core.louvain import _leiden_warm_membership, pad_membership
+from repro_torch.core.modularity import delta_modularity
+
+_NEG_INF = float("-inf")
+
+#: What the refusals name: the ROADMAP item that ports them.
+_NEXT_ITEM = ("ROADMAP Queue 1, item 10 (the rest of core/distributed.py: "
+              "the hybrid state layout, then multi-rank reshard='auto')")
+
+
+class AggregationOverflow(RuntimeError):
+    """A shard owns more coarse edges than ``e_per_shard`` (community-
+    ownership skew).  Carries ``owned_max``."""
+
+    def __init__(self, owned_max: int, e_per_shard: int):
+        super().__init__(
+            f"aggregation overflow: a shard owns {owned_max} coarse edges "
+            f"> capacity {e_per_shard}; re-partition with more headroom "
+            "(community skew)")
+        self.owned_max = owned_max
+
+
+class ShardedGraphSpec(NamedTuple):
+    """Static layout facts for a vertex-partitioned edge list."""
+
+    n_shards: int
+    v_per_shard: int     # owned vertices per shard
+    e_per_shard: int     # padded edge slots per shard
+    n_pad: int           # n_shards * v_per_shard
+
+    @property
+    def sentinel(self) -> int:
+        return self.n_pad
+
+
+# ---------------------------------------------------------------------------
+# Host partition.
+# ---------------------------------------------------------------------------
+
+def bucket_slots_host(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
+                      spec: ShardedGraphSpec
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Owner bucketing of live directed slots into the padded per-shard
+    layout of ``spec``: global ``(n_shards * e_per_shard,)`` numpy arrays,
+    shard s's slice at ``[s * e_per, (s + 1) * e_per)``, padding
+    ``(n_pad, n_pad, 0)``.  Raises ``ValueError`` when a shard owns more
+    than ``e_per_shard`` slots."""
+    n_shards, v_per, e_per = spec.n_shards, spec.v_per_shard, spec.e_per_shard
+    n_pad = spec.n_pad
+    owner = np.asarray(src) // v_per
+    counts = np.bincount(owner, minlength=n_shards)
+    if counts.size > n_shards or (counts.max(initial=0) > e_per):
+        raise ValueError(
+            f"slots do not fit the shard layout: max owned "
+            f"{int(counts.max(initial=0))} > e_per_shard={e_per}")
+    s_out = np.full((n_shards, e_per), n_pad, np.int32)
+    d_out = np.full((n_shards, e_per), n_pad, np.int32)
+    w_out = np.zeros((n_shards, e_per), np.float32)
+    if owner.size and not np.all(owner[1:] >= owner[:-1]):
+        order = np.argsort(owner, kind="stable")
+        src, dst, w, owner = src[order], dst[order], w[order], owner[order]
+    starts = np.searchsorted(owner, np.arange(n_shards))
+    ends = np.searchsorted(owner, np.arange(n_shards), side="right")
+    for s in range(n_shards):
+        cnt = ends[s] - starts[s]
+        s_out[s, :cnt] = src[starts[s]:ends[s]]
+        d_out[s, :cnt] = dst[starts[s]:ends[s]]
+        w_out[s, :cnt] = w[starts[s]:ends[s]]
+    return s_out.reshape(-1), d_out.reshape(-1), w_out.reshape(-1)
+
+
+def partition_graph_host(graph: CSRGraph, n_shards: int, *,
+                         n_target: Optional[int] = None,
+                         e_per_shard: Optional[int] = None):
+    """1-D vertex partition of a ``CSRGraph`` -> global padded numpy edge
+    arrays and their ``ShardedGraphSpec``, as the reference lays them out
+    (``n_target`` / ``e_per_shard`` reserve headroom)."""
+    n = int(n_target if n_target is not None else graph.n_valid)
+    v_per = -(-n // n_shards)
+    n_pad = v_per * n_shards
+    src = graph.src.cpu().numpy()
+    dst = graph.indices.cpu().numpy()
+    w = graph.weights.cpu().numpy()
+    live = src < graph.n_cap
+    src, dst, w = src[live], dst[live], w[live]
+    owner = src // v_per
+    e_per = max(int(np.bincount(owner, minlength=n_shards).max()), 1,
+                int(e_per_shard or 0))
+    spec = ShardedGraphSpec(n_shards, v_per, e_per, n_pad)
+    return (*bucket_slots_host(src, dst, w, spec), spec)
+
+
+def rank_slice(src_g, dst_g, w_g, spec: ShardedGraphSpec, rank: int,
+               device) -> Tuple[torch.Tensor, ...]:
+    """Rank ``rank``'s ``(e_per_shard,)`` slices of global numpy edge
+    arrays, on ``device``."""
+    lo, hi = rank * spec.e_per_shard, (rank + 1) * spec.e_per_shard
+
+    def put(x, dt):
+        return torch.from_numpy(np.array(np.asarray(x)[lo:hi],
+                                         dtype=dt)).to(device)
+
+    return put(src_g, np.int32), put(dst_g, np.int32), put(w_g, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# The sharded scan and the exchange backends.
+# ---------------------------------------------------------------------------
+
+def best_moves_shard(src_l, dst_l, w_l, src_loc, comm, sigma, k_l,
+                     frontier_l, m, v0: int, v_per: int, sent: int):
+    """Per-shard best (community, dQ) for the owned vertices, by sort-reduce
+    over the shard's slots (the reference's ``_best_moves_shard``):
+    ``(best_c (v_per,) int32, best_dq (v_per,) float32)``.  A vertex's
+    slots all live on its shard, in CSR order, so each (vertex, community)
+    group sums the weights a single-device scan sums, in the same order."""
+    cdst = comm[dst_l]
+    own_comm_l = comm[v0:v0 + v_per]
+    own_edge = (cdst == comm[src_l]) & (dst_l != src_l)
+    k_to_own = segment_sum(torch.where(own_edge, w_l, 0.0), src_loc,
+                           v_per + 1)
+
+    key = src_loc * (sent + 1) + cdst.to(torch.int64)
+    s_key, order = torch.sort(key, stable=True)
+    s_src = src_loc[order]
+    s_c = cdst[order]
+    s_w = torch.where(dst_l[order] == src_l[order], 0.0, w_l[order])
+    new_group = torch.ones_like(s_key, dtype=torch.bool)
+    new_group[1:] = s_key[1:] != s_key[:-1]
+    gid = torch.cumsum(new_group, 0) - 1
+    k_i_to_c = segment_sum(s_w, gid, s_w.shape[0])[gid]
+
+    sig_own_l = sigma[own_comm_l]
+    valid_row = s_src < v_per
+    row = torch.clamp(s_src, max=v_per - 1)
+    dq = delta_modularity(
+        k_i_to_c, torch.where(valid_row, k_to_own[s_src], 0.0),
+        torch.where(valid_row, k_l[row], 0.0),
+        sigma[torch.clamp(s_c, max=sent)],
+        torch.where(valid_row, sig_own_l[row], 0.0), m)
+    valid = (valid_row & (s_c != comm[src_l[order]]) & (s_c < sent)
+             & frontier_l[row])
+    dq = torch.where(valid, dq, _NEG_INF)
+    best_dq = torch.full((v_per + 1,), _NEG_INF, dtype=torch.float32,
+                         device=dq.device)
+    best_dq.scatter_reduce_(0, s_src, dq, "amax", include_self=True)
+    best_dq = torch.where(torch.isfinite(best_dq), best_dq, _NEG_INF)
+    is_best = valid & (dq == best_dq[s_src])
+    best_c = torch.full((v_per + 1,), sent, dtype=torch.int32,
+                        device=dq.device)
+    best_c.scatter_reduce_(0, s_src, torch.where(is_best, s_c, sent),
+                           "amin", include_self=True)
+    return best_c[:v_per], best_dq[:v_per]
+
+
+class ShardedScanner:
+    """Engine backend of one rank: the sort-reduce scan over its slots and
+    the gather exchange (``MoveEngine``'s protocol).  The local layout is
+    the rank's ``v_per_shard`` owned vertices; C and Sigma are the
+    replicated ``(n_pad + 1,)`` arrays.  Per round: ``all_gather`` of the
+    owned membership slices and of the moved masks, and a rank-order sum
+    of the dense Sigma deltas, the community sizes and dQ."""
+
+    def __init__(self, group: ShardGroup, spec: ShardedGraphSpec, src_l,
+                 dst_l, w_l, k, m):
+        v_per, sent = spec.v_per_shard, spec.sentinel
+        dev = src_l.device
+        self.group, self.spec = group, spec
+        self.src_l, self.dst_l, self.w_l = src_l, dst_l, w_l
+        self.k, self.m = k, m
+        self.sentinel = sent
+        self.n_streams = 1
+        self.v0 = group.shard_index() * v_per
+        self.local_ids = self.v0 + torch.arange(v_per, dtype=torch.int32,
+                                                device=dev)
+        self.gate_ids = self.local_ids
+        self.stream_of = torch.zeros(v_per, dtype=torch.int64, device=dev)
+        self.k_local = k[self.v0:self.v0 + v_per]
+        self.src_loc = torch.where(src_l >= sent, v_per,
+                                   src_l - self.v0).to(torch.int64)
+        self.move_valid = None           # invalid slots carry comm == sent
+        self.frontier_valid = self.local_ids < spec.n_pad
+
+    def scan(self, comm, sigma, frontier):
+        return best_moves_shard(self.src_l, self.dst_l, self.w_l,
+                                self.src_loc, comm, sigma, self.k_local,
+                                frontier, self.m, self.v0,
+                                self.spec.v_per_shard, self.sentinel)
+
+    def comm_local(self, comm):
+        return comm[self.v0:self.v0 + self.spec.v_per_shard]
+
+    def count_ones(self, comm_l):
+        return torch.where(comm_l < self.sentinel, 1, 0).to(torch.int32)
+
+    def psum(self, x):
+        return self.group.psum(x)
+
+    def combine_sigma(self, sigma, add, sub):
+        # One gather of both partials; with one rank this is exactly the
+        # single-device engine's sigma + add - sub.
+        both = self.group.psum(torch.stack([add, sub]))
+        return sigma + both[0] - both[1]
+
+    def gather_comm(self, comm_l):
+        full = self.group.all_gather(comm_l)
+        return torch.cat([full, torch.full((1,), self.sentinel,
+                                           dtype=torch.int32,
+                                           device=full.device)])
+
+    def gather_mask(self, mask_l):
+        full = self.group.all_gather(mask_l)
+        return torch.cat([full, torch.zeros(1, dtype=torch.bool,
+                                            device=full.device)])
+
+    def mark_neighbors(self, moved):
+        marked = segment_sum(moved[self.dst_l].to(torch.int32), self.src_loc,
+                             self.spec.v_per_shard + 1)
+        return marked[:self.spec.v_per_shard] > 0
+
+
+class DeltaShardedScanner(ShardedScanner):
+    """Movers-only exchange (the reference's ``DeltaShardedScanner``).
+
+    Per round each rank ships one fused int32 word: its mover count, its
+    float32 dQ (as bits) and its movers as bit-packed (local index, label)
+    pairs (``compact_movers``, ``pack_bits``).  Every rank rebuilds the rest
+    from replicated state: a mover shifts its K_i from its old community to
+    its new one (K and the pre-round membership are replicated), the
+    community sizes move by +-1 (integer-exact), and the moved mask is the
+    label compare.  The gathered counts are replicated, so the overflow
+    test (one host read per round, counted in ``group.branch_reads``)
+    takes the same branch on every rank: a round whose movers exceed the
+    cap on any rank runs the gather exchange instead.  The movers arrive
+    in rank order, each rank's in ascending vertex order, so Sigma's sums
+    run in global vertex order, as on one rank.
+    """
+
+    def __init__(self, group: ShardGroup, spec: ShardedGraphSpec, src_l,
+                 dst_l, w_l, k, m):
+        super().__init__(group, spec, src_l, dst_l, w_l, k, m)
+        self.move_cap = delta_move_cap(spec.v_per_shard)
+        self.idx_width = label_bits(spec.v_per_shard + 1)
+        self.lab_width = label_bits(spec.n_pad + 1)
+        # One fused (index, label) pair per mover when it fits an int32.
+        self.pair_width = self.idx_width + self.lab_width
+        if self.pair_width <= 31:
+            self.mover_lanes = packed_lanes(self.move_cap, self.pair_width)
+        else:
+            self.pair_width = None
+            self.mover_lanes = (packed_lanes(self.move_cap, self.idx_width)
+                                + packed_lanes(self.move_cap, self.lab_width))
+
+    def community_sizes(self, comm, comm_l):
+        # The replicated membership holds every rank's slice: one local
+        # integer reduction equals the summed per-rank ones.
+        sent = self.sentinel
+        body = comm[:sent]
+        return segment_sum(torch.where(body < sent, 1, 0).to(torch.int32),
+                           torch.clamp(body, max=sent), sent + 1)
+
+    def _unpack(self, g_mov):
+        """(S, move_cap) local indices and labels of every rank's movers."""
+        mcap = self.move_cap
+        rows = range(g_mov.shape[0])
+        if self.pair_width is not None:
+            pairs = torch.stack([unpack_bits(g_mov[r], self.pair_width, mcap)
+                                 for r in rows])
+            return pairs & ((1 << self.idx_width) - 1), pairs >> self.idx_width
+        li = packed_lanes(mcap, self.idx_width)
+        idxs = torch.stack([unpack_bits(g_mov[r, :li], self.idx_width, mcap)
+                            for r in rows])
+        labs = torch.stack([unpack_bits(g_mov[r, li:], self.lab_width, mcap)
+                            for r in rows])
+        return idxs, labs
+
+    def exchange_round(self, comm, sigma, sizes, comm_l, do_move, best_c,
+                       dq_local):
+        v_per, sent = self.spec.v_per_shard, self.sentinel
+        mcap, dev = self.move_cap, comm.device
+        if self.pair_width is not None:
+            pv = (torch.arange(v_per, dtype=torch.int32, device=dev)
+                  | (best_c << self.idx_width))
+            _, pair_buf, n_moved = compact_movers(do_move, pv, mcap, v_per)
+            lanes = pack_bits(pair_buf, self.pair_width)
+        else:
+            idx_buf, lab_buf, n_moved = compact_movers(do_move, best_c, mcap,
+                                                       sent)
+            lanes = torch.cat([pack_bits(idx_buf, self.idx_width),
+                               pack_bits(lab_buf, self.lab_width)])
+        # ONE fused collective: mover count, the local dQ's bits, lanes.
+        wire = torch.cat([n_moved.view(1),
+                          dq_local.to(torch.float32).view(1)
+                          .view(torch.int32), lanes])
+        g = self.group.all_gather(wire, tiled=False)          # (S, W)
+        parts = g[:, 1].contiguous().view(torch.float32)
+        dq = parts[0].to(torch.float64)
+        for r in range(1, g.shape[0]):
+            dq = dq + parts[r].to(torch.float64)
+        dq = dq.to(torch.float32).view(1)
+        # Replicated by construction: every rank reads the same counts.
+        self.group.branch_reads += 1
+        over = int(g[:, 0].max()) > mcap
+        if over:
+            moved_k = torch.where(do_move, self.k_local, 0.0)
+            add = segment_sum(moved_k, torch.where(do_move, best_c, sent),
+                              sent + 1)
+            sub = segment_sum(moved_k, torch.where(do_move, comm_l, sent),
+                              sent + 1)
+            comm_new = self.gather_comm(torch.where(do_move, best_c, comm_l))
+            sigma_new = self.combine_sigma(sigma, add, sub)
+            sizes_new = self.community_sizes(comm_new, comm_l)
+        else:
+            idxs, labs = self._unpack(g[:, 2:])
+            # Dead buffer slots (index v_per) are masked out here, where
+            # the reference's scatter dropped them out of bounds.
+            live = idxs < v_per
+            base = (torch.arange(g.shape[0], dtype=torch.int64, device=dev)
+                    [:, None] * v_per)
+            gid = (base + idxs)[live]
+            lab = torch.clamp(labs, max=sent)[live]
+            old = comm[gid]
+            comm_new = comm.clone()
+            comm_new[gid] = lab
+            kv = self.k[gid]
+            sigma_new = (sigma + segment_sum(kv, lab, sent + 1)
+                         - segment_sum(kv, old, sent + 1))
+            one = torch.ones_like(lab)
+            sizes_new = (sizes.index_add(0, lab.to(torch.int64), one)
+                         .index_add(0, old.to(torch.int64), -one))
+        # A move always changes the label: the moved mask is a compare.
+        return comm_new, sigma_new, sizes_new, comm_new != comm, int(over), dq
+
+
+#: comm_backend -> scanner class of the replicated layout.
+COMM_SCANNERS = {"gather": ShardedScanner, "delta": DeltaShardedScanner}
+
+
+def _scanner_cls(backend: str, state_layout: str):
+    """The scanner of a concrete (comm backend, state layout) pair."""
+    if state_layout == "hybrid":
+        raise NotImplementedError(
+            f"state_layout='hybrid' is not ported yet: {_NEXT_ITEM}")
+    return COMM_SCANNERS[backend]
+
+
+def sharded_comm_plan(spec: ShardedGraphSpec, backend: str,
+                      state_layout: str = "replicated") -> CommPlan:
+    """Bytes-on-wire plan of one engine round of ``spec`` (policy caps)."""
+    return comm_plan(backend, spec.n_shards, spec.v_per_shard, spec.n_pad,
+                     delta_move_cap(spec.v_per_shard),
+                     state_layout=state_layout,
+                     touched_cap=hybrid_touched_cap(spec.v_per_shard))
+
+
+def measure_boundary_frac(src_g, dst_g, spec: ShardedGraphSpec,
+                          n_live: Optional[int] = None) -> float:
+    """Host-side share of live vertices with at least one cross-shard slot,
+    over global numpy edge arrays (what ``state_layout="auto"`` reads)."""
+    src = np.asarray(src_g).ravel()
+    dst = np.asarray(dst_g).ravel()
+    sent, v_per = spec.sentinel, spec.v_per_shard
+    live = (src < sent) & (dst < sent)
+    if n_live is None:
+        n_live = int(np.unique(src[live]).size)
+    remote = live & (src // v_per != dst // v_per)
+    n_bnd = int(np.unique(src[remote]).size)
+    return n_bnd / max(int(n_live), 1)
+
+
+# ---------------------------------------------------------------------------
+# Phases of one pass.
+# ---------------------------------------------------------------------------
+
+def distributed_move(group: ShardGroup, spec: ShardedGraphSpec, src_l, dst_l,
+                     w_l, comm0, sigma0, k, frontier_g, m, tolerance, *,
+                     config: EngineConfig, comm_backend: str = "gather",
+                     state_layout: str = "replicated"):
+    """The local-moving phase of one rank (``make_distributed_move``):
+    returns (comm, sigma, iters, dq_sum, rounds, fallbacks), all replicated.
+    ``frontier_g`` is the replicated (n_pad + 1,) seed frontier."""
+    scanner = _scanner_cls(comm_backend, state_layout)(
+        group, spec, src_l, dst_l, w_l, k, m)
+    v0 = scanner.v0
+    frontier0 = (frontier_g[v0:v0 + spec.v_per_shard]
+                 & scanner.frontier_valid)
+    st = MoveEngine(scanner, config).run(comm0, sigma0, frontier0, tolerance)
+    return (st.comm, st.sigma, st.iters, st.dq_sum,
+            st.iters * config.gate_fraction, st.comm_fb)
+
+
+def distributed_refine(group: ShardGroup, spec: ShardedGraphSpec, src_l,
+                       dst_l, w_l, outer, k, n_live: int, m, tolerance, *,
+                       config: EngineConfig, comm_backend: str = "gather",
+                       state_layout: str = "replicated"):
+    """The Leiden refinement phase of one rank (``make_distributed_refine``):
+    from singletons, the constrained sweep over the cross-outer-masked slots
+    inside ``ConstrainedScanner``; ``k``/``m`` stay the full graph's.
+    Returns (comm, iters, dq_sum, rounds, fallbacks)."""
+    sent = spec.sentinel
+    outer_s = sanitize_outer(outer, n_live, sent)
+    # The reference's ConstrainedScanner checks the (sanitized) outer ids
+    # eagerly: a stale one fails loudly here.
+    assert_outer_sane(outer_s, n_live, sent)
+    dst_m, w_m = mask_cross_outer_slots(src_l, dst_l, w_l, outer_s, sent)
+    scanner = ConstrainedScanner(
+        _scanner_cls(comm_backend, state_layout)(group, spec, src_l, dst_m,
+                                                 w_m, k, m),
+        outer_s, gate_fraction=config.gate_fraction)
+    ids = torch.arange(sent + 1, dtype=torch.int32, device=k.device)
+    live_v = ids < n_live
+    comm0 = torch.where(live_v, ids, sent)
+    frontier0 = scanner.frontier_valid & live_v[
+        torch.clamp(scanner.local_ids, max=sent)]
+    st = MoveEngine(scanner, config).run(comm0, k, frontier0, tolerance)
+    return (st.comm, st.iters, st.dq_sum, st.iters * config.gate_fraction,
+            st.comm_fb)
+
+
+def sorted_relabelled_slots(src_l, dst_l, w_l, comm, sent: int):
+    """A rank's slots relabelled ``(C[src], C[dst], w)`` and put in
+    (ci, cj) order by one stable sort (the reference's ``lexsort((cj,
+    ci))``): the input of the aggregation's first K3 launch."""
+    ci = comm[src_l]
+    cj = comm[dst_l]
+    key = ci.to(torch.int64) * (sent + 1) + cj.to(torch.int64)
+    order = torch.sort(key, stable=True).indices
+    return ci[order], cj[order], w_l[order]
+
+
+def reduce_sorted_slots(s_ci, s_cj, s_w, sent: int, cap: int):
+    """One record per group of (ci, cj)-sorted slots, resolved by K3
+    (``coarsen_records``) and scattered to positions ``0 .. groups - 1``
+    of ``(cap,)`` buffers (padding ``(sent, sent, 0)``); groups at
+    positions past ``cap`` are dropped.  Returns (ci, cj, w, groups) with
+    ``groups`` a 0-d tensor counting the live groups, dropped ones
+    included."""
+    emit, pos, r_ci, r_cj, r_w = coarsen_records(s_ci, s_cj, s_w, sent,
+                                                 "kernel")
+    keep = emit & (pos < cap)
+    o_ci, o_cj, o_w = scatter_slots(torch.where(keep, pos, cap), r_ci, r_cj,
+                                    r_w, sent, cap)
+    return o_ci, o_cj, o_w, emit.to(torch.int32).sum()
+
+
+def owner_sorted_slots(g_ci, g_cj, g_w, v0: int, v_per: int, sent: int):
+    """Of every rank's gathered partial records, the rows this rank owns in
+    the coarse partition (``v0 <= ci < v0 + v_per``; the others become
+    padding), put in (ci, cj) order: the input of the second K3 launch."""
+    mine = (g_ci >= v0) & (g_ci < v0 + v_per)
+    m_ci = torch.where(mine, g_ci, sent)
+    m_cj = torch.where(mine, g_cj, sent)
+    m_w = torch.where(mine, g_w, 0.0)
+    key = m_ci.to(torch.int64) * (sent + 1) + m_cj.to(torch.int64)
+    order = torch.sort(key, stable=True).indices
+    return m_ci[order], m_cj[order], m_w[order]
+
+
+def distributed_aggregate(group: ShardGroup, spec: ShardedGraphSpec, src_l,
+                          dst_l, w_l, comm):
+    """Distributed coarsening (``make_distributed_aggregate``): the local
+    partial reduce, one ``all_gather`` of the partial records, the
+    owner-side re-reduce.  ``comm`` is the renumbered replicated
+    membership.  Returns (src_l', dst_l', w_l', e_valid, owned_max): this
+    rank's coarse slots in the same ``(e_per_shard,)`` layout (coarse
+    vertex v owned by rank v // v_per) and the replicated total and
+    largest per-rank count of coarse slots.  A rank owning more than
+    ``e_per_shard`` drops the excess, and ``owned_max`` shows it."""
+    v_per, sent = spec.v_per_shard, spec.sentinel
+    e_l = src_l.shape[0]
+    p_ci, p_cj, p_w, _ = reduce_sorted_slots(
+        *sorted_relabelled_slots(src_l, dst_l, w_l, comm, sent), sent, e_l)
+    wire = group.all_gather(torch.stack([p_ci, p_cj, p_w.view(torch.int32)]),
+                            tiled=False)                  # (S, 3, e_l)
+    g_ci = wire[:, 0].reshape(-1)
+    g_cj = wire[:, 1].reshape(-1)
+    g_w = wire[:, 2].reshape(-1).view(torch.float32)
+    v0 = group.shard_index() * v_per
+    o_ci, o_cj, o_w, owned = reduce_sorted_slots(
+        *owner_sorted_slots(g_ci, g_cj, g_w, v0, v_per, sent), sent, e_l)
+    return (o_ci, o_cj, o_w, int(group.psum(owned)),
+            int(group.pmax(owned)))
+
+
+def _vertex_k(group: ShardGroup, spec: ShardedGraphSpec, src_l, w_l):
+    """Replicated (n_pad + 1,) K: each rank's owned sums, gathered."""
+    v_per, sent = spec.v_per_shard, spec.sentinel
+    v0 = group.shard_index() * v_per
+    loc = torch.where(src_l >= sent, v_per, src_l - v0).to(torch.int64)
+    k_own = segment_sum(w_l, loc, v_per + 1)[:v_per]
+    k = group.all_gather(k_own)
+    return torch.cat([k, torch.zeros(1, dtype=k.dtype, device=k.device)])
+
+
+def _total_weight(group: ShardGroup, w_l) -> torch.Tensor:
+    """Replicated m = sum(w) / 2 (float64 partials in rank order)."""
+    part = torch.sum(w_l, dtype=torch.float64).view(1)
+    return group.psum(part)[0].to(torch.float32) * 0.5
+
+
+def _warm_comm_sigma(mem, k, n_valid: int):
+    """(comm0, sigma0) resuming a move phase from the replicated ``mem``
+    (scalar ``n_valid`` form): valid vertices without an assignment take
+    their own singleton; Sigma comes from the current K."""
+    n_pad = mem.shape[0] - 1
+    idx = torch.arange(n_pad + 1, dtype=torch.int32, device=mem.device)
+    valid = idx < n_valid
+    assigned = torch.where(mem < n_pad, mem.to(torch.int32), idx)
+    comm0 = torch.where(valid, assigned, n_pad).to(torch.int32)
+    sigma0 = segment_sum(k[:n_pad], comm0[:n_pad], n_pad + 1)
+    return comm0, sigma0
+
+
+def sharded_modularity(group: ShardGroup, src_l, dst_l, w_l, comm) -> float:
+    """Q of a replicated (n_pad + 1,) membership on the sharded slots."""
+    sent = comm.shape[0] - 1
+    internal = torch.sum(torch.where(comm[src_l] == comm[dst_l], w_l, 0.0),
+                         dtype=torch.float64).view(1)
+    total = torch.sum(w_l, dtype=torch.float64).view(1)
+    both = group.psum(torch.cat([internal, total]))
+    m = both[1] * 0.5
+    src_v = torch.where(src_l >= sent, sent, src_l).to(torch.int64)
+    k_part = segment_sum(w_l.to(torch.float64), src_v, sent + 1)
+    k = group.psum(k_part)
+    sig = segment_sum(k[:sent], torch.clamp(comm[:sent], max=sent), sent + 1)
+    sig[sent] = 0.0
+    q = both[0] / (2.0 * m) - torch.sum((sig / (2.0 * m)) ** 2)
+    return float(q)
+
+
+def replicated_renumber(comm: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """Dense relabel of a replicated (n_pad + 1,) community array: returns
+    (ids, n_comms) with invalid slots and the sentinel at n_pad."""
+    n_pad = comm.shape[0] - 1
+    idx = torch.arange(n_pad + 1, device=comm.device)
+    valid = (comm < n_pad) & (idx < n_pad)
+    cs = torch.where(valid, comm, n_pad).to(torch.int64)
+    present = torch.zeros(n_pad + 1, dtype=torch.int32, device=comm.device)
+    present[cs] = 1
+    present[n_pad] = 0
+    new_id = torch.cumsum(present, 0, dtype=torch.int32) - present
+    n_comms = int(present.sum())
+    new_id[n_pad] = n_pad
+    return torch.where(valid, new_id[cs], n_pad).to(torch.int32), n_comms
+
+
+def sentinel_forced_membership(global_comm, n_valid: int, n_pad: int):
+    """Replicated (n_pad + 1,) membership from a pass-loop fold, invalid
+    slots forced to the layout sentinel."""
+    dev = global_comm.device
+    gc = torch.where(torch.arange(n_pad, device=dev) < n_valid,
+                     global_comm[:n_pad], n_pad).to(torch.int32)
+    return torch.cat([gc, torch.full((1,), n_pad, dtype=torch.int32,
+                                     device=dev)])
+
+
+def _rebucket_live(group: ShardGroup, src_l, dst_l, w_l, old_sent: int,
+                   spec_new: ShardedGraphSpec):
+    """Gather every rank's live slots to the host and re-bucket them into
+    ``spec_new``'s layout, doubling ``e_per_shard`` until the ownership
+    fits (the reference's ``_rebucket_live_host``); returns this rank's
+    slices and the final spec."""
+    parts = [group.all_gather(x).cpu().numpy() for x in (src_l, dst_l, w_l)]
+    src, dst, w = parts
+    live = src < old_sent
+    src, dst, w = src[live], dst[live], w[live]
+    if len(src) and int(src.max()) >= spec_new.n_pad:
+        raise ValueError(
+            f"live vertex id {int(src.max())} does not fit the target "
+            f"layout (n_pad={spec_new.n_pad})")
+    while True:
+        try:
+            glob = bucket_slots_host(src, dst, w, spec_new)
+            break
+        except ValueError:
+            spec_new = spec_new._replace(
+                e_per_shard=2 * spec_new.e_per_shard)
+    return (*rank_slice(*glob, spec_new, group.shard_index(),
+                        src_l.device), spec_new)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def sharded_louvain_passes(
+    group: ShardGroup, src_l, dst_l, w_l, spec: ShardedGraphSpec,
+    n_live: int, *, init_membership=None, init_frontier=None,
+    max_passes: int = 10, max_iterations: int = 20,
+    initial_tolerance: float = 0.01, tolerance_drop: float = 10.0,
+    aggregation_tolerance: float = 0.8, gate_fraction: int = 2,
+    use_pruning: bool = True, use_ladder: bool = False,
+    comm_backend: str = "gather", state_layout: str = "replicated",
+    refine: str = "none", reshard: str = "none",
+    pipeline_fetch: bool = False, regrow: bool = True):
+    """The host pass loop on one rank's slots (the reference's
+    ``sharded_louvain_passes``), run by every rank in lockstep.
+
+    ``init_membership`` / ``init_frontier`` ((n_pad + 1,) replicated)
+    warm-start pass 0; later passes restart from singletons on the coarse
+    graph (with ``refine="leiden"``, from the outer partition on it).  With
+    ``use_ladder`` coarse graphs re-bucket down to the power-of-two tier
+    that fits them.  An aggregation that overflows ``e_per_shard`` is
+    retried with ``regrow``: first the owner map shrinks to the tier that
+    fits the live vertices, then ``e_per_shard`` grows; without ``regrow``
+    it raises ``AggregationOverflow``.  ``comm_backend`` /
+    ``state_layout`` are the concrete exchange and layout.
+    ``pipeline_fetch`` runs the next aggregation before the pass's stop
+    decision is read (the reference's dispatch order; the same results).
+
+    Returns (membership (n_pad,), n_communities, stats): the rows carry the
+    reference's columns (``comm_backend``, ``comm_rounds``,
+    ``comm_fallback_rounds``, ``comm_bytes``, ``state_layout``,
+    ``halo_bytes``, ``boundary_frac``, ``seconds``, ...) and
+    ``phase_seconds``, the pass's local-move, refine and aggregate times.
+    """
+    if refine not in ("none", "leiden"):
+        raise ValueError(f"refine must be 'none' or 'leiden', got {refine!r}")
+    reshard_on = resolve_reshard(reshard) == "auto"
+    if reshard_on and spec.n_shards > 1:
+        raise NotImplementedError(
+            f"reshard='auto' on more than one rank is not ported yet: "
+            f"{_NEXT_ITEM}")
+    _scanner_cls(comm_backend, state_layout)   # refuses hybrid up front
+    refine_on = refine == "leiden"
+    config = EngineConfig(max_iterations=max_iterations,
+                          use_pruning=use_pruning,
+                          gate_fraction=gate_fraction)
+    dev = src_l.device
+    phase = dict(config=config, comm_backend=comm_backend,
+                 state_layout=state_layout)
+
+    n_pad, sent = spec.n_pad, spec.sentinel
+    global_comm = torch.arange(n_pad, dtype=torch.int32, device=dev)
+    report_comm = global_comm
+    tol = float(initial_tolerance)
+    stats = []
+    n_report = n_live
+    leiden_warm = None
+    for p in range(max_passes):
+        t_pass0 = time.perf_counter()
+        k = _vertex_k(group, spec, src_l, w_l)
+        m = _total_weight(group, w_l)
+        ones_frontier = torch.ones(sent + 1, dtype=torch.bool, device=dev)
+        if p == 0 and init_membership is not None:
+            comm0, sigma0 = _warm_comm_sigma(init_membership, k, n_live)
+            frontier0 = (ones_frontier if init_frontier is None
+                         else init_frontier)
+        elif leiden_warm is not None:
+            comm0, sigma0 = _warm_comm_sigma(leiden_warm, k, n_live)
+            frontier0 = ones_frontier
+        else:
+            idx = torch.arange(sent + 1, dtype=torch.int32, device=dev)
+            comm0 = torch.where(idx < n_live, idx, sent)
+            sigma0 = k
+            frontier0 = ones_frontier
+        comm, _, iters, dq_sum, rounds, fallbacks = distributed_move(
+            group, spec, src_l, dst_l, w_l, comm0, sigma0, k, frontier0, m,
+            tol, **phase)
+        _sync(dev)
+        t_move = time.perf_counter()
+        refine_iters = None
+        outer_ren = None
+        rounds_extra = fb_extra = 0
+        if refine_on:
+            refined, refine_iters, _, r_rounds, r_fb = distributed_refine(
+                group, spec, src_l, dst_l, w_l, comm, k, n_live, m, tol,
+                **phase)
+            outer_ren, n_outer = replicated_renumber(comm)
+            comm_ren, n_comms = replicated_renumber(refined)
+            rounds_extra, fb_extra = r_rounds, r_fb
+        else:
+            comm_ren, n_comms = replicated_renumber(comm)
+        _sync(dev)
+        t_refine = time.perf_counter()
+        pending_agg = None
+        if pipeline_fetch and p < max_passes - 1:
+            pending_agg = distributed_aggregate(group, spec, src_l, dst_l,
+                                                w_l, comm_ren)
+        if refine_on:
+            report_comm = outer_ren[torch.clamp(global_comm, max=sent)]
+            n_report = n_outer
+        global_comm = comm_ren[torch.clamp(global_comm, max=sent)]
+        if not refine_on:
+            report_comm = global_comm
+            n_report = n_comms
+        rounds_i = rounds + rounds_extra
+        fb_i = fallbacks + fb_extra
+        plan = sharded_comm_plan(spec, comm_backend, state_layout)
+        stats.append({"iterations": iters, "n_communities": n_report,
+                      "n_vertices": n_live, "n_pad": sent,
+                      "e_per_shard": spec.e_per_shard,
+                      "dq_sum": float(dq_sum),
+                      "comm_backend": comm_backend,
+                      "comm_rounds": rounds_i,
+                      "comm_fallback_rounds": fb_i,
+                      "comm_bytes": phase_bytes(plan, rounds_i, fb_i),
+                      "state_layout": state_layout,
+                      "halo_bytes": plan.halo_round_bytes * rounds_i,
+                      "boundary_frac": None,
+                      "seconds": time.perf_counter() - t_pass0,
+                      "refine_iterations": refine_iters,
+                      "n_refined": n_comms if refine_on else None,
+                      "reshard": False, "reshard_bytes": 0,
+                      "max_shard_load_frac_before": None,
+                      "max_shard_load_frac_after": None,
+                      "phase_seconds": {"local_move": t_move - t_pass0,
+                                        "refine": t_refine - t_move,
+                                        "aggregate": 0.0}})
+        converged = iters <= 1
+        low_shrink = n_report / max(n_live, 1) > aggregation_tolerance
+        if converged or low_shrink or p == max_passes - 1:
+            break
+        t_agg = time.perf_counter()
+        if refine_on:
+            # Outer-on-coarse warm start, before any owner-map change:
+            # coarse ids [0, n_comms) whatever the next layout.
+            warm_flat = _leiden_warm_membership(
+                comm_ren, outer_ren, n_live, n_comms)[:n_comms].cpu().numpy()
+        while True:
+            if pending_agg is not None:
+                a_src, a_dst, a_w, e_valid, owned = pending_agg
+                pending_agg = None
+            else:
+                a_src, a_dst, a_w, e_valid, owned = distributed_aggregate(
+                    group, spec, src_l, dst_l, w_l, comm_ren)
+            if owned <= spec.e_per_shard:
+                src_l, dst_l, w_l = a_src, a_dst, a_w
+                break
+            if not regrow:
+                raise AggregationOverflow(owned, spec.e_per_shard)
+            # Community skew: coarse ids form a dense prefix that an owner
+            # map sized for the original vertex range parks on the first
+            # ranks.  Shrink the owner map first, then grow e_per_shard.
+            old_sent = spec.sentinel
+            v_tight = _pow2_at_least(-(-n_live // spec.n_shards))
+            if v_tight < spec.v_per_shard:
+                tier = ShardedGraphSpec(spec.n_shards, v_tight,
+                                        spec.e_per_shard,
+                                        spec.n_shards * v_tight)
+            else:
+                tier = spec._replace(e_per_shard=_pow2_at_least(
+                    max(owned, 2 * spec.e_per_shard)))
+            src_l, dst_l, w_l, spec = _rebucket_live(
+                group, src_l, dst_l, w_l, old_sent, tier)
+            if spec.sentinel != old_sent:
+                # Rewrite the renumbered membership that feeds the retried
+                # aggregation into the new sentinel space.
+                sent = spec.sentinel
+                body = comm_ren[:spec.n_pad]
+                ids = torch.arange(spec.n_pad, device=dev)
+                comm_ren = torch.cat([
+                    torch.where(ids < n_live, torch.clamp(body, max=sent),
+                                sent).to(torch.int32),
+                    torch.full((1,), sent, dtype=torch.int32, device=dev)])
+        if use_ladder:
+            n_new, e_new = resolve_coarse_capacity(
+                n_comms, e_valid, spec.n_pad,
+                spec.e_per_shard * spec.n_shards)
+            if (n_new, e_new) != (spec.n_pad,
+                                  spec.e_per_shard * spec.n_shards):
+                old_sent = spec.sentinel
+                e_tier = _pow2_at_least(max(
+                    -(-e_new // spec.n_shards), int(owned * LADDER_SLACK), 1))
+                v_new = -(-n_new // spec.n_shards)
+                tier = ShardedGraphSpec(spec.n_shards, v_new, e_tier,
+                                        spec.n_shards * v_new)
+                if tier != spec:
+                    src_l, dst_l, w_l, spec = _rebucket_live(
+                        group, src_l, dst_l, w_l, old_sent, tier)
+                    sent = spec.sentinel
+        if refine_on:
+            leiden_warm = torch.from_numpy(
+                pad_membership(warm_flat, spec.n_pad)).to(dev)
+        n_live = n_comms
+        _sync(dev)
+        stats[-1]["phase_seconds"]["aggregate"] = time.perf_counter() - t_agg
+        stats[-1]["seconds"] = time.perf_counter() - t_pass0
+        tol /= tolerance_drop
+    return report_comm, n_report, stats
+
+
+def distributed_louvain(
+    graph: CSRGraph, group: ShardGroup, *, max_passes: int = 10,
+    max_iterations: int = 20, initial_tolerance: float = 0.01,
+    tolerance_drop: float = 10.0, aggregation_tolerance: float = 0.8,
+    gate_fraction: int = 2, use_pruning: bool = True, init_membership=None,
+    init_frontier=None, e_per_shard: Optional[int] = None,
+    use_ladder: bool = True, comm_backend: str = "auto",
+    state_layout: str = "replicated", refine: str = "none",
+    reshard: str = "none", pipeline_fetch: bool = False):
+    """End-to-end sharded GVE-Louvain on one rank of ``group``; every rank
+    of the group calls it with the same graph and arguments.
+
+    The reference's ``distributed_louvain`` with a ``ShardGroup`` in place
+    of ``(mesh, axes)``.  ``graph`` may lie on any device: its slots are
+    partitioned on the host and this rank's slice moves to
+    ``group.device``.  ``comm_backend`` ("gather" | "delta" | "auto": delta
+    on more than one rank) never changes a membership.  ``state_layout``
+    "hybrid", or "auto" resolving to it on more than one rank, raises
+    ``NotImplementedError``; so does ``reshard="auto"`` on more than one
+    rank (on one it is a no-op, as in the reference).
+
+    Returns (membership (n,) numpy, n_communities, pass_stats).
+    """
+    n_shards = group.world_size
+    cb = resolve_comm_backend(comm_backend, n_shards)
+    resolve_reshard(reshard)
+    src_g, dst_g, w_g, spec = partition_graph_host(
+        graph, n_shards, e_per_shard=e_per_shard)
+    n = int(graph.n_valid)
+    sl = resolve_state_layout(
+        state_layout, n_shards,
+        boundary_frac=(measure_boundary_frac(src_g, dst_g, spec, n)
+                       if state_layout == "auto" and n_shards > 1
+                       else None))
+    _scanner_cls(cb, sl)
+    dev = group.device
+    src_l, dst_l, w_l = rank_slice(src_g, dst_g, w_g, spec,
+                                   group.shard_index(), dev)
+    del src_g, dst_g, w_g
+    mem0 = fr0 = None
+    if init_membership is not None:
+        mem = np.minimum(np.asarray(init_membership, np.int64),
+                         spec.n_pad).astype(np.int32)[:spec.n_pad]
+        mem0 = torch.from_numpy(pad_membership(mem, spec.n_pad)).to(dev)
+    if init_frontier is not None:
+        fr = np.zeros(spec.n_pad + 1, bool)
+        src_fr = np.asarray(init_frontier, bool)
+        fr[: min(len(src_fr), spec.n_pad)] = src_fr[: spec.n_pad]
+        fr0 = torch.from_numpy(fr).to(dev)
+    global_comm, _, stats = sharded_louvain_passes(
+        group, src_l, dst_l, w_l, spec, n, init_membership=mem0,
+        init_frontier=fr0, max_passes=max_passes,
+        max_iterations=max_iterations, initial_tolerance=initial_tolerance,
+        tolerance_drop=tolerance_drop,
+        aggregation_tolerance=aggregation_tolerance,
+        gate_fraction=gate_fraction, use_pruning=use_pruning,
+        use_ladder=use_ladder, comm_backend=cb, state_layout=sl,
+        refine=refine, reshard=reshard, pipeline_fetch=pipeline_fetch)
+    membership = global_comm[:n].cpu().numpy()
+    return membership, int(len(np.unique(membership))), stats
+
+
+# ---------------------------------------------------------------------------
+# A rank's entry for ``collectives.launch`` (JAX-free, so spawned ranks
+# import only the port).
+# ---------------------------------------------------------------------------
+
+def rank_runs(group: ShardGroup, graphs: dict, runs: list) -> dict:
+    """Run ``distributed_louvain`` on this rank for each ``(name, kwargs)``
+    of ``runs``, on ``graphs[name]``: a dict of the ``CSRGraph`` buffers as
+    numpy arrays (``indptr``, ``indices``, ``weights``, ``src``,
+    ``n_valid``, ``e_valid``).  A run whose kwargs hold ``"expect"`` (an
+    exception class name) must raise it; its result is the message.  A run
+    whose kwargs hold ``"regrow"`` calls the pass loop with it on the
+    partitioned graph (``regrow=False``: no overflow retry).  Returns
+    ``{"results": [(membership, n_communities, stats) or message, ...],
+    "staged_bytes", "collectives", "branch_reads"}``."""
+    from repro_torch.interop import graph_from_numpy
+
+    def run(g, kwargs):
+        if "regrow" not in kwargs:
+            return distributed_louvain(g, group, **kwargs)
+        *glob, spec = partition_graph_host(g, group.world_size)
+        sl = rank_slice(*glob, spec, group.shard_index(), group.device)
+        cb = resolve_comm_backend(kwargs.pop("comm_backend", "auto"),
+                                  group.world_size)
+        return sharded_louvain_passes(group, *sl, spec, g.n_valid,
+                                      comm_backend=cb, use_ladder=True,
+                                      **kwargs)
+
+    out = []
+    for name, kwargs in runs:
+        kwargs = dict(kwargs)
+        expect = kwargs.pop("expect", None)
+        g = graph_from_numpy(**graphs[name], device=group.device)
+        if expect is None:
+            out.append(run(g, kwargs))
+            continue
+        try:
+            run(g, kwargs)
+        except Exception as exc:  # noqa: BLE001 — checked by name
+            if type(exc).__name__ != expect:
+                raise
+            out.append(str(exc))
+        else:
+            raise AssertionError(f"{name} {kwargs}: {expect} not raised")
+    return {"results": out, "staged_bytes": group.staged_bytes,
+            "collectives": group.collectives,
+            "branch_reads": group.branch_reads}

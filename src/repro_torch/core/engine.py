@@ -55,7 +55,10 @@ class MoveState:
     are the (sent + 1,) community state; ``iters`` is an (S,) host int
     array; ``dq``/``dq_sum`` are (S,) float32 device tensors; ``live``
     masks the vertices of the streams still sweeping.  ``MoveEngine.run``
-    hands one stream's back as a host int and 0-d tensors."""
+    hands one stream's back as a host int and 0-d tensors.  ``sizes`` is
+    the (sent + 1,) community-size array a scanner with ``exchange_round``
+    maintains across rounds (None otherwise); ``comm_fb`` counts the rounds
+    its exchange fell back to the dense path."""
 
     comm: torch.Tensor
     sigma: torch.Tensor
@@ -64,6 +67,8 @@ class MoveState:
     dq: torch.Tensor
     dq_sum: torch.Tensor
     live: torch.Tensor
+    sizes: Optional[torch.Tensor] = None
+    comm_fb: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +114,16 @@ class MoveEngine:
     ``decide_moves(comm, sigma, frontier, comm_l, sizes, round_ix)`` ->
     (do_move, best_c, best_dq), which must equal ``scan`` +
     ``gated_move_mask`` bit for bit (the fused ELL kernel supplies it).
+
+    Two more optional hooks, of the sharded scanners
+    (``core/distributed.py``): ``community_sizes(comm, comm_l)`` -> the
+    (sent + 1,) int32 sizes in place of the engine's reduction; and
+    ``exchange_round(comm, sigma, sizes, comm_l, do_move, best_c,
+    dq_local)`` -> (comm', sigma', sizes', moved (sent + 1,) bool,
+    fallback 0/1 host int, dq), which replaces the Sigma / membership /
+    moved-mask / dQ exchange with the backend's own.  A scanner with
+    ``exchange_round`` keeps the sizes across rounds (seeded once per
+    phase by ``community_sizes``) instead of reducing them every round.
     """
 
     def __init__(self, scanner, config: EngineConfig):
@@ -124,7 +139,15 @@ class MoveEngine:
 
         gate = (round_gate(sc.gate_ids, round_ix, cfg.gate_fraction)
                 if cfg.gate_fraction > 1 else None)
-        sizes = sc.psum(segment_sum(sc.count_ones(comm_l), comm_l, sent + 1))
+        exchange = getattr(sc, "exchange_round", None)
+        sizes_fn = getattr(sc, "community_sizes", None)
+        if exchange is not None:
+            sizes = st.sizes          # kept by the backend's exchange
+        elif sizes_fn is not None:
+            sizes = sizes_fn(st.comm, comm_l)
+        else:
+            sizes = sc.psum(segment_sum(sc.count_ones(comm_l), comm_l,
+                                        sent + 1))
 
         decide = getattr(sc, "decide_moves", None)
         if decide is not None:
@@ -140,16 +163,22 @@ class MoveEngine:
         # float64 and rounded once: the same sum whatever the block's
         # padding or the number of streams beside it.
         moved_dq = torch.where(do_move, best_dq, 0.0)[:sent]
-        dq = sc.psum(torch.sum(moved_dq.view(sc.n_streams, -1), 1,
-                               dtype=torch.float64).to(torch.float32))
-        moved_k = torch.where(do_move, sc.k_local, 0.0)
-        add = segment_sum(moved_k, torch.where(do_move, best_c, sent),
-                          sent + 1)
-        sub = segment_sum(moved_k, torch.where(do_move, comm_l, sent),
-                          sent + 1)
-        sigma = sc.combine_sigma(st.sigma, add, sub)
-        comm = sc.gather_comm(torch.where(do_move, best_c, comm_l))
-        moved_g = sc.gather_mask(do_move)
+        dq_local = torch.sum(moved_dq.view(sc.n_streams, -1), 1,
+                             dtype=torch.float64).to(torch.float32)
+        if exchange is not None:
+            comm, sigma, sizes_new, moved_g, fb, dq = exchange(
+                st.comm, st.sigma, sizes, comm_l, do_move, best_c, dq_local)
+        else:
+            dq = sc.psum(dq_local)
+            moved_k = torch.where(do_move, sc.k_local, 0.0)
+            add = segment_sum(moved_k, torch.where(do_move, best_c, sent),
+                              sent + 1)
+            sub = segment_sum(moved_k, torch.where(do_move, comm_l, sent),
+                              sent + 1)
+            sigma = sc.combine_sigma(st.sigma, add, sub)
+            comm = sc.gather_comm(torch.where(do_move, best_c, comm_l))
+            moved_g = sc.gather_mask(do_move)
+            sizes_new, fb = st.sizes, 0
 
         # Vertex pruning: processed vertices leave the frontier; neighbors
         # of movers re-enter it.  Gated-out frontier vertices were never
@@ -158,7 +187,7 @@ class MoveEngine:
         if gate is not None:
             frontier_new = frontier_new | (frontier & ~gate)
         return MoveState(comm, sigma, frontier_new, st.iters, st.dq + dq,
-                         st.dq_sum + dq, st.live)
+                         st.dq_sum + dq, st.live, sizes_new, st.comm_fb + fb)
 
     def run(self, comm0: torch.Tensor, sigma0: torch.Tensor,
             frontier0: torch.Tensor, tolerance) -> MoveState:
@@ -183,6 +212,8 @@ class MoveEngine:
         zero = torch.zeros(sc.n_streams, dtype=torch.float32, device=dev)
         st = MoveState(comm0, sigma0, frontier0,
                        np.zeros(sc.n_streams, np.int64), zero, zero, None)
+        if getattr(sc, "exchange_round", None) is not None:
+            st.sizes = sc.community_sizes(comm0, sc.comm_local(comm0))
         dq = np.full(sc.n_streams, np.inf, np.float32)  # >= 1 sweep each
         sweeps = 0
         while True:

@@ -46,8 +46,8 @@ class LouvainConfig:
     defaults.  The sharded-only fields (``comm_backend``, ``reshard``,
     ``pipeline_fetch``, ``state_layout``) are ignored, as the reference's
     single-device ``louvain()`` ignores them.  An ``ell_widths`` entry
-    above ``MAX_WIDTH`` (16,384), which no layout of the kernels K1/K2
-    takes, raises ``ELLWidthError`` here on every device."""
+    below 1 raises ``ELLWidthError`` here on every device; every width
+    from 1 up has a layout of the kernels K1/K2."""
 
     max_passes: int = 10
     max_iterations: int = 20          # opt. 4.1.2

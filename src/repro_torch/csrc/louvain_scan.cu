@@ -45,7 +45,15 @@
 //     cudaFuncAttributeMaxDynamicSharedMemorySize), bitonic-sorted across
 //     the block with __syncthreads between stages, and the head of each run
 //     sums it.  Each sort capacity (2048 .. 16384) launches its own
-//     instantiation.
+//     instantiation;
+//   * widths above 16384, which no block's shared memory holds: the same
+//     one-row-per-CTA scan with the keys and weights in a global-memory
+//     scratch buffer that the wrapper allocates per launch, sort_cap keys
+//     and sort_cap weights per block.  The grid is cut to the blocks whose
+//     slices fit the buffer (a few hundred MB), and each block loops over
+//     rows.  __syncthreads orders the block's global-memory accesses as it
+//     orders its shared ones, so the network, the run sums and the fold are
+//     the shared-memory layout's, with 64-bit positions.
 // One thread sums each group's weights, then evaluates Eq. 2 once; a warp
 // butterfly of (max dQ, min id) gives a warp's row, and a CTA's row folds
 // its warps' answers through shared memory.
@@ -115,7 +123,10 @@ struct Args {
   int n_cap;
   int width;
   int sort_cap;                 // keys per warp (per CTA above 1024) in
-                                // shared memory
+                                // shared memory (global scratch above
+                                // 16384)
+  unsigned long long* scratch;  // widths above 16384: per block, sort_cap
+                                // keys; then per block, sort_cap weights
   int round_ix;
   int gate_fraction;
   int sentinel;
@@ -224,8 +235,9 @@ __device__ __forceinline__ int key_comm(unsigned long long key) {
 
 // K_{i->c} of the run of community c that starts at sorted position p: its
 // weights added one at a time in ascending slot order (the run's order).
+template <typename Ix>
 __device__ __forceinline__ float run_sum(const unsigned long long* keys,
-                                         const float* wbuf, int p, int n) {
+                                         const float* wbuf, Ix p, Ix n) {
   const int c = key_comm(keys[p]);
   float sum = 0.0f;
   for (; p < n && key_comm(keys[p]) == c; ++p)
@@ -323,7 +335,7 @@ __device__ __forceinline__ void scan_sorted(const Args& a, const Row& row,
   for (int p = lane; p < p2; p += kWarp) {
     if (key_comm(keys[p]) == row.own &&
         (p == 0 || key_comm(keys[p - 1]) != row.own)) {
-      own_sum = run_sum(keys, wbuf, p, p2);
+      own_sum = run_sum<int>(keys, wbuf, p, p2);
       has_own = true;
     }
   }
@@ -338,7 +350,7 @@ __device__ __forceinline__ void scan_sorted(const Args& a, const Row& row,
     if (c < 0 || c == row.own || (p > 0 && key_comm(keys[p - 1]) == c))
       continue;
     keep_better(bdq, bc,
-                delta_q(run_sum(keys, wbuf, p, p2), k_own, row.k_i,
+                delta_q(run_sum<int>(keys, wbuf, p, p2), k_own, row.k_i,
                         a.sigma[c], row.sig_own, m, two_m_m),
                 c);
   }
@@ -440,14 +452,15 @@ __device__ __forceinline__ void scan_row(const Args& a, const Row& row,
 // Threads of a one-row CTA (widths above 1024).
 constexpr int kCtaThreads = 512;
 
-// Rows of up to kCap slots, one per CTA: the keys and weights of the row
-// are staged in dynamic shared memory (kCap keys, then kCap weights) and
-// sorted by a bitonic network over the block, the next power of two >= the
-// row's degree wide (dead keys sort last).  The head of each community's
-// run sums it (run_sum: one thread, ascending slot order, from 0.0f); the
-// block's (max dQ, min id) is folded warp by warp.  Returns the row's best
-// in thread 0.
-template <int kCap>
+// One row per CTA: the keys and weights of the row are staged in `keys`
+// and `wbuf` (dynamic shared memory up to 16384 slots, the block's slice of
+// the global scratch above) and sorted by a bitonic network over the block,
+// the next power of two >= the row's degree wide (dead keys sort last).
+// The head of each community's run sums it (run_sum: one thread, ascending
+// slot order, from 0.0f); the block's (max dQ, min id) is folded warp by
+// warp.  Returns the row's best in thread 0.  Ix is the position type:
+// int in shared memory, long long in the global scratch.
+template <typename Ix>
 __device__ __forceinline__ void scan_cta(const Args& a, const Row& row,
                                          unsigned long long* keys,
                                          float* wbuf, float m, float two_m_m,
@@ -457,9 +470,9 @@ __device__ __forceinline__ void scan_cta(const Args& a, const Row& row,
   __shared__ float s_own;
   __shared__ int s_has_own;
   const int tid = threadIdx.x;
-  int p2 = 1;
+  Ix p2 = 1;
   while (p2 < row.deg) p2 <<= 1;
-  for (int j = tid; j < p2; j += kCtaThreads) {
+  for (Ix j = tid; j < p2; j += kCtaThreads) {
     unsigned long long key = kDeadKey;
     float w = 0.0f;
     if (j < row.deg) {
@@ -474,10 +487,10 @@ __device__ __forceinline__ void scan_cta(const Args& a, const Row& row,
   __syncthreads();
   // Pair t of a stage compares keys i and i + j, where i has bit j clear;
   // the run of 2k keys holding i ascends when bit k of i is clear.
-  for (int k = 2; k <= p2; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = tid; t < p2 / 2; t += kCtaThreads) {
-        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
+  for (Ix k = 2; k <= p2; k <<= 1) {
+    for (Ix j = k >> 1; j > 0; j >>= 1) {
+      for (Ix t = tid; t < p2 / 2; t += kCtaThreads) {
+        const Ix i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
         const unsigned long long x = keys[i], y = keys[i + j];
         if ((x > y) == ((i & k) == 0)) {
           keys[i] = y;
@@ -488,10 +501,10 @@ __device__ __forceinline__ void scan_cta(const Args& a, const Row& row,
     }
   }
   // K_{i->own}: the head of own's run sums it.
-  for (int p = tid; p < p2; p += kCtaThreads) {
+  for (Ix p = tid; p < p2; p += kCtaThreads) {
     if (key_comm(keys[p]) == row.own &&
         (p == 0 || key_comm(keys[p - 1]) != row.own)) {
-      s_own = run_sum(keys, wbuf, p, p2);
+      s_own = run_sum<Ix>(keys, wbuf, p, p2);
       s_has_own = 1;
     }
   }
@@ -499,12 +512,12 @@ __device__ __forceinline__ void scan_cta(const Args& a, const Row& row,
   const float k_own = s_has_own ? s_own : 0.0f;
   bdq = -INFINITY;
   bc = kIntMax;
-  for (int p = tid; p < p2; p += kCtaThreads) {
+  for (Ix p = tid; p < p2; p += kCtaThreads) {
     const int c = key_comm(keys[p]);
     if (c < 0 || c == row.own || (p > 0 && key_comm(keys[p - 1]) == c))
       continue;
     keep_better(bdq, bc,
-                delta_q(run_sum(keys, wbuf, p, p2), k_own, row.k_i,
+                delta_q(run_sum<Ix>(keys, wbuf, p, p2), k_own, row.k_i,
                         a.sigma[c], row.sig_own, m, two_m_m),
                 c);
   }
@@ -607,21 +620,49 @@ __global__ void __launch_bounds__(kCtaThreads) cta_rows_kernel(Args a) {
     const Row row = load_row(a, (int)r, threadIdx.x == 0);
     float bdq;
     int bc;
-    scan_cta<kCap>(a, row, keys, wbuf, m, two_m_m, bdq, bc);
+    scan_cta<int>(a, row, keys, wbuf, m, two_m_m, bdq, bc);
+    if (threadIdx.x == 0) finish_row<kFused>(a, r, row, bdq, bc);
+  }
+}
+
+// Widths above 16384: one row per CTA, its keys and weights in the block's
+// slice of the global scratch (sort_cap of each).
+template <bool kFused>
+__global__ void __launch_bounds__(kCtaThreads) cta_global_rows_kernel(Args a) {
+  const long long cap = a.sort_cap;
+  unsigned long long* keys = a.scratch + blockIdx.x * cap;
+  float* wbuf = reinterpret_cast<float*>(a.scratch + gridDim.x * cap) +
+                blockIdx.x * cap;
+  const float m = *a.m;
+  const float two_m_m = (2.0f * m) * m;
+  for (long long r = blockIdx.x; r < a.n_rows; r += gridDim.x) {
+    const Row row = load_row(a, (int)r, threadIdx.x == 0);
+    float bdq;
+    int bc;
+    scan_cta<long long>(a, row, keys, wbuf, m, two_m_m, bdq, bc);
     if (threadIdx.x == 0) finish_row<kFused>(a, r, row, bdq, bc);
   }
 }
 
 // rows_per_block: one row per thread at widths <= kLaneSlots, one per warp
 // up to 1024, one per CTA above (the wrapper's block_rows_for_width).
+// scratch_blocks > 0 (widths above 16384): the global-memory layout on that
+// many blocks, whose slices a.scratch holds.
 template <bool kFused>
-int launch(Args a, int rows_per_block, void* stream) {
+int launch(Args a, int rows_per_block, int scratch_blocks, void* stream) {
   if (a.n_rows <= 0) return (int)cudaSuccess;
   const bool lane_rows = a.width <= kLaneSlots;
   const int threads = lane_rows ? rows_per_block : rows_per_block * kWarp;
   const long long want = (a.n_rows + rows_per_block - 1) / rows_per_block;
   const int blocks = (int)(want < 1048576 ? want : 1048576);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (scratch_blocks > 0) {
+    if (rows_per_block != 1 || a.scratch == nullptr || a.sort_cap < 1)
+      return (int)cudaErrorInvalidValue;
+    cta_global_rows_kernel<kFused>
+        <<<scratch_blocks, kCtaThreads, 0, s>>>(a);
+    return (int)cudaGetLastError();
+  }
   if (lane_rows) {
     lane_rows_kernel<kFused><<<blocks, threads, 0, s>>>(a);
     return (int)cudaGetLastError();
@@ -664,8 +705,8 @@ int launch(Args a, int rows_per_block, void* stream) {
 Args make_args(const void* rows, const void* indptr, const void* indices,
                const void* weights, const void* comm, const void* sigma,
                const void* k, const void* m, int n_rows, int n_cap,
-               int width, int sort_cap, void* out_c, void* out_dq,
-               void* err) {
+               int width, int sort_cap, void* scratch, void* out_c,
+               void* out_dq, void* err) {
   Args a{};
   a.rows = (const int*)rows;
   a.indptr = (const int*)indptr;
@@ -679,6 +720,7 @@ Args make_args(const void* rows, const void* indptr, const void* indices,
   a.n_cap = n_cap;
   a.width = width;
   a.sort_cap = sort_cap;
+  a.scratch = (unsigned long long*)scratch;
   a.gate_fraction = 1;
   a.out_c = (int*)out_c;
   a.out_dq = (float*)out_dq;
@@ -694,16 +736,18 @@ extern "C" int louvain_fused_launch(
     const void* sizes, const void* front, const void* m, int n_rows,
     int n_cap, int width, int round_ix, int gate_fraction, int sentinel,
     void* out_c, void* out_dq, void* out_move, void* err,
-    int rows_per_block, int sort_cap, void* stream) {
+    int rows_per_block, int sort_cap, void* scratch, int scratch_blocks,
+    void* stream) {
   Args a = make_args(rows, indptr, indices, weights, comm, sigma, k, m,
-                     n_rows, n_cap, width, sort_cap, out_c, out_dq, err);
+                     n_rows, n_cap, width, sort_cap, scratch, out_c, out_dq,
+                     err);
   a.sizes = (const int*)sizes;
   a.front = (const unsigned char*)front;
   a.round_ix = round_ix;
   a.gate_fraction = gate_fraction;
   a.sentinel = sentinel;
   a.out_move = (int*)out_move;
-  return launch<true>(a, rows_per_block, stream);
+  return launch<true>(a, rows_per_block, scratch_blocks, stream);
 }
 
 extern "C" int louvain_scan_launch(
@@ -711,9 +755,9 @@ extern "C" int louvain_scan_launch(
     const void* weights, const void* comm, const void* sigma, const void* k,
     const void* m, int n_rows, int n_cap, int width, void* out_c,
     void* out_dq, void* err, int rows_per_block, int sort_cap,
-    void* stream) {
+    void* scratch, int scratch_blocks, void* stream) {
   return launch<false>(make_args(rows, indptr, indices, weights, comm, sigma,
-                                 k, m, n_rows, n_cap, width, sort_cap, out_c,
-                                 out_dq, err),
-                       rows_per_block, stream);
+                                 k, m, n_rows, n_cap, width, sort_cap,
+                                 scratch, out_c, out_dq, err),
+                       rows_per_block, scratch_blocks, stream);
 }

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.delta import EdgeBatch
+from repro_torch.core.distributed import ShardedGraphSpec, rank_slice
 from repro_torch.core.graph import CSRGraph, resolve_device
 from repro_torch.core.louvain import LouvainConfig
 
@@ -45,11 +46,20 @@ def edge_batch_from_numpy(src, dst, weight, b_valid,
 def config_from_dict(fields: dict) -> LouvainConfig:
     """A ``LouvainConfig`` from ``dataclasses.asdict`` of the JAX config.
     The reference's ``agg_backend="pallas"`` is the port's ``"kernel"``;
-    what ``LouvainConfig`` refuses (an ELL width above the kernels'
-    ``MAX_WIDTH``) raises here too."""
+    what ``LouvainConfig`` refuses (an ELL width below 1) raises here
+    too."""
     fields = dict(fields)
     if fields.get("agg_backend") == "pallas":
         fields["agg_backend"] = "kernel"
     if "ell_widths" in fields:
         fields["ell_widths"] = tuple(fields["ell_widths"])
     return LouvainConfig(**fields)
+
+
+def sharded_from_numpy(src_g, dst_g, w_g, spec, rank: int, device="cuda"):
+    """One rank's ``(e_per_shard,)`` device slices (src, dst, w) of the JAX
+    package's partitioned edge arrays (``partition_graph_host`` /
+    ``bucket_slots_host``) as numpy; ``spec`` is the reference's
+    ``ShardedGraphSpec`` or its fields."""
+    spec = ShardedGraphSpec(*spec)
+    return rank_slice(src_g, dst_g, w_g, spec, rank, resolve_device(device))

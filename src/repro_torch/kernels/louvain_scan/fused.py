@@ -24,8 +24,9 @@ from repro_torch.core.engine import round_gate
 from repro_torch.core.graph import ELLBlock, ell_block
 from repro_torch.kernels import _build
 from repro_torch.kernels.louvain_scan.louvain_scan import (
-    WARP_MAX_WIDTH, block_rows_for_width, check_inputs, dense_scan_tile,
-    graph_inputs, prepare_ell_inputs, raise_on_error, scalar_m, sort_capacity)
+    SMEM_MAX_WIDTH, WARP_MAX_WIDTH, block_rows_for_width, check_inputs,
+    dense_scan_tile, graph_inputs, launch_scratch, prepare_ell_inputs,
+    raise_on_error, scalar_m)
 
 _INT_MAX = 2 ** 31 - 1
 
@@ -102,7 +103,7 @@ def louvain_fused_rows_ref(rows, indptr, indices, weights, comm, sigma,
 
 _FUSED_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 
 
 def launch_louvain_fused(rows, indptr, indices, weights, comm, sigma, sizes,
@@ -123,6 +124,7 @@ def launch_louvain_fused(rows, indptr, indices, weights, comm, sigma, sizes,
     out_dq = torch.empty(r, dtype=torch.float32, device=dev)
     out_mv = torch.empty(r, dtype=torch.int32, device=dev)
     err = torch.zeros(1, dtype=torch.int32, device=dev)
+    cap, scratch, blocks = launch_scratch(width, rows, indices)
     fn = _build.entry("louvain_scan", "louvain_fused_launch",
                       _FUSED_ARGTYPES)
     code = fn(rows.data_ptr(), indptr.data_ptr(), indices.data_ptr(),
@@ -130,11 +132,14 @@ def launch_louvain_fused(rows, indptr, indices, weights, comm, sigma, sizes,
               k.data_ptr(), sizes.data_ptr(), front.data_ptr(), m.data_ptr(),
               r, n_cap, int(width), int(round_ix), int(gate_fraction),
               int(sentinel), out_c.data_ptr(), out_dq.data_ptr(),
-              out_mv.data_ptr(), err.data_ptr(), rows_per_block,
-              sort_capacity(width), _build.current_stream_handle(dev))
+              out_mv.data_ptr(), err.data_ptr(), rows_per_block, cap,
+              None if scratch is None else scratch.data_ptr(), blocks,
+              _build.current_stream_handle(dev))
     _build.check(code, "louvain_fused")
     louvain_fused.launches += 1
-    if width > WARP_MAX_WIDTH:
+    if width > SMEM_MAX_WIDTH:
+        louvain_fused.wide_launches += 1
+    elif width > WARP_MAX_WIDTH:
         louvain_fused.cta_launches += 1
     return out_c, out_dq, out_mv, err
 
@@ -167,6 +172,9 @@ def louvain_fused(rows, indptr, indices, weights, comm, sigma, sizes, k,
 
 
 louvain_fused.launches = 0
-#: Launches of the one-row-per-block layout (widths above 1024), also
-#: counted in ``launches``.
+#: Launches of the one-row-per-block layout in shared memory (widths 1025
+#: to ``SMEM_MAX_WIDTH``), also counted in ``launches``.
 louvain_fused.cta_launches = 0
+#: Launches of the one-row-per-block layout in global scratch (widths above
+#: ``SMEM_MAX_WIDTH``), also counted in ``launches``.
+louvain_fused.wide_launches = 0

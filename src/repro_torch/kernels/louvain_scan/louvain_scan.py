@@ -40,40 +40,70 @@ LANE_SLOTS = 16
 #: The widest row the warp sort takes (32 keys per lane in registers); wider
 #: rows take one CUDA block each.
 WARP_MAX_WIDTH = 1024
-#: The widest row the kernels take: a one-row block stages 12 B per sorted
-#: slot in dynamic shared memory, 196,608 B at this width, of the 227 KB a
-#: Hopper block may opt in to.
-MAX_WIDTH = 16384
+#: The widest row a one-row block sorts in dynamic shared memory: 12 B per
+#: sorted slot, 196,608 B at this width, of the 227 KB a Hopper block may
+#: opt in to.  Wider rows sort in a global-memory scratch buffer.
+SMEM_MAX_WIDTH = 16384
 #: Threads of a one-row block (``kCtaThreads`` of the source).
 CTA_THREADS = 512
+#: The global-memory scratch of one launch above ``SMEM_MAX_WIDTH`` stays
+#: within this many bytes: the grid is cut to the blocks whose slices
+#: (12 B per sorted slot) fit, and each block loops over rows.
+SCRATCH_BYTES = 256 * 2 ** 20
 
 
 class ELLWidthError(ValueError):
-    """An ELL bucket width outside 1 .. ``MAX_WIDTH``: no layout of the
-    kernels K1/K2 takes it."""
+    """An ELL bucket width below 1: no layout of the kernels K1/K2 takes
+    it."""
 
 
 def check_ell_width(width: int) -> None:
-    """Raise ``ELLWidthError`` unless 0 < ``width`` <= ``MAX_WIDTH``."""
-    if not 0 < width <= MAX_WIDTH:
-        raise ELLWidthError(f"ELL width {width} is outside the kernels' "
-                            f"range 1 .. {MAX_WIDTH}")
+    """Raise ``ELLWidthError`` unless ``width`` >= 1."""
+    if not 0 < width:
+        raise ELLWidthError(f"ELL width {width} is below 1; the kernels "
+                            f"take widths 1 and up")
 
 
 def sort_capacity(width: int) -> int:
-    """Keys per warp (per block above ``WARP_MAX_WIDTH``) in shared memory:
-    the next power of two >= ``width``, at least 32 (a row of up to 32
-    slots is grouped in registers)."""
+    """Keys per warp (per block above ``WARP_MAX_WIDTH``) in shared memory,
+    or in the block's scratch slice above ``SMEM_MAX_WIDTH``: the next
+    power of two >= ``width``, at least 32 (a row of up to 32 slots is
+    grouped in registers)."""
     cap = 32
     while cap < width:
         cap *= 2
     return cap
 
 
+def scratch_layout(width: int, n_rows: int, e_cap: int) -> Tuple[int, int]:
+    """(sort capacity, blocks) of a launch above ``SMEM_MAX_WIDTH``; (0, 0)
+    at narrower widths.  A row holds at most ``min(width, e_cap)`` slots,
+    so that sets the capacity; the blocks are as many as the rows, at most
+    as many as ``SCRATCH_BYTES`` holds slices of (at least one)."""
+    if width <= SMEM_MAX_WIDTH:
+        return 0, 0
+    cap = sort_capacity(min(width, max(e_cap, 1)))
+    fit = max(1, SCRATCH_BYTES // (_SLOT_BYTES * cap))
+    return cap, max(1, min(n_rows, fit, 1 << 20))
+
+
+def launch_scratch(width: int, rows: torch.Tensor, indices: torch.Tensor):
+    """(sort capacity, scratch tensor or None, blocks) of one K1/K2 launch:
+    the global-memory slices of the layout above ``SMEM_MAX_WIDTH``,
+    allocated per launch."""
+    cap, blocks = scratch_layout(width, rows.numel(), indices.numel())
+    if not blocks:
+        return sort_capacity(width), None, 0
+    scratch = torch.empty(blocks * cap * _SLOT_BYTES, dtype=torch.uint8,
+                          device=rows.device)
+    return cap, scratch, blocks
+
+
 def warps_for_width(width: int) -> int:
     """Warps per CUDA block: up to ``WARP_MAX_WIDTH`` at most 8, and few
     enough that their sort buffers fit 48 KB; above it the
-    ``CTA_THREADS`` of one row's block."""
+    ``CTA_THREADS`` of one row's block (its sort buffer in shared memory up
+    to ``SMEM_MAX_WIDTH``, in global scratch above)."""
     check_ell_width(width)
     if width > WARP_MAX_WIDTH:
         return CTA_THREADS // 32
@@ -102,6 +132,8 @@ def dense_scan_tile(c, w, sig, k_i, c_own, sig_own, m):
     sig = sig.to(torch.float32)
     k_i = k_i.to(torch.float32)
     sig_own = sig_own.to(torch.float32)
+    if c.shape[1] > WARP_MAX_WIDTH:
+        return _grouped_scan_tile(c, w, sig, k_i, c_own, sig_own, m)
     k_to = torch.zeros_like(w)
     k_own = torch.zeros_like(k_i)
     for e in range(c.shape[1]):
@@ -115,6 +147,59 @@ def dense_scan_tile(c, w, sig, k_i, c_own, sig_own, m):
     best_dq = torch.amax(dq, dim=1, keepdim=True)
     is_best = (dq == best_dq) & valid
     best_c = torch.amin(torch.where(is_best, c, _INT_MAX), dim=1,
+                        keepdim=True)
+    found = torch.isfinite(best_dq)
+    return (torch.where(found, best_c, -1).to(torch.int32),
+            torch.where(found, best_dq, float("-inf")))
+
+
+def _grouped_scan_tile(c, w, sig, k_i, c_own, sig_own, m):
+    """``dense_scan_tile`` of a tile wider than ``WARP_MAX_WIDTH``, in time
+    that grows with the slots and the longest community run instead of
+    D^2 (a 32768-wide row is 2^30 compares in the dense loop; narrower
+    tiles keep the dense loop, the form the reference's tile math takes).
+    Each row's slots
+    are sorted by community (stably, so a run keeps slot order), and the
+    runs are summed one float32 add per step, step j adding every run's
+    j-th slot: the same adds in the same order as the dense loop (whose
+    other adds are +0.0), so the two agree bit for bit."""
+    R, D = c.shape
+    dev = c.device
+    sc, order = torch.sort(c, dim=1, stable=True)
+    sw = torch.gather(w, 1, order).reshape(-1)
+    ssig = torch.gather(sig, 1, order)
+    first = torch.ones(R, D, dtype=torch.bool, device=dev)
+    first[:, 1:] = sc[:, 1:] != sc[:, :-1]
+    first = first.reshape(-1)
+    gid = torch.cumsum(first, 0) - 1
+    pos = torch.arange(R * D, device=dev)
+    start = torch.zeros(int(gid[-1]) + 1 if R * D else 0, dtype=torch.int64,
+                        device=dev)
+    start[gid[first]] = pos[first]
+    # Dead slots (c = -1, weight 0) are never candidates: left unsummed.
+    live = torch.nonzero(sc.reshape(-1) >= 0).flatten()
+    rank = (pos - start[gid])[live]
+    by_rank = live[torch.sort(rank, stable=True).indices]
+    per_rank = torch.bincount(rank).tolist() if live.numel() else []
+    acc = torch.zeros(start.numel(), dtype=torch.float32, device=dev)
+    lo = 0
+    for count in per_rank:
+        idx = by_rank[lo:lo + count]
+        lo += count
+        g = gid[idx]
+        acc[g] = acc[g] + sw[idx]
+    k_to = acc[gid].view(R, D)
+    own = sc == c_own
+    k_own = torch.amax(torch.where(own, k_to, float("-inf")), dim=1,
+                       keepdim=True)
+    k_own = torch.where(own.any(1, keepdim=True), k_own, 0.0)
+
+    dq = (k_to - k_own) / m - k_i * (k_i + ssig - sig_own) / (2.0 * m * m)
+    valid = (sc >= 0) & (sc != c_own)
+    dq = torch.where(valid, dq, float("-inf"))
+    best_dq = torch.amax(dq, dim=1, keepdim=True)
+    is_best = (dq == best_dq) & valid
+    best_c = torch.amin(torch.where(is_best, sc, _INT_MAX), dim=1,
                         keepdim=True)
     found = torch.isfinite(best_dq)
     return (torch.where(found, best_c, -1).to(torch.int32),
@@ -196,7 +281,7 @@ def raise_on_error(err: torch.Tensor, what: str, width: int) -> None:
 
 _SCAN_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                  + [ctypes.c_void_p])
+                  + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 
 
 def launch_louvain_scan(rows, indptr, indices, weights, comm, sigma, k, m,
@@ -214,16 +299,20 @@ def launch_louvain_scan(rows, indptr, indices, weights, comm, sigma, k, m,
     out_c = torch.empty(r, dtype=torch.int32, device=dev)
     out_dq = torch.empty(r, dtype=torch.float32, device=dev)
     err = torch.zeros(1, dtype=torch.int32, device=dev)
+    cap, scratch, blocks = launch_scratch(width, rows, indices)
     fn = _build.entry("louvain_scan", "louvain_scan_launch", _SCAN_ARGTYPES)
     code = fn(rows.data_ptr(), indptr.data_ptr(), indices.data_ptr(),
               weights.data_ptr(), comm.data_ptr(), sigma.data_ptr(),
               k.data_ptr(), m.data_ptr(), r, n_cap, int(width),
               out_c.data_ptr(), out_dq.data_ptr(), err.data_ptr(),
-              rows_per_block, sort_capacity(width),
+              rows_per_block, cap,
+              None if scratch is None else scratch.data_ptr(), blocks,
               _build.current_stream_handle(dev))
     _build.check(code, "louvain_scan")
     louvain_scan.launches += 1
-    if width > WARP_MAX_WIDTH:
+    if width > SMEM_MAX_WIDTH:
+        louvain_scan.wide_launches += 1
+    elif width > WARP_MAX_WIDTH:
         louvain_scan.cta_launches += 1
     return out_c, out_dq, err
 
@@ -251,6 +340,9 @@ def louvain_scan(rows, indptr, indices, weights, comm, sigma, k, m, *,
 
 
 louvain_scan.launches = 0
-#: Launches of the one-row-per-block layout (widths above 1024), also
-#: counted in ``launches``.
+#: Launches of the one-row-per-block layout in shared memory (widths 1025
+#: to ``SMEM_MAX_WIDTH``), also counted in ``launches``.
 louvain_scan.cta_launches = 0
+#: Launches of the one-row-per-block layout in global scratch (widths above
+#: ``SMEM_MAX_WIDTH``), also counted in ``launches``.
+louvain_scan.wide_launches = 0

@@ -67,3 +67,20 @@ def hub_graph_slots():
     s = np.concatenate([s[keep], np.zeros(1100, np.int64)])
     d = np.concatenate([d[keep], hub])
     return s, d, np.ones(len(s), np.float32), n
+
+
+def star_graph_slots(leaves: int = 17000):
+    """An sbm block of 8 communities of 24 vertices, whose vertex 0 is also
+    the hub of a star of ``leaves`` leaves: one row of degree above 16,384
+    when ``leaves`` is.  Returns (src, dst, w, n) for ``build_csr(...,
+    symmetrize=True)``."""
+    rng = np.random.default_rng(9)
+    n_sbm = 8 * 24
+    blocks = np.arange(n_sbm) // 24
+    s = rng.integers(0, n_sbm, 3000)
+    d = rng.integers(0, n_sbm, 3000)
+    keep = (blocks[s] == blocks[d]) | (rng.random(3000) < 0.02)
+    leaf = np.arange(n_sbm, n_sbm + leaves)
+    s = np.concatenate([s[keep], np.zeros(leaves, np.int64)])
+    d = np.concatenate([d[keep], leaf])
+    return s, d, np.ones(len(s), np.float32), n_sbm + leaves

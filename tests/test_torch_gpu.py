@@ -3,8 +3,10 @@ their plain PyTorch versions on the same CUDA tensors (K1/K2 in all three
 row layouts, the one-row-per-block layout for widths above 1024 included),
 the batch apply's kernel backend against its sort backend, ``louvain()``
 and ``louvain_dynamic()`` on the card against the committed sbm goldens,
-``refine="leiden"`` included, and the batched multi-stream drivers against
-the solo ones, with K3/K4 launched once per fleet operation.
+``refine="leiden"`` included, the batched multi-stream drivers against
+the solo ones, with K3/K4 launched once per fleet operation, and the
+sharded driver: its sbm goldens through NCCL at world size 1, K3 in its
+aggregation, and staged gloo ranks on the one card.
 
 Every test here is marked ``gpu`` and skips without a card (the decision is
 made inside the ``cuda`` fixture, never at import).  The machine with the
@@ -30,9 +32,10 @@ import pytest
 import torch
 
 from _k3_bounds import k3_tolerances
-from _wide_rows import hub_graph_slots, wide_csr_arrays
-from repro_torch import (FleetCapacityOverflow, LouvainConfig,
-                         apply_edge_batch, build_csr, louvain,
+from _wide_rows import hub_graph_slots, star_graph_slots, wide_csr_arrays
+from repro_torch import (FleetCapacityOverflow, LouvainConfig, ShardGroup,
+                         apply_edge_batch, build_csr, distributed_louvain,
+                         louvain,
                          louvain_batched, louvain_dynamic,
                          louvain_dynamic_batched, make_edge_batch,
                          sbm_edge_stream, sbm_graph, sbm_holdout_stream,
@@ -217,6 +220,76 @@ def test_k1_k2_cta_rows_equal_plain_on_the_card(cuda, width, gate_fraction,
     ties = sorted(int(c) for c in torch.unique(st["comm"][csr[1][
         int(csr[0][2]):int(csr[0][3])].long()]))
     assert int(got[0][r2]) == ties[0]
+
+
+@pytest.mark.parametrize("integer_w", [True, False])
+@pytest.mark.parametrize("width", [16385, 32768, 40000])
+def test_k1_k2_wide_rows_equal_plain_on_the_card(cuda, width, integer_w):
+    """Widths above 16,384 (one row per block, keys and weights in global
+    scratch) bit-equal to the plain versions, rows as in the shared-memory
+    test: the width, one below it, 16,385, random degrees in between, a
+    self-loop row, a one-community row and a tie row of that size."""
+    rng = np.random.default_rng(width + integer_w)
+    degs = [width, width - 1, 16385, min(width, 16400)]
+    degs += list(rng.integers(16385, width + 1, 3))
+    csr, st, deg, m = _wide_csr(rng, 3000, degs, integer_w, cuda)
+    n_cap = st["comm"].numel() - 1
+    wide = np.flatnonzero((deg > 1024) & (deg <= width))
+    narrow = rng.choice(np.flatnonzero(deg <= 16), 10, replace=False)
+    rows = torch.from_numpy(np.concatenate([
+        rng.permutation(np.concatenate([wide, narrow])),
+        np.full(7, n_cap)]).astype(np.int32)).to(cuda)
+    n1, n2 = ops.louvain_fused.wide_launches, ops.louvain_scan.wide_launches
+    got = _k1_k2(rows, csr, st, m, width, 77, 2, n_cap, False)
+    want = _k1_k2(rows, csr, st, m, width, 77, 2, n_cap, True)
+    torch.cuda.synchronize()
+    assert (ops.louvain_fused.wide_launches,
+            ops.louvain_scan.wide_launches) == (n1 + 1, n2 + 1)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    r2 = int(torch.nonzero(rows == 2)[0])
+    ties = sorted(int(c) for c in torch.unique(st["comm"][csr[1][
+        int(csr[0][2]):int(csr[0][3])].long()]))
+    assert int(got[0][r2]) == ties[0]
+
+
+def test_k1_k2_wide_rows_loop_over_a_small_scratch(cuda, monkeypatch):
+    """A scratch that holds one block's slice: the grid is one block, which
+    loops over every row, and the outputs stay bit-equal."""
+    from repro_torch.kernels.louvain_scan import louvain_scan as k2
+    monkeypatch.setattr(k2, "SCRATCH_BYTES", 12 * 32768)
+    rng = np.random.default_rng(5)
+    width = 20000
+    degs = [width, width - 1, 16385] + list(rng.integers(16385, width, 3))
+    csr, st, deg, m = _wide_csr(rng, 2000, degs, False, cuda)
+    n_cap = st["comm"].numel() - 1
+    assert k2.scratch_layout(width, 50, csr[1].numel()) == (32768, 1)
+    rows = torch.from_numpy(np.concatenate([
+        rng.permutation(np.flatnonzero(deg <= width)[:40]),
+        np.full(3, n_cap)]).astype(np.int32)).to(cuda)
+    got = _k1_k2(rows, csr, st, m, width, 5, 2, n_cap, False)
+    want = _k1_k2(rows, csr, st, m, width, 5, 2, n_cap, True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_star_hub_above_shared_memory_on_the_card_equals_the_cpu(cuda):
+    """``ell_widths=(16, 64, 256, 32768)`` on the star of 17,000 leaves:
+    the card's K1 and K2 routes, the hub row in global scratch, give the
+    CPU's membership."""
+    widths = (16, 64, 256, 32768)
+    s, d, w, n = star_graph_slots()
+    want = louvain(build_csr(s, d, w, n, symmetrize=True, device="cpu"),
+                   LouvainConfig(use_ell_kernel=True, ell_widths=widths))
+    g = build_csr(s, d, w, n, symmetrize=True, device=cuda)
+    for cfg, fn in ((LouvainConfig(use_ell_kernel=True, ell_widths=widths),
+                     ops.louvain_fused),
+                    (LouvainConfig(scan_backend="ell", ell_widths=widths),
+                     ops.louvain_scan)):
+        before = fn.wide_launches
+        got = louvain(g, cfg)
+        np.testing.assert_array_equal(got.membership, want.membership)
+        assert fn.wide_launches > before
 
 
 def _rmat_state(g, seed):
@@ -729,3 +802,91 @@ def test_fleet_regrow_on_the_card(cuda):
         for name in ("indptr", "indices", "weights", "src"):
             assert torch.equal(getattr(grown.graphs.stream(s), name),
                                getattr(ref.graphs.stream(s), name))
+
+
+# ---------------------------------------------------------------------------
+# The sharded driver on the card.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_group(cuda, tmp_path_factory):
+    """One NCCL rank on the card (world size 1): its collectives run
+    through NCCL."""
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    group = ShardGroup.init("nccl", 0, 1, f"file://{store}", device=cuda)
+    yield group
+    group.destroy()
+
+
+def test_nccl_refuses_more_ranks_than_cards(cuda):
+    """NCCL runs one rank per GPU: a second rank on the one card is refused
+    before the group forms (gloo is the caller's choice for that)."""
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match="one rank per GPU"):
+        ShardGroup.init("nccl", 0, n + 1, "file:///nonexistent", device=cuda)
+
+
+@pytest.mark.parametrize("refine", ["none", "leiden"])
+@pytest.mark.parametrize("comm_backend", ["gather", "delta"])
+def test_sharded_sbm_goldens_through_nccl(nccl_group, cuda, refine,
+                                          comm_backend):
+    gold = np.load(GOLDEN)
+    g, _ = sbm_graph(8, 16, 0.4, 0.01, seed=2, device=cuda)
+    before = coarsen.coarsen_groups.launches
+    mem, _, stats = distributed_louvain(g, nccl_group, refine=refine,
+                                        comm_backend=comm_backend)
+    key = f"sharded{'_leiden' if refine == 'leiden' else ''}__sbm"
+    np.testing.assert_array_equal(mem, gold[key])
+    assert coarsen.coarsen_groups.launches - before == 2 * (len(stats) - 1)
+    assert nccl_group.collectives > 0
+
+
+def test_sharded_aggregation_k3_equals_plain_on_the_card(nccl_group, cuda):
+    """R-MAT scale 14 at world size 1: the sharded driver gives the card's
+    ``louvain()`` membership with K3 launched twice per aggregation, and
+    both launches of its first aggregation (the local partial reduce, the
+    owner-side re-reduce) equal the plain version bit for bit."""
+    from repro_torch import rmat_graph
+    from repro_torch.core import distributed as dist_mod
+    g = rmat_graph(14, 16, seed=3, device=cuda)
+    res = louvain(g)
+    before = coarsen.coarsen_groups.launches
+    mem, _, stats = distributed_louvain(g, nccl_group)
+    np.testing.assert_array_equal(mem, res.membership)
+    assert coarsen.coarsen_groups.launches - before == 2 * (len(stats) - 1)
+    n, e = g.n_valid, g.e_valid
+    comm = torch.full((n + 1,), n, dtype=torch.int32, device=cuda)
+    comm[:n] = torch.from_numpy(res.levels[0].astype(np.int32)).to(cuda)
+    local = dist_mod.sorted_relabelled_slots(g.src[:e], g.indices[:e],
+                                             g.weights[:e], comm, n)
+    partial = dist_mod.reduce_sorted_slots(*local, n, e)
+    owner = dist_mod.owner_sorted_slots(*partial[:3], 0, n, n)
+    for slots in (local, owner):
+        got = coarsen.coarsen_groups(*slots, sent=n)
+        want = coarsen.coarsen_groups_ref(*slots, sent=n)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_staged_gloo_ranks_on_one_card_equal_world_size_one(nccl_group,
+                                                            cuda):
+    """Two gloo ranks on the one card, their collectives staged through
+    pinned host memory, under gather and delta: the world-size-1
+    membership, with staged bytes counted."""
+    from repro_torch import rmat_graph
+    from repro_torch.core import collectives
+    from repro_torch.core import distributed as dist_mod
+    g = rmat_graph(12, 16, seed=4, device=cuda)
+    want = distributed_louvain(g, nccl_group)[0]
+    graphs = {"g": {k: getattr(g, k).cpu().numpy()
+                    for k in ("indptr", "indices", "weights", "src")}}
+    graphs["g"].update(n_valid=g.n_valid, e_valid=g.e_valid)
+    out = collectives.launch(dist_mod.rank_runs, 2, graphs,
+                             [("g", {"comm_backend": "gather"}),
+                              ("g", {"comm_backend": "delta"})],
+                             backend="gloo", devices=["cuda"] * 2,
+                             timeout=300)
+    for o in out:
+        assert o["staged_bytes"] > 0
+        for mem, _, _ in o["results"]:
+            np.testing.assert_array_equal(mem, want)

@@ -30,7 +30,7 @@ except ImportError:         # optional dev dep: tests/_hypothesis_fallback
 
 from _oracle import disconnected_communities, modularity_np, \
     oracle_graph_slots
-from _wide_rows import hub_graph_slots
+from _wide_rows import hub_graph_slots, star_graph_slots
 from golden import capture_engine_golden as capture
 
 from repro.core import ell_move as jell_move
@@ -52,7 +52,7 @@ from repro_torch.core.louvain import (_leiden_warm_membership,
                                       _refine_phase, louvain_modularity,
                                       singleton_init)
 from repro_torch.interop import config_from_dict, graph_from_numpy
-from repro_torch.kernels.louvain_scan.louvain_scan import (MAX_WIDTH,
+from repro_torch.kernels.louvain_scan.louvain_scan import (SMEM_MAX_WIDTH,
                                                            ELLWidthError)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
@@ -538,15 +538,46 @@ def test_wide_ell_widths_equal_reference():
                 == [(p.iterations, p.n_communities) for p in want.passes])
 
 
-@pytest.mark.parametrize("widths", [(16, 64, MAX_WIDTH + 1),
-                                    (16, 64, 256, 1 << 15), (0, 64)])
+@pytest.mark.parametrize("widths", [(16, 64, 0), (16, -1, 256),
+                                    (0, 64)])
 def test_ell_widths_outside_the_kernels_raise_at_config_time(widths):
-    """A width no kernel layout takes is refused by ``LouvainConfig`` on
-    every device, with the named error, before any launch."""
-    with pytest.raises(ELLWidthError, match=str(MAX_WIDTH)):
+    """A width no kernel layout takes (below 1) is refused by
+    ``LouvainConfig`` on every device, with the named error, before any
+    launch; widths past the shared-memory layout's are accepted."""
+    with pytest.raises(ELLWidthError, match="below 1"):
         LouvainConfig(ell_widths=widths)
     with pytest.raises(ELLWidthError):
         config_from_dict({"use_ell_kernel": True, "ell_widths": list(widths)})
     assert issubclass(ELLWidthError, ValueError)
-    assert LouvainConfig(ell_widths=(16, MAX_WIDTH)).ell_widths[-1] == \
-        MAX_WIDTH
+    for wide in (SMEM_MAX_WIDTH, SMEM_MAX_WIDTH + 1, 1 << 15, 1 << 24):
+        assert LouvainConfig(ell_widths=(16, wide)).ell_widths[-1] == wide
+
+
+def test_ell_width_above_shared_memory_equals_reference():
+    """``ell_widths=(16, 64, 256, 32768)`` on an sbm block whose vertex 0 is
+    the hub of 17,000 leaves: its row (degree above 16,384) takes the
+    32768-wide bucket, the kernels' global-scratch layout on the card and
+    the plain versions here.  The reference cannot run that bucket on the
+    CPU: its Pallas tile holds a (8, 32768, 32768) equality block.  Its
+    ELL path with the default widths sends the hub row to the sort-reduce
+    scan instead, the same Eq. 2 on the same exact sums (unit weights), so
+    the memberships and pass tables must be equal, and equal to its
+    sort-reduce ``louvain()``."""
+    s, d, w, n = star_graph_slots()
+    jg = jbuild_csr(s, d, w, n, symmetrize=True)
+    tg = build_csr(s, d, w, n, symmetrize=True, device="cpu")
+    widths = (16, 64, 256, 32768)
+    rows, left = ell_bucket_rows(tg, widths)
+    assert left.numel() == 0
+    hub = rows[3][rows[3] < tg.n_cap]
+    assert hub.tolist() == [0]
+    assert int(tg.indptr[1] - tg.indptr[0]) > SMEM_MAX_WIDTH
+    want = jlouvain(jg, JConfig(use_ell_kernel=True))
+    sort_ref = jlouvain(jg)
+    np.testing.assert_array_equal(want.membership, sort_ref.membership)
+    for cfg in (LouvainConfig(use_ell_kernel=True, ell_widths=widths),
+                LouvainConfig(scan_backend="ell", ell_widths=widths)):
+        got = louvain(tg, cfg)
+        np.testing.assert_array_equal(got.membership, want.membership)
+        assert ([(p.iterations, p.n_communities) for p in got.passes]
+                == [(p.iterations, p.n_communities) for p in want.passes])

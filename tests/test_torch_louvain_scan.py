@@ -409,9 +409,17 @@ def test_block_rows_for_wide_widths_take_one_row_per_block(width):
 
 
 def test_block_rows_for_width_rejects_too_wide_rows():
-    with pytest.raises(ValueError):
-        ops.block_rows_for_width(k2.MAX_WIDTH + 1)
+    """No width is too wide: above ``SMEM_MAX_WIDTH`` one row still takes a
+    block, its sort buffer in a global scratch of at most
+    ``SCRATCH_BYTES``; only widths below 1 are refused."""
+    for width in (k2.SMEM_MAX_WIDTH + 1, 1 << 15, 1 << 20):
+        assert ops.block_rows_for_width(width) == 1
+        cap, blocks = k2.scratch_layout(width, 100000, 1 << 22)
+        assert cap == k2.sort_capacity(width) and cap >= width
+        assert 1 <= blocks and blocks * cap * 12 <= k2.SCRATCH_BYTES
+    assert k2.scratch_layout(1 << 20, 3, 40000) == (1 << 16, 3)
+    assert k2.scratch_layout(k2.SMEM_MAX_WIDTH, 10, 1 << 22) == (0, 0)
     with pytest.raises(k2.ELLWidthError):
-        ops.block_rows_for_width(1 << 15)
-    with pytest.raises(ValueError):
         ops.block_rows_for_width(0)
+    with pytest.raises(ValueError):
+        ops.block_rows_for_width(-5)

@@ -16,7 +16,8 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch import (LouvainConfig, apply_edge_batch, build_csr, louvain,
+from repro_torch import (LouvainConfig, ShardGroup, apply_edge_batch,
+                         build_csr, distributed_louvain, louvain,
                          louvain_batched, louvain_dynamic,
                          louvain_dynamic_batched, make_edge_batch, sbm_graph,
                          sbm_holdout_stream, stack_graphs)
@@ -54,7 +55,8 @@ def test_no_forbidden_import_anywhere_in_the_port():
              for f in fs if f.endswith(".py")]
     assert len(files) >= 19
     for module in ("core/delta.py", "core/dynamic.py",
-                   "kernels/batch_apply/resolve.py"):
+                   "kernels/batch_apply/resolve.py", "core/comm.py",
+                   "core/collectives.py", "core/distributed.py"):
         assert os.path.join(PORT_DIR, module) in files
     files.append(os.path.join(os.path.dirname(SRC_DIR), "chip_smoke.py"))
     for path in files:
@@ -98,6 +100,14 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     bat = louvain_dynamic_batched([g, g], [[batch], [batch]])
     assert bat.membership.shape == (2, 8)
     assert bat.graphs.device.type == "cpu"
+    # The sharded driver runs where its group's ranks are: a group needs a
+    # card unless it is asked for the CPU.
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        distributed_louvain(g, ShardGroup.single())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ShardGroup.init("gloo", 0, 1, "file:///nonexistent")
+    mem, n_comms, stats = distributed_louvain(g, ShardGroup.single("cpu"))
+    assert mem.shape == (8,) and n_comms == len(np.unique(mem)) and stats
 
 
 def test_config_keeps_the_reference_fields_and_defaults():
