@@ -29,8 +29,8 @@ each timed; any failure exits non-zero:
      kernel K2, then the default ``louvain()`` (sort-reduce scan + K3);
      every kernel of each path must have launched, and all give one
      membership; then K1/K2 per round against their bounds and the round's
-     breakdown; then Leiden refinement through K1 and through K2 (one
-     membership, Q against refine="none", connectivity audits with scipy:
+     breakdown; then Leiden refinement through K1 (Q against
+     refine="none", connectivity audits with scipy:
      no more disconnected communities than refine="none", and a refine
      phase's communities each inside one outer community); then
      ``ell_widths=(16, 64, 256, 2048, 32768)`` through K1 and K2, whose
@@ -47,7 +47,7 @@ each timed; any failure exits non-zero:
   6. serve a fleet of ``--streams`` R-MAT tenants (scale ``--stream-scale``,
      default 16 at scale 18, ~8M directed slots each, one shared envelope)
      through the batched drivers: the cold ``louvain_batched`` (refine
-     "none" and "leiden") must equal each tenant's ``louvain()`` with K3
+     "none" and "leiden") must equal each solo tenant's ``louvain()`` with K3
      launched once per fleet aggregation; ``louvain_dynamic_batched`` over
      8 steps of phase 5's mix per tenant must equal each tenant's
      ``louvain_dynamic()`` (membership, final graph, frontier sizes) with
@@ -55,16 +55,30 @@ each timed; any failure exits non-zero:
      versions on the fleet's flat, stream-keyed slot lists (and over 20
      more calls); the sbm goldens through a one-stream fleet; a fleet that
      overflows its envelope regrows and equals the amply provisioned one;
-  7. the sharded driver ``distributed_louvain`` over ``torch.distributed``:
-     (a) through NCCL at world size 1 on the card, the ``sharded__sbm`` and
+  7. the sharded drivers over ``torch.distributed``: (a) through NCCL at
+     world size 1 on the card, the ``sharded__sbm`` and
      ``sharded_leiden__sbm`` goldens under the gather and the delta
-     exchange; (b) phase 4's R-MAT graph at world size 1 (NCCL, gather),
+     exchange and the replicated and the hybrid state layout, and the
+     ``sharded_dynamic__sbm_stream`` / ``sharded_dynamic_leiden__sbm_stream``
+     goldens through ``louvain_dynamic_sharded`` (both layouts, K4 once
+     per batch); (b) phase 4's R-MAT graph at world size 1 (NCCL, gather),
      which must give phase 4's ``louvain()`` membership, with K3 launched
      twice per sharded aggregation and both launches of the first one
-     held against the plain version; (c) 4 gloo ranks on the one card
-     (collectives staged through pinned host memory; their wall time is
-     no multi-GPU number) at R-MAT scale ``--sharded-scale`` under gather
-     and delta, equal to world size 1 on the same graph.
+     held against the plain version; (c) one launch of 4 gloo ranks on
+     the one card (collectives staged through pinned host memory; their
+     wall time is no multi-GPU number) at R-MAT scale ``--sharded-scale``:
+     gather, delta and the hybrid layout under both, equal to world size
+     1; ``reshard="auto"`` within the reference's quality parity of
+     ``reshard="none"``; and phase 5's stream recipe on that graph through
+     ``louvain_dynamic_sharded``, equal to world size 1;
+  8. phase 5's stream once more through ``louvain_dynamic_sharded`` at
+     world size 1 (NCCL, gather, replicated): its final membership must be
+     phase 5's, with K4 launched once per batch in the rank's apply, and
+     that K4 launch of the first batch held against its plain version.
+
+Cut for time: phase 4's Leiden route through K2 (its ``ell_leiden__sbm``
+golden through K2 stays in phase 3), and phase 6's solo comparison to the
+first ``SOLO_TENANTS`` (8) of the 16 tenants.
 
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, time, plain time and bound; the last line
@@ -75,6 +89,7 @@ result, when no CUDA device is available or the port is not importable.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -123,6 +138,9 @@ KERNELS = {
                                "src/repro/kernels/aggregate/coarsen.py:113"),
     "resolve_groups_fleet": ("src/repro_torch/csrc/batch_apply.cu",
                              "src/repro/kernels/batch_apply/resolve.py:134"),
+    # K4 in one rank's batch apply of the sharded stream (phase 8).
+    "resolve_groups_sharded": ("src/repro_torch/csrc/batch_apply.cu",
+                               "src/repro/kernels/batch_apply/resolve.py:134"),
 }
 
 #: Phase 5: the batch mix of the DF-Louvain dynamic evaluation (Sahu,
@@ -141,9 +159,15 @@ F1_WIDTHS = (16, 64, 256, 2048, 32768)
 #: tiles of a few hundred MB each.
 PLAIN_CHUNK_SLOTS = 8192 * 2048
 
-#: Phase 7: ranks and R-MAT seed of the staged gloo run on the one card.
+#: Phase 6: the tenants also served alone (their solo runs are the
+#: comparison; the fleet holds all ``--streams``).
+SOLO_TENANTS = 8
+
+#: Phase 7: ranks and R-MAT seed of the staged gloo run on the one card,
+#: and the batch capacity of its stream (phase 5's recipe at that scale).
 SHARDED_RANKS = 4
 SHARDED_SEED = 7
+SHARDED_STREAM_B_CAP = 512
 
 #: Phase 6: a serving fleet of R-MAT tenants (Graph500 a/b/c), seeds from
 #: FLEET_SEED0, each with phase 5's stream mix: STREAM_BATCHES steps of
@@ -827,16 +851,12 @@ def phase_full(torch, ops, args, dev, report):
     log("full", "louvain() membership equals the ELL paths'")
     del res_b, res_c, res_d
 
-    # Leiden refinement through K1 and through K2.
+    # Leiden refinement through K1 (its route through K2 is held on the
+    # ell_leiden__sbm golden in phase 3, and was cut here for time).
     leiden_k1 = "louvain(use_ell_kernel=True, refine='leiden')"
     res_l, _ = drive(LouvainConfig(use_ell_kernel=True, refine="leiden"),
                      ("louvain_fused", "coarsen_groups"), leiden_k1)
-    res_l2, _ = drive(LouvainConfig(scan_backend="ell", refine="leiden"),
-                      ("louvain_scan", "coarsen_groups"),
-                      "louvain(scan_backend='ell', refine='leiden')")
-    require(np.array_equal(res_l.membership, res_l2.membership),
-            "the K1 and K2 paths give different Leiden memberships")
-    log("full", f"Leiden: K1 and K2 give one membership; "
+    log("full", f"Leiden through K1: "
         f"{res_l.n_communities} communities (refined per pass "
         f"{[p.n_refined for p in res_l.passes]}), Q float64 "
         f"{q64s[leiden_k1]:.6f} against refine='none' "
@@ -879,7 +899,7 @@ def phase_full(torch, ops, args, dev, report):
         f"{audit_s:.2f} s on the host (scipy)")
     require(len(pairs) == n_refined,
             "a refined community spans two outer communities")
-    del res_l, res_l2, outer, refined
+    del res_l, outer, refined
 
     # Wide rows: a 2048-wide bucket in the one-row-per-block layout in
     # shared memory, a 32768-wide one in global scratch.
@@ -1167,14 +1187,15 @@ def host_final_csr(g, us_h, ud_h, final):
     return indptr, keys
 
 
-def phase_stream(torch, g, dev, report):
-    from repro_torch import (build_csr, louvain, louvain_dynamic,
-                             make_edge_batch, membership_modularity)
-    from repro_torch.core.delta import sorted_batch_slots
-    from repro_torch.kernels.aggregate import coarsen
-    from repro_torch.kernels.batch_apply import resolve
-
-    t = time.perf_counter()
+def holdout_stream(torch, g, dev, seed: int, b_cap: int):
+    """Phase 5's stream recipe on ``g`` (unit weights, CSR order): 10^-3 of
+    its undirected edges held out (``default_rng(seed)``), then
+    ``STREAM_BATCHES`` batches of 10^-4 |E| entries, 80% inserts of
+    held-out edges and 20% deletions, each padded to ``b_cap``.  Returns
+    (initial graph with room for the inserts, batches, its undirected edges
+    (us, ud) on the host, the final edge set as a mask over them, a line
+    describing the sizes)."""
+    from repro_torch import build_csr, make_edge_batch
     n, e, n_cap = g.n_valid, g.e_valid, g.n_cap
     src, dst = g.src[:e], g.indices[:e]
     und = src < dst
@@ -1184,9 +1205,9 @@ def phase_stream(torch, g, dev, report):
     b_size = n_und // 10000
     n_ins = b_size * 4 // 5
     n_del = b_size - n_ins
-    require(b_size <= STREAM_B_CAP and STREAM_BATCHES * n_ins <= n_hold,
+    require(b_size <= b_cap and STREAM_BATCHES * n_ins <= n_hold,
             "stream sizes out of range")
-    rng = np.random.default_rng(13)
+    rng = np.random.default_rng(seed)
     pick = rng.choice(n_und, n_hold + STREAM_BATCHES * n_del, replace=False)
     hold, dele = pick[:n_hold], pick[n_hold:]
     keep = torch.ones(n_und, dtype=torch.bool, device=dev)
@@ -1194,7 +1215,7 @@ def phase_stream(torch, g, dev, report):
     init = build_csr(us[keep], ud[keep],
                      torch.ones(n_und - n_hold, dtype=torch.float32,
                                 device=dev),
-                     n, e_cap=e + 2 * STREAM_B_CAP, symmetrize=True,
+                     n, e_cap=e + 2 * b_cap, symmetrize=True,
                      dedup=False, device=dev)
     us_h, ud_h = us.cpu().numpy(), ud.cpu().numpy()
     del src, dst, und, us, ud, keep
@@ -1210,14 +1231,29 @@ def phase_stream(torch, g, dev, report):
         w = np.concatenate([np.ones(n_ins), np.zeros(n_del)])
         perm = rng.permutation(len(idx))
         batches.append(make_edge_batch(us_h[idx[perm]], ud_h[idx[perm]],
-                                       w[perm], n_cap, b_cap=STREAM_B_CAP,
+                                       w[perm], n_cap, b_cap=b_cap,
                                        device=dev))
+    sizes = (f"{n_und} undirected edges, {n_hold} held out; initial graph "
+             f"{init.e_valid} directed slots at e_cap {init.e_cap}; "
+             f"{STREAM_BATCHES} batches of {b_size} entries ({n_ins} "
+             f"inserts, {n_del} deletions), b_cap {b_cap}")
+    return init, batches, us_h, ud_h, final, sizes
+
+
+def phase_stream(torch, g, dev, report):
+    """Returns (initial graph, batches, cold membership, the stream's final
+    membership): phase 8 streams them again through the sharded driver."""
+    from repro_torch import louvain, louvain_dynamic, membership_modularity
+    from repro_torch.core.delta import sorted_batch_slots
+    from repro_torch.kernels.aggregate import coarsen
+    from repro_torch.kernels.batch_apply import resolve
+
+    t = time.perf_counter()
+    n_cap = g.n_cap
+    init, batches, us_h, ud_h, final, sizes = holdout_stream(
+        torch, g, dev, 13, STREAM_B_CAP)
     torch.cuda.synchronize()
-    log("stream", f"{n_und} undirected edges, {n_hold} held out; initial "
-        f"graph {init.e_valid} directed slots at e_cap {init.e_cap}; "
-        f"{STREAM_BATCHES} batches of {b_size} entries ({n_ins} inserts, "
-        f"{n_del} deletions), b_cap {STREAM_B_CAP}; set up in "
-        f"{time.perf_counter() - t:.2f} s")
+    log("stream", f"{sizes}; set up in {time.perf_counter() - t:.2f} s")
     cold = louvain(init)
     log("stream", f"cold louvain() on the initial graph: {cold.n_passes} "
         f"passes, {cold.n_communities} communities, "
@@ -1314,6 +1350,7 @@ def phase_stream(torch, g, dev, report):
         f"slot list's build and stable key sort before it: {sort_ms:.4f} ms")
     report.append(kernel_entry("resolve_groups", k4_launches, k4_err, ms,
                                plain_ms, bound_bytes, total))
+    return init, batches, cold.membership, res.membership
 
 
 def rmat_tenant(torch, scale: int, seed: int, dev):
@@ -1478,7 +1515,7 @@ def phase_fleet(torch, args, dev, report):
         mem = res.membership.cpu().numpy()
         coarsen.coarsen_groups.launches = 0
         solo_s = 0.0
-        for s, g in enumerate(graphs):
+        for s, g in enumerate(graphs[:SOLO_TENANTS]):
             solo = louvain(g, cfg)
             solo_s += solo.total_seconds
             require(np.array_equal(mem[s, :n], solo.membership)
@@ -1488,9 +1525,10 @@ def phase_fleet(torch, args, dev, report):
         log("fleet", f"cold louvain_batched(refine={refine!r}): "
             f"{res.n_passes} passes, communities "
             f"{res.n_communities.tolist()}, {fleet_s:.3f} s, K3 launched "
-            f"{k3_fleet} times, peak memory {peak:.2f} GiB; {S} solo "
-            f"louvain() {solo_s:.3f} s in all, K3 launched "
-            f"{coarsen.coarsen_groups.launches} times; every tenant equal")
+            f"{k3_fleet} times, peak memory {peak:.2f} GiB; the first "
+            f"{SOLO_TENANTS} tenants' solo louvain() {solo_s:.3f} s in all, "
+            f"K3 launched {coarsen.coarsen_groups.launches} times; each "
+            f"equal")
         cold[refine] = (mem, k3_fleet)
 
     # K3 on the fleet's pass-0 partition: one sorted, stream-keyed list.
@@ -1552,7 +1590,7 @@ def phase_fleet(torch, args, dev, report):
     require(k4_fleet == STREAM_BATCHES,
             f"fleet K4 launched {k4_fleet} times over {STREAM_BATCHES} steps")
     solo_s, k4_solo = 0.0, 0
-    for s, g in enumerate(graphs):
+    for s, g in enumerate(graphs[:SOLO_TENANTS]):
         resolve.resolve_groups.launches = 0
         solo = louvain_dynamic(g, streams[s], prev=prevs[s])
         k4_solo += resolve.resolve_groups.launches
@@ -1564,11 +1602,13 @@ def phase_fleet(torch, args, dev, report):
         require(res.frontier_sizes[:, s].tolist()
                 == [b.frontier_size for b in solo.batch_stats],
                 f"tenant {s}: frontier sizes differ from its stream's")
-    log("fleet", f"{S} solo louvain_dynamic: {solo_s:.3f} s in all, "
-        f"updates_per_second {updates / solo_s:.4f}, K4 launched {k4_solo} "
-        f"times; fleet / solo updates_per_second "
-        f"{fleet_ups / (updates / solo_s):.3f}; every tenant's membership, "
-        f"final graph and frontier sizes equal")
+    solo_updates = int(sum(b.b_valid for st in streams[:SOLO_TENANTS]
+                           for b in st))
+    log("fleet", f"the first {SOLO_TENANTS} tenants' solo louvain_dynamic: "
+        f"{solo_s:.3f} s in all, updates_per_second "
+        f"{solo_updates / solo_s:.4f}, K4 launched {k4_solo} times; fleet / "
+        f"solo updates_per_second {fleet_ups / (solo_updates / solo_s):.3f}; "
+        f"each tenant's membership, final graph and frontier sizes equal")
     step_s = res.apply_seconds[0] + res.update_seconds[0]
     del res
 
@@ -1713,39 +1753,84 @@ def sharded_k3_check(torch, g, level0, report, launches):
                                plain, n_bytes, total))
 
 
-def phase_sharded(torch, args, dev, report, g, membership, level0):
+@contextlib.contextmanager
+def nccl_world_of_one(dev):
+    """One NCCL rank on the card (world size 1), its store in a temporary
+    directory; the group is left and the directory removed on exit."""
     import shutil
     import tempfile
-    from repro_torch import (ShardGroup, distributed_louvain, rmat_graph,
-                             sbm_graph)
-    from repro_torch.core import collectives
-    from repro_torch.core import distributed as dist_mod
-    from repro_torch.kernels.aggregate import coarsen
-    gold = np.load(GOLDEN)
+    from repro_torch import ShardGroup
     tmp = tempfile.mkdtemp(prefix="chip-smoke-store-")
     group = ShardGroup.init("nccl", 0, 1,
                             "file://" + os.path.join(tmp, "store"),
                             device=dev)
     try:
-        # (a) the sharded sbm goldens through NCCL at world size 1.
+        yield group
+    finally:
+        group.destroy()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def graph_arrays(g) -> dict:
+    """A ``CSRGraph``'s buffers as numpy arrays, for spawned ranks."""
+    out = {k: getattr(g, k).cpu().numpy()
+           for k in ("indptr", "indices", "weights", "src")}
+    out.update(n_valid=g.n_valid, e_valid=g.e_valid)
+    return out
+
+
+def phase_sharded(torch, args, dev, report, g, membership, level0):
+    from repro_torch import (LouvainConfig, distributed_louvain,
+                             louvain_dynamic_sharded, membership_modularity,
+                             rmat_graph, sbm_edge_stream, sbm_graph)
+    from repro_torch.core import collectives
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.kernels.aggregate import coarsen
+    from repro_torch.kernels.batch_apply import resolve
+    gold = np.load(GOLDEN)
+    with nccl_world_of_one(dev) as group:
+        # (a) the sharded sbm goldens through NCCL at world size 1, under
+        # both state layouts, and the sharded stream goldens.
         sbm, _ = sbm_graph(8, 16, 0.4, 0.01, seed=2, device=dev)
         for refine in ("none", "leiden"):
             key = f"sharded{'_leiden' if refine == 'leiden' else ''}__sbm"
-            for cb in ("gather", "delta"):
-                coarsen.coarsen_groups.launches = 0
-                mem, _, stats = distributed_louvain(sbm, group,
-                                                    comm_backend=cb,
-                                                    refine=refine)
-                require(np.array_equal(mem, gold[key]),
-                        f"{key} not reproduced under comm_backend={cb}")
-                require(coarsen.coarsen_groups.launches
-                        == 2 * (len(stats) - 1),
-                        f"{key}: K3 not launched twice per aggregation")
+            for layout in ("replicated", "hybrid"):
+                for cb in ("gather", "delta"):
+                    coarsen.coarsen_groups.launches = 0
+                    mem, _, stats = distributed_louvain(
+                        sbm, group, comm_backend=cb, refine=refine,
+                        state_layout=layout)
+                    require(np.array_equal(mem, gold[key]),
+                            f"{key} not reproduced under comm_backend={cb}, "
+                            f"state_layout={layout}")
+                    require(coarsen.coarsen_groups.launches
+                            == 2 * (len(stats) - 1),
+                            f"{key}: K3 not launched twice per aggregation")
+                    log("sharded", f"{key} reproduced through NCCL at world "
+                        f"size 1, comm_backend={cb}, state_layout={layout}: "
+                        f"rounds {[s['comm_rounds'] for s in stats]}, "
+                        f"fallback rounds "
+                        f"{[s['comm_fallback_rounds'] for s in stats]}, "
+                        f"comm_bytes {[s['comm_bytes'] for s in stats]}, K3 "
+                        f"launches {coarsen.coarsen_groups.launches}")
+            key = (f"sharded_dynamic{'_leiden' if refine == 'leiden' else ''}"
+                   "__sbm_stream")
+            for layout in ("replicated", "hybrid"):
+                init, batches = sbm_edge_stream(device=dev)
+                resolve.resolve_groups.launches = 0
+                res = louvain_dynamic_sharded(
+                    init, group, batches,
+                    config=LouvainConfig(refine=refine, state_layout=layout))
+                require(np.array_equal(res.membership, gold[key]),
+                        f"{key} not reproduced under state_layout={layout}")
+                require(resolve.resolve_groups.launches == len(batches),
+                        f"{key}: K4 launched {resolve.resolve_groups.launches}"
+                        f" times over {len(batches)} batches")
                 log("sharded", f"{key} reproduced through NCCL at world size "
-                    f"1, comm_backend={cb}: rounds "
-                    f"{[s['comm_rounds'] for s in stats]}, fallback rounds "
-                    f"{[s['comm_fallback_rounds'] for s in stats]}, K3 "
-                    f"launches {coarsen.coarsen_groups.launches}")
+                    f"1 by louvain_dynamic_sharded, state_layout={layout}: "
+                    f"K4 launched {resolve.resolve_groups.launches} times, "
+                    f"comm_rounds {res.comm_rounds}, bytes_on_wire "
+                    f"{res.bytes_on_wire}, halo_bytes {res.halo_bytes}")
 
         # (b) phase 4's graph at world size 1, gather exchange.
         coarsen.coarsen_groups.launches = 0
@@ -1784,8 +1869,9 @@ def phase_sharded(torch, args, dev, report, g, membership, level0):
                 f"aggregations")
         log("sharded", "the sharded membership equals phase 4's louvain()")
         sharded_k3_check(torch, g, level0, report, launches)
+        del g
 
-        # (c) world size 1 on the staged run's graph.
+        # (c) world size 1 on the staged run's graph and stream.
         g18 = rmat_graph(args.sharded_scale, EDGE_FACTOR, seed=SHARDED_SEED,
                          device=dev)
         want = {}
@@ -1793,43 +1879,176 @@ def phase_sharded(torch, args, dev, report, g, membership, level0):
             want[cb] = distributed_louvain(g18, group, comm_backend=cb)[0]
         require(np.array_equal(want["gather"], want["delta"]),
                 "gather and delta differ at world size 1")
-    finally:
-        group.destroy()
-        shutil.rmtree(tmp, ignore_errors=True)
+        init18, batches18, _, _, _, sizes = holdout_stream(
+            torch, g18, dev, 13, SHARDED_STREAM_B_CAP)
+        want_stream = louvain_dynamic_sharded(init18, group,
+                                              batches18).membership
+        log("sharded", f"the staged run's stream at R-MAT scale "
+            f"{args.sharded_scale}: {sizes}")
 
-    graphs = {"rmat": {k: getattr(g18, k).cpu().numpy()
-                       for k in ("indptr", "indices", "weights", "src")}}
-    graphs["rmat"].update(n_valid=g18.n_valid, e_valid=g18.e_valid)
+    graphs = {"rmat": graph_arrays(g18), "stream": graph_arrays(init18)}
+    bl = [{"src": b.src.cpu().numpy(), "dst": b.dst.cpu().numpy(),
+           "weight": b.weight.cpu().numpy(), "b_valid": b.b_valid}
+          for b in batches18]
     runs = [("rmat", {"comm_backend": "gather"}),
-            ("rmat", {"comm_backend": "auto"})]
-    del g18
+            ("rmat", {"comm_backend": "auto"}),
+            ("rmat", {"comm_backend": "gather", "state_layout": "hybrid"}),
+            ("rmat", {"comm_backend": "delta", "state_layout": "hybrid"}),
+            ("rmat", {"comm_backend": "auto", "reshard": "auto"}),
+            ("stream", {"batches": bl})]
+    del init18, batches18
     t = time.perf_counter()
     out = collectives.launch(dist_mod.rank_runs, SHARDED_RANKS, graphs, runs,
                              backend="gloo",
                              devices=[str(dev)] * SHARDED_RANKS,
                              timeout=300)
     wall = time.perf_counter() - t
-    for (_, kwargs), res, cb in zip(runs, out[0]["results"],
-                                    ("gather", "delta")):
-        mem, n_comms, stats = res
-        require(np.array_equal(mem, want[cb]),
-                f"{SHARDED_RANKS} staged gloo ranks ({cb}) differ from world "
-                f"size 1")
-        require(all(np.array_equal(o["results"][runs.index(
-            ("rmat", kwargs))][0], mem) for o in out),
-                "the staged ranks disagree")
+    for i in range(len(runs)):
+        first = out[0]["results"][i]
+        first = first.membership if i == len(runs) - 1 else first[0]
+        for o in out[1:]:
+            other = o["results"][i]
+            other = other.membership if i == len(runs) - 1 else other[0]
+            require(np.array_equal(other, first),
+                    f"the staged ranks disagree in run {runs[i][1]}")
+    for i, what in enumerate(("gather", "auto (delta)", "hybrid, gather",
+                              "hybrid, delta")):
+        mem, n_comms, stats = out[0]["results"][i]
+        require(np.array_equal(mem, want["gather"]),
+                f"{SHARDED_RANKS} staged gloo ranks ({what}) differ from "
+                f"world size 1")
         log("sharded", f"{SHARDED_RANKS} gloo ranks on one card, R-MAT scale "
-            f"{args.sharded_scale}, comm_backend {stats[0]['comm_backend']}: "
-            f"equal to world size 1 ({n_comms} communities); rounds "
+            f"{args.sharded_scale}, {what}: equal to world size 1 "
+            f"({n_comms} communities); state_layout "
+            f"{stats[0]['state_layout']}, rounds "
             f"{[s['comm_rounds'] for s in stats]}, fallback rounds "
             f"{[s['comm_fallback_rounds'] for s in stats]}, comm_bytes "
-            f"{sum(s['comm_bytes'] for s in stats)}, e_per_shard "
+            f"{sum(s['comm_bytes'] for s in stats)}, halo_bytes "
+            f"{sum(s['halo_bytes'] for s in stats)}, boundary_frac "
+            f"{stats[0]['boundary_frac']}, e_per_shard "
             f"{[s['e_per_shard'] for s in stats]}")
+    # reshard="auto" against reshard="none" (the auto-exchange run): the
+    # reference's quality-parity rule.
+    mem_none, n_none, _ = out[0]["results"][1]
+    mem_auto, n_auto, stats = out[0]["results"][4]
+    q_none = membership_modularity(g18, mem_none)
+    q_auto = membership_modularity(g18, mem_auto)
+    fired = [s for s in stats if s["reshard"]]
+    log("sharded", f"{SHARDED_RANKS} gloo ranks, reshard='auto': "
+        f"{'fired' if fired else 'did not fire'} in {len(fired)} of "
+        f"{len(stats)} passes, load fraction before "
+        f"{[s['max_shard_load_frac_before'] for s in fired]} after "
+        f"{[s['max_shard_load_frac_after'] for s in fired]}, reshard_bytes "
+        f"{[s['reshard_bytes'] for s in fired]}; Q {q_auto:.6f} ({n_auto} "
+        f"communities) against reshard='none' {q_none:.6f} ({n_none})")
+    require(q_auto >= q_none - 0.01 * abs(q_none),
+            f"reshard='auto' Q {q_auto} more than 1% below reshard='none' "
+            f"{q_none}")
+    res = out[0]["results"][-1]
+    require(np.array_equal(res.membership, want_stream),
+            f"the {SHARDED_RANKS}-rank louvain_dynamic_sharded differs from "
+            f"world size 1")
+    log("sharded", f"{SHARDED_RANKS} gloo ranks, louvain_dynamic_sharded on "
+        f"phase 5's recipe: equal to world size 1 ({res.n_communities} "
+        f"communities), comm_backend {res.comm_backend}, comm_rounds "
+        f"{res.comm_rounds}, fallback rounds {res.comm_fallback_rounds}, "
+        f"regrows {res.n_regrows}, {res.total_seconds:.3f} s on rank 0 "
+        f"(partition {res.partition_seconds:.3f} s)")
     log("sharded", f"staged gloo run: bytes staged through pinned host "
         f"memory per rank {[o['staged_bytes'] for o in out]}, collectives "
         f"per rank {[o['collectives'] for o in out]}; {wall:.2f} s wall for "
-        f"both runs incl. {SHARDED_RANKS} process starts (host-staged "
-        f"collectives on one card: not a multi-GPU number)")
+        f"{len(runs)} runs incl. {SHARDED_RANKS} process starts "
+        f"(host-staged collectives on one card: not a multi-GPU number)")
+
+
+def phase_sharded_stream(torch, dev, report, stream):
+    """Phase 5's stream once more, through ``louvain_dynamic_sharded`` at
+    world size 1 (NCCL, gather exchange, replicated layout): the final
+    membership must be phase 5's, with K4 launched once per batch; then K4
+    of the first batch's per-rank apply against its plain version."""
+    from repro_torch import LouvainConfig, louvain_dynamic_sharded
+    from repro_torch.core.distributed_dynamic import sorted_shard_batch_slots
+    from repro_torch.kernels.aggregate import coarsen
+    from repro_torch.kernels.batch_apply import resolve
+    init, batches, prev, want = stream
+    with nccl_world_of_one(dev) as group:
+        resolve.resolve_groups.launches = 0
+        coarsen.coarsen_groups.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        res = louvain_dynamic_sharded(init, group, batches, prev=prev,
+                                      config=LouvainConfig(
+                                          comm_backend="gather"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        k4, k3 = resolve.resolve_groups.launches, coarsen.coarsen_groups.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, st in enumerate(res.batch_stats):
+        log("sharded_stream", f"batch {i}: apply_seconds "
+            f"{st.apply_seconds:.6f} update_seconds {st.update_seconds:.6f} "
+            f"touched {st.n_touched} frontier {st.frontier_size} "
+            f"communities {st.n_communities}")
+    updates = sum(st.batch_size for st in res.batch_stats)
+    stream_s = res.total_seconds - res.partition_seconds
+    log("sharded_stream", f"louvain_dynamic_sharded at world size 1 (NCCL, "
+        f"gather, replicated) on phase 5's stream: {res.total_seconds:.3f} s "
+        f"incl. the host partition ({res.partition_seconds:.3f} s), "
+        f"{stream_s:.3f} s without it; updates_per_second "
+        f"{res.updates_per_second:.4f} ({updates / stream_s:.4f} without "
+        f"the partition); {wall:.3f} s wall; e_per_shard "
+        f"{res.spec.e_per_shard}, regrows {res.n_regrows}, comm_rounds "
+        f"{res.comm_rounds}, bytes_on_wire {res.bytes_on_wire}, pass loops "
+        f"{res.pass_seconds_total:.3f} s; peak memory {peak:.2f} GiB; "
+        f"launches K4 {k4} K3 {k3}")
+    require(k4 == STREAM_BATCHES,
+            f"K4 launched {k4} times over {STREAM_BATCHES} batches")
+    if not np.array_equal(res.membership, want):
+        first = int(np.flatnonzero(res.membership != want)[0])
+        raise Failure(f"the sharded stream's membership differs from phase "
+                      f"5's louvain_dynamic first at vertex {first}")
+    log("sharded_stream", "the sharded stream ends on phase 5's "
+        "louvain_dynamic membership")
+
+    # K4 of the first batch on the rank's slots.  At world size 1 the rank
+    # owns every vertex (n_pad = n_cap) and its slots are the graph's live
+    # slots in CSR order, padded to e_per_shard (what partition_graph_host
+    # and the headroom give), as the stream's first apply saw them.
+    spec = res.spec
+    require(res.n_regrows == 0 and spec.n_pad == init.n_cap,
+            "the sharded stream's layout is not phase 5's graph")
+    e, pad = init.e_valid, spec.e_per_shard - init.e_valid
+
+    def padded(x, fill):
+        return torch.cat([x[:e], torch.full((pad,), fill, dtype=x.dtype,
+                                            device=dev)])
+
+    b0 = batches[0]
+    slots = sorted_shard_batch_slots(
+        spec, 0, padded(init.src, spec.sentinel),
+        padded(init.indices, spec.sentinel), padded(init.weights, 0.0),
+        b0.src, b0.dst, b0.weight, b0.b_valid, n_limit=init.n_cap)
+    sent = spec.sentinel
+    got = resolve.resolve_groups(*slots, sent=sent)
+    want_k4 = resolve.resolve_groups_ref(*slots, sent=sent)
+    torch.cuda.synchronize()
+    require(same_records(torch, got, want_k4),
+            "the per-rank K4 differs from its plain version on the first "
+            "batch")
+    total = slots[0].numel()
+    err = float((got[4] - want_k4[4]).abs().max())
+    log("kernels", f"per-rank K4, first batch: bit for bit on {total} sorted "
+        f"slots, {int(got[0].sum())} kept, {int(got[5].sum())} changed")
+    del got, want_k4
+    ms = time_ms(torch, lambda: resolve.resolve_groups(*slots, sent=sent), 10)
+    plain_ms = time_ms(torch, lambda: resolve.resolve_groups_ref(
+        *slots, sent=sent), 3)
+    bound_bytes = 13 * total + 18 * (total + 1)
+    log("sharded_stream", f"per-rank K4 on {total} slots: {ms:.4f} ms (plain "
+        f"{plain_ms:.4f} ms); bytes once {bound_bytes}, "
+        f"{ms / (bound_bytes / HBM_BYTES_PER_S * 1e3):.3f}x the bound")
+    report.append(kernel_entry("resolve_groups_sharded", k4, err, ms,
+                               plain_ms, bound_bytes, total))
 
 
 def main() -> int:
@@ -1867,14 +2086,16 @@ def main() -> int:
                          ("full", lambda: state.update(zip(
                              ("g", "membership", "level0"), phase_full(
                                  torch, ops, args, dev, report)))),
-                         ("stream", lambda: phase_stream(
-                             torch, state["g"], dev, report)),
+                         ("stream", lambda: state.update(stream=phase_stream(
+                             torch, state["g"], dev, report))),
                          ("fleet", lambda: phase_fleet(
                              torch, args, dev, report)),
                          ("sharded", lambda: phase_sharded(
                              torch, args, dev, report, state.pop("g"),
                              state.pop("membership"),
-                             state.pop("level0")))):
+                             state.pop("level0"))),
+                         ("sharded_stream", lambda: phase_sharded_stream(
+                             torch, dev, report, state.pop("stream")))):
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize()

@@ -1,10 +1,10 @@
 """GVE-Louvain in PyTorch: the single-device pass loop, the streaming
-entry point ``louvain_dynamic`` and the batched multi-stream drivers
-(``louvain_batched``, ``louvain_dynamic_batched``) and the sharded static
-driver over ``torch.distributed`` (``distributed_louvain`` on the ranks of
-a ``ShardGroup``), with the ELL move kernels (K1, K2), the aggregation
-kernel (K3) and the batch-apply kernel (K4) hand-written in CUDA for
-Hopper (``repro_torch/csrc``).
+entry point ``louvain_dynamic``, the batched multi-stream drivers
+(``louvain_batched``, ``louvain_dynamic_batched``) and the sharded drivers
+over ``torch.distributed`` (``distributed_louvain`` and the streaming
+``louvain_dynamic_sharded`` on the ranks of a ``ShardGroup``), with the
+ELL move kernels (K1, K2), the aggregation kernel (K3) and the batch-apply
+kernel (K4) hand-written in CUDA for Hopper (``repro_torch/csrc``).
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); on a CPU tensor every kernel wrapper runs its plain
@@ -15,6 +15,8 @@ from repro_torch.core.collectives import ShardGroup
 from repro_torch.core.delta import EdgeBatch, apply_edge_batch, make_edge_batch
 from repro_torch.core.distributed import (AggregationOverflow,
                                           distributed_louvain)
+from repro_torch.core.distributed_dynamic import (ShardedDynamicResult,
+                                                  louvain_dynamic_sharded)
 from repro_torch.core.dynamic import (BatchUpdateStats, DynamicResult,
                                       louvain_dynamic)
 from repro_torch.core.graph import CSRGraph, build_csr, from_networkx
@@ -33,9 +35,11 @@ __all__ = ["AggregationOverflow", "BatchUpdateStats", "BatchedDynamicResult",
            "BatchedLouvainResult", "CSRGraph", "DynamicResult", "EdgeBatch",
            "FleetBatch", "FleetCapacityOverflow", "FleetGraph",
            "LouvainConfig", "LouvainResult", "PassStats", "ShardGroup",
+           "ShardedDynamicResult",
            "apply_edge_batch", "build_csr", "distributed_louvain",
            "from_networkx", "louvain", "louvain_batched", "louvain_dynamic",
-           "louvain_dynamic_batched", "make_edge_batch",
+           "louvain_dynamic_batched", "louvain_dynamic_sharded",
+           "make_edge_batch",
            "membership_modularity", "rmat_graph", "sbm_edge_stream",
            "sbm_graph", "sbm_holdout_stream", "stack_batches",
            "stack_graphs"]

@@ -4,8 +4,9 @@ the JAX package."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 #: Accepted values of ``LouvainConfig.scan_backend``.
@@ -201,8 +202,29 @@ def resolve_state_layout(layout: str, n_shards: int,
     return layout
 
 
+# ---------------------------------------------------------------------------
+# Skew-aware coarse re-sharding (the ``reshard`` knob).
+#
+# After an aggregation the coarse ids form a dense prefix, so the uniform
+# owner ranges can park most coarse edges on one rank.  ``plan_reshard``
+# measures that skew on the host and, above ``RESHARD_IMBALANCE_THRESHOLD``,
+# splits the ids into contiguous ranges of about equal edge load.  Range s
+# is relabelled onto the uniform block ``[s * v_per, s * v_per + width_s)``,
+# so ``owner = id // v_per`` stays the layout law; the ids between
+# ``width_s`` and ``v_per`` are gaps, which is why the pass loop carries a
+# live-vertex mask after a re-shard.
+# ---------------------------------------------------------------------------
+
 #: Accepted values of ``reshard``.
 RESHARD_MODES = ("none", "auto")
+
+#: A coarse pass re-shards only when the worst rank's edge load exceeds this
+#: multiple of the mean under the uniform layout.
+RESHARD_IMBALANCE_THRESHOLD = 1.5
+
+#: Per-rank block-width cap as a multiple of the fair share
+#: ceil(n_live / n_shards).
+RESHARD_WIDTH_SLACK = 4
 
 
 def resolve_reshard(mode: str) -> str:
@@ -211,3 +233,79 @@ def resolve_reshard(mode: str) -> str:
         raise ValueError(f"reshard must be one of {RESHARD_MODES}; "
                          f"got {mode!r}")
     return mode
+
+
+class ReshardPlan(NamedTuple):
+    """A balanced contiguous owner split of a coarse graph: rank s owns the
+    dense ids ``[bounds[s], bounds[s + 1])``, relabelled onto ``[s *
+    v_per_shard, ...)``; ``e_per_shard`` is the power-of-two edge tier of
+    the worst rank's load (with ``LADDER_SLACK``); ``load_frac_*`` are the
+    worst rank's share of all edge slots before and after."""
+
+    bounds: np.ndarray
+    v_per_shard: int
+    e_per_shard: int
+    load_frac_before: float
+    load_frac_after: float
+
+
+def owner_load_frac(counts: np.ndarray, v_per: int, n_shards: int) -> float:
+    """The worst rank's share of all edge slots under uniform ranges
+    (``owner = id // v_per``, clamped to the last rank) of the per-vertex
+    slot ``counts``; a total of zero gives ``1 / n_shards``."""
+    counts = np.asarray(counts, np.int64)
+    total = int(counts.sum())
+    n_shards = max(int(n_shards), 1)
+    if total <= 0 or counts.shape[0] == 0:
+        return 1.0 / n_shards
+    owner = np.minimum(np.arange(counts.shape[0]) // max(int(v_per), 1),
+                       n_shards - 1)
+    loads = np.bincount(owner, weights=counts, minlength=n_shards)
+    return float(loads.max() / total)
+
+
+def plan_reshard(counts: np.ndarray, n_shards: int, v_per_uniform: int, *,
+                 threshold: float | None = None,
+                 width_slack: int | None = None) -> Optional[ReshardPlan]:
+    """A skew-aware owner split of the dense coarse ids whose per-vertex
+    edge slots are ``counts``, or ``None`` on one rank, when the imbalance
+    (max / mean under ``v_per_uniform``-wide ranges) is at most
+    ``threshold``, or when the split cannot beat the uniform worst load.
+    A greedy prefix-sum walk puts boundary s where the cumulative load first
+    reaches s / n_shards of the total, no block wider than ``width_slack``
+    fair shares.  Deterministic numpy."""
+    counts = np.asarray(counts, np.int64)
+    n_live = int(counts.shape[0])
+    total = int(counts.sum())
+    n_shards = int(n_shards)
+    if n_shards <= 1 or n_live == 0 or total <= 0:
+        return None
+    thr = RESHARD_IMBALANCE_THRESHOLD if threshold is None else threshold
+    slack = RESHARD_WIDTH_SLACK if width_slack is None else width_slack
+    frac_before = owner_load_frac(counts, v_per_uniform, n_shards)
+    if frac_before * n_shards <= thr:
+        return None
+
+    v_cap = _pow2_at_least(-(-n_live // n_shards) * max(int(slack), 1))
+    cum = np.cumsum(counts)
+    bounds = np.zeros((n_shards + 1,), np.int64)
+    bounds[n_shards] = n_live
+    for s in range(1, n_shards):
+        prev = int(bounds[s - 1])
+        b = int(np.searchsorted(cum, total * s / n_shards, side="left")) + 1
+        lo = max(prev, n_live - (n_shards - s) * v_cap)
+        hi = min(prev + v_cap, n_live)
+        bounds[s] = min(max(b, lo), hi)
+
+    widths = np.diff(bounds)
+    v_per = max(_pow2_at_least(int(widths.max())),
+                _pow2_at_least(-(-LADDER_MIN_N_CAP // n_shards)))
+    csum = np.concatenate([np.zeros((1,), np.int64), cum])
+    loads = csum[bounds[1:]] - csum[bounds[:-1]]
+    frac_after = float(loads.max() / total)
+    if frac_after >= frac_before:
+        return None
+    e_floor = -(-LADDER_MIN_E_CAP // n_shards)
+    e_per = _pow2_at_least(max(int(loads.max() * LADDER_SLACK), e_floor))
+    return ReshardPlan(bounds, int(v_per), int(e_per), frac_before,
+                       frac_after)

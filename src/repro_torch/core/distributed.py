@@ -1,31 +1,40 @@
 """Sharded static GVE-Louvain over ``torch.distributed``
-(``repro.core.distributed``, replicated state layout).
+(``repro.core.distributed``).
 
   - 1-D **vertex partition**: rank s owns the vertices ``[s * v_per, (s +
     1) * v_per)`` and every directed slot whose source it owns, in one
     ``(e_per_shard,)`` slice on its device.  Every rank builds the same host
     partition (``partition_graph_host``, deterministic numpy) and keeps its
     slice.
-  - **Replicated community state**: C, Sigma and K, ``(n_pad + 1,)`` each,
-    on every rank.  K is owned per vertex (all of a vertex's slots live on
-    its owner), so the replicated K is an ``all_gather`` of the owned
-    slices.  Per round, the ``"gather"`` backend (``ShardedScanner``)
-    gathers the owned membership slices and moved masks and sums the dense
-    Sigma deltas and community sizes across ranks; the ``"delta"`` backend
-    (``DeltaShardedScanner``) ships only the movers, bit-packed, and
-    rebuilds Sigma and sizes from the replicated K and membership.
+  - **Replicated community state** (``state_layout="replicated"``): C,
+    Sigma and K, ``(n_pad + 1,)`` each, on every rank.  K is owned per
+    vertex (all of a vertex's slots live on its owner), so the replicated K
+    is an ``all_gather`` of the owned slices.  Per round, the ``"gather"``
+    backend (``ShardedScanner``) gathers the owned membership slices and
+    moved masks and sums the dense Sigma deltas and community sizes across
+    ranks; the ``"delta"`` backend (``DeltaShardedScanner``) ships only the
+    movers, bit-packed, and rebuilds Sigma and sizes from the replicated K
+    and membership.
+  - **Hybrid state layout** (``state_layout="hybrid"``,
+    ``HybridShardedScanner``): the membership stays fresh only on a rank's
+    own block and on the other ranks' boundary vertices; each rank ships
+    its boundary movers and its movers' per-community (Sigma, size) deltas,
+    and one owned-slice ``all_gather`` re-replicates the membership at the
+    end of the phase.
   - **Distributed aggregation**: each rank reduces its relabelled slots,
     an ``all_gather`` shares the partial records, and each rank re-reduces
     the rows it owns in the coarse partition.  Both reductions resolve
     their sorted groups in the kernel K3 (``coarsen_records``).
+  - **Skew-aware re-sharding** (``reshard="auto"``): after an aggregation
+    whose coarse edges pile onto few ranks, the coarse ids are relabelled
+    onto balanced owner blocks (``plan_reshard``); the layout then has gaps,
+    and the pass carries a live-vertex mask in place of ``id < n_live``.
 
 Every rank runs the same pass loop and takes every host decision (sweep
-stop, overflow branch, ladder tier, overflow retry, pass stop) from a
-replicated value, so no two ranks branch apart.  Float sums across ranks
-are gathers of the partials added in rank order (``ShardGroup.psum``).
-
-Not ported yet (ROADMAP): the hybrid state layout and skew-aware
-re-sharding on more than one rank; both raise ``NotImplementedError``.
+stop, overflow branch, ladder tier, re-shard, overflow retry, pass stop)
+from a replicated value, so no two ranks branch apart.  Float sums across
+ranks are gathers of the partials added in rank order
+(``ShardGroup.psum``).
 """
 
 from __future__ import annotations
@@ -39,27 +48,27 @@ import torch
 from repro_torch.configs.louvain_arch import (LADDER_SLACK, _pow2_at_least,
                                               delta_move_cap,
                                               hybrid_touched_cap,
+                                              plan_reshard,
                                               resolve_coarse_capacity,
                                               resolve_comm_backend,
                                               resolve_reshard,
                                               resolve_state_layout)
 from repro_torch.core.aggregate import coarsen_records
 from repro_torch.core.collectives import ShardGroup
-from repro_torch.core.comm import (CommPlan, comm_plan, compact_movers,
-                                   label_bits, pack_bits, packed_lanes,
-                                   phase_bytes, unpack_bits)
+from repro_torch.core.comm import (CommPlan, boundary_mask, comm_plan,
+                                   compact_movers, label_bits, pack_bits,
+                                   packed_lanes, phase_bytes, reshard_bytes,
+                                   size_delta_width, topk_touched_deltas,
+                                   unpack_bits)
 from repro_torch.core.engine import (ConstrainedScanner, EngineConfig,
                                      MoveEngine, assert_outer_sane,
-                                     mask_cross_outer_slots, sanitize_outer)
+                                     mask_cross_outer_slots, sanitize_outer,
+                                     valid_ids)
 from repro_torch.core.graph import CSRGraph, scatter_slots, segment_sum
 from repro_torch.core.louvain import _leiden_warm_membership, pad_membership
 from repro_torch.core.modularity import delta_modularity
 
 _NEG_INF = float("-inf")
-
-#: What the refusals name: the ROADMAP item that ports them.
-_NEXT_ITEM = ("ROADMAP Queue 1, item 10 (the rest of core/distributed.py: "
-              "the hybrid state layout, then multi-rank reshard='auto')")
 
 
 class AggregationOverflow(RuntimeError):
@@ -272,6 +281,10 @@ class ShardedScanner:
                              self.spec.v_per_shard + 1)
         return marked[:self.spec.v_per_shard] > 0
 
+    def resync_comm(self, comm):
+        """The membership a phase returns: replicated already here."""
+        return comm
+
 
 class DeltaShardedScanner(ShardedScanner):
     """Movers-only exchange (the reference's ``DeltaShardedScanner``).
@@ -328,33 +341,58 @@ class DeltaShardedScanner(ShardedScanner):
                             for r in rows])
         return idxs, labs
 
+    def _pack_movers(self, flag, best_c):
+        """(lanes, count): the flagged owned vertices' (local index, label)
+        pairs, bit-packed; dead buffer slots decode to index ``v_per``."""
+        v_per, sent = self.spec.v_per_shard, self.sentinel
+        if self.pair_width is not None:
+            pv = (torch.arange(v_per, dtype=torch.int32, device=flag.device)
+                  | (best_c << self.idx_width))
+            _, pair_buf, n = compact_movers(flag, pv, self.move_cap, v_per)
+            return pack_bits(pair_buf, self.pair_width), n
+        idx_buf, lab_buf, n = compact_movers(flag, best_c, self.move_cap,
+                                             sent)
+        return torch.cat([pack_bits(idx_buf, self.idx_width),
+                          pack_bits(lab_buf, self.lab_width)]), n
+
+    def _scatter_movers(self, comm, g_mov):
+        """``comm`` with every rank's gathered movers written in.  Dead
+        buffer slots (index v_per) are masked out here, where the
+        reference's scatter dropped them out of bounds."""
+        v_per, sent = self.spec.v_per_shard, self.sentinel
+        idxs, labs = self._unpack(g_mov)
+        live = idxs < v_per
+        base = (torch.arange(g_mov.shape[0], dtype=torch.int64,
+                             device=comm.device)[:, None] * v_per)
+        gid = (base + idxs)[live]
+        lab = torch.clamp(labs, max=sent)[live]
+        out = comm.clone()
+        out[gid] = lab
+        return out, gid, lab
+
+    @staticmethod
+    def _rank_order_dq(col):
+        """The gathered per-rank float32 dQ bits summed in rank order in
+        float64, rounded once."""
+        parts = col.contiguous().view(torch.float32)
+        dq = parts[0].to(torch.float64)
+        for r in range(1, parts.shape[0]):
+            dq = dq + parts[r].to(torch.float64)
+        return dq.to(torch.float32).view(1)
+
     def exchange_round(self, comm, sigma, sizes, comm_l, do_move, best_c,
                        dq_local):
-        v_per, sent = self.spec.v_per_shard, self.sentinel
-        mcap, dev = self.move_cap, comm.device
-        if self.pair_width is not None:
-            pv = (torch.arange(v_per, dtype=torch.int32, device=dev)
-                  | (best_c << self.idx_width))
-            _, pair_buf, n_moved = compact_movers(do_move, pv, mcap, v_per)
-            lanes = pack_bits(pair_buf, self.pair_width)
-        else:
-            idx_buf, lab_buf, n_moved = compact_movers(do_move, best_c, mcap,
-                                                       sent)
-            lanes = torch.cat([pack_bits(idx_buf, self.idx_width),
-                               pack_bits(lab_buf, self.lab_width)])
+        sent = self.sentinel
+        lanes, n_moved = self._pack_movers(do_move, best_c)
         # ONE fused collective: mover count, the local dQ's bits, lanes.
         wire = torch.cat([n_moved.view(1),
                           dq_local.to(torch.float32).view(1)
                           .view(torch.int32), lanes])
         g = self.group.all_gather(wire, tiled=False)          # (S, W)
-        parts = g[:, 1].contiguous().view(torch.float32)
-        dq = parts[0].to(torch.float64)
-        for r in range(1, g.shape[0]):
-            dq = dq + parts[r].to(torch.float64)
-        dq = dq.to(torch.float32).view(1)
+        dq = self._rank_order_dq(g[:, 1])
         # Replicated by construction: every rank reads the same counts.
         self.group.branch_reads += 1
-        over = int(g[:, 0].max()) > mcap
+        over = int(g[:, 0].max()) > self.move_cap
         if over:
             moved_k = torch.where(do_move, self.k_local, 0.0)
             add = segment_sum(moved_k, torch.where(do_move, best_c, sent),
@@ -365,17 +403,8 @@ class DeltaShardedScanner(ShardedScanner):
             sigma_new = self.combine_sigma(sigma, add, sub)
             sizes_new = self.community_sizes(comm_new, comm_l)
         else:
-            idxs, labs = self._unpack(g[:, 2:])
-            # Dead buffer slots (index v_per) are masked out here, where
-            # the reference's scatter dropped them out of bounds.
-            live = idxs < v_per
-            base = (torch.arange(g.shape[0], dtype=torch.int64, device=dev)
-                    [:, None] * v_per)
-            gid = (base + idxs)[live]
-            lab = torch.clamp(labs, max=sent)[live]
+            comm_new, gid, lab = self._scatter_movers(comm, g[:, 2:])
             old = comm[gid]
-            comm_new = comm.clone()
-            comm_new[gid] = lab
             kv = self.k[gid]
             sigma_new = (sigma + segment_sum(kv, lab, sent + 1)
                          - segment_sum(kv, old, sent + 1))
@@ -386,16 +415,170 @@ class DeltaShardedScanner(ShardedScanner):
         return comm_new, sigma_new, sizes_new, comm_new != comm, int(over), dq
 
 
+class HybridShardedScanner(DeltaShardedScanner):
+    """Owner-partitioned working state (the reference's
+    ``HybridShardedScanner``, state layout ``"hybrid"``).
+
+    The membership is kept fresh only where a rank's scan reads it: its own
+    ``v_per_shard`` block and each other rank's boundary set (vertices with
+    a cross-rank slot, ``comm.boundary_mask``; slots are symmetric, so
+    every remote ``dst`` a rank reads is in its owner's boundary).  Remote
+    interior labels go stale mid-phase and are never read; the engine reads
+    the membership only through ``comm_local``, the scan and the moved
+    mask, so nothing inherited reads the stale labels (the sizes are seeded
+    at the phase start, when the membership is replicated).
+
+    Only ``k_local`` is read: each rank folds its own movers into
+    per-community Sigma add / sub and size deltas, compacts the touched
+    communities (``topk_touched_deltas``), and ships them with its boundary
+    movers in one fused int32 word per round.  The replicated Sigma then
+    becomes ``sigma + A - S`` with ``A`` / ``S`` the ranks' adds / subs
+    summed in rank order in float64 and rounded once: the gather
+    exchange's ``combine_sigma`` bit for bit at any world size, since a
+    rank that did not touch a community adds nothing there.  (Add and sub
+    travel as two float32 lanes per touched community; the reference ships
+    their difference, and its byte pricing, which the stats carry, counts
+    one lane.)  Sizes move by integer deltas, exact in any order.
+
+    The delta flavor (this class) keeps the policy mover cap and
+    ``hybrid_touched_cap``; a round that overflows either on any rank (one
+    host read of the gathered counts, counted in ``group.branch_reads``)
+    takes the dense resync instead.  ``HybridGatherScanner`` prices
+    worst-case caps and never overflows.  ``resync_comm`` re-replicates
+    the membership at the end of the phase with one owned-slice
+    ``all_gather``.
+    """
+
+    can_overflow = True     # the delta flavor: policy caps + dense fallback
+
+    def __init__(self, group: ShardGroup, spec: ShardedGraphSpec, src_l,
+                 dst_l, w_l, k, m):
+        super().__init__(group, spec, src_l, dst_l, w_l, k, m)
+        v_per, sent = spec.v_per_shard, spec.sentinel
+        if self.can_overflow:
+            self.touched_cap = hybrid_touched_cap(v_per)
+        else:
+            # Worst-case caps: every owned vertex a boundary mover, each
+            # touching a distinct old and new community.
+            self.move_cap = v_per
+            self.touched_cap = 2 * v_per
+            if self.pair_width is not None:
+                self.mover_lanes = packed_lanes(v_per, self.pair_width)
+            else:
+                self.mover_lanes = (packed_lanes(v_per, self.idx_width)
+                                    + packed_lanes(v_per, self.lab_width))
+        self.siz_width = size_delta_width(v_per)
+        # Computed once per phase from this phase's slots: aggregation,
+        # ladder and re-shard boundaries build a new scanner.
+        self.bnd_own = boundary_mask(src_l, dst_l, self.v0, v_per, sent)
+
+    def resync_comm(self, comm):
+        """The end of the phase: one ``all_gather`` of the fresh owned
+        slices overwrites every stale remote-interior label."""
+        return self.gather_comm(self.comm_local(comm))
+
+    def exchange_round(self, comm, sigma, sizes, comm_l, do_move, best_c,
+                       dq_local):
+        v_per, sent = self.spec.v_per_shard, self.sentinel
+        tcap, lab_w = self.touched_cap, self.lab_width
+        dev = comm.device
+        comm_own = torch.where(do_move, best_c, comm_l)
+
+        # The sender's fold from the partitioned K: the dense paths' segment
+        # sums over this rank's vertices, in the same order.
+        moved_k = torch.where(do_move, self.k_local, 0.0)
+        tgt = torch.where(do_move, best_c, sent)
+        old = torch.where(do_move, comm_l, sent)
+        add = segment_sum(moved_k, tgt, sent + 1)
+        sub = segment_sum(moved_k, old, sent + 1)
+        moves = do_move.to(torch.int32)
+        cnt_add = segment_sum(moves, tgt, sent + 1)
+        cnt_sub = segment_sum(moves, old, sent + 1)
+        touched = (cnt_add > 0) | (cnt_sub > 0)
+        c_buf, a_buf, n_t = topk_touched_deltas(add, touched, tcap, sent)
+        # Empty slots hold the sentinel, whose add, sub and counts are 0.
+        at = c_buf.to(torch.int64)
+        s_buf, z_buf = sub[at], (cnt_add - cnt_sub)[at]
+        # Only boundary movers travel, as (row index, label) pairs.
+        lanes, n_bnd = self._pack_movers(do_move & self.bnd_own, best_c)
+
+        # ONE fused collective: [boundary movers, touched, dQ] header,
+        # mover lanes, touched ids, Sigma adds, Sigma subs, size deltas
+        # offset by v_per.
+        wire = torch.cat([n_bnd.view(1), n_t.view(1),
+                          dq_local.to(torch.float32).view(1)
+                          .view(torch.int32),
+                          lanes, pack_bits(c_buf, lab_w),
+                          a_buf.view(torch.int32), s_buf.view(torch.int32),
+                          pack_bits(z_buf + v_per, self.siz_width)])
+        g = self.group.all_gather(wire, tiled=False)          # (S, W)
+        dq = self._rank_order_dq(g[:, 2])
+        over = False
+        if self.can_overflow:
+            # Replicated by construction: every rank reads the same counts.
+            self.group.branch_reads += 1
+            cnts = g[:, :2].amax(0).cpu()
+            over = int(cnts[0]) > self.move_cap or int(cnts[1]) > tcap
+        if over:
+            # Dense resync: the owned slices are fresh, so one gather
+            # rebuilds the replicated membership; the moved mask comes from
+            # do_move (the stale pre-round labels make a compare unsound).
+            return (self.gather_comm(comm_own),
+                    self.combine_sigma(sigma, add, sub),
+                    sizes + self.group.psum(cnt_add - cnt_sub),
+                    self.gather_mask(do_move), 1, dq)
+
+        l_m = lanes.shape[0]
+        l_t = packed_lanes(tcap, lab_w)
+        o_t = 3 + l_m
+        o_a = o_t + l_t
+        o_s = o_a + tcap
+        o_z = o_s + tcap
+        base = comm.clone()
+        base[self.v0:self.v0 + v_per] = comm_own
+        comm_new, _, _ = self._scatter_movers(base, g[:, 3:o_t])
+        acc_a = torch.zeros(sent + 1, dtype=torch.float64, device=dev)
+        acc_s = torch.zeros(sent + 1, dtype=torch.float64, device=dev)
+        sizes_new = sizes
+        for r in range(g.shape[0]):
+            # Rank by rank, in rank order: the touched ids of one rank are
+            # unique, so each add is deterministic (its empty slots add
+            # zeros at the sentinel).
+            cs = torch.clamp(unpack_bits(g[r, o_t:o_a], lab_w, tcap),
+                             max=sent).to(torch.int64)
+            acc_a.index_add_(0, cs, g[r, o_a:o_s].contiguous()
+                             .view(torch.float32).to(torch.float64))
+            acc_s.index_add_(0, cs, g[r, o_s:o_z].contiguous()
+                             .view(torch.float32).to(torch.float64))
+            dz = unpack_bits(g[r, o_z:], self.siz_width, tcap) - v_per
+            sizes_new = sizes_new.index_add(0, cs, dz)
+        sigma_new = (sigma + acc_a.to(torch.float32)
+                     - acc_s.to(torch.float32))
+        # Fresh wherever the moved mask is read: the own block and the
+        # remote boundary; stale interior labels compare equal.
+        return comm_new, sigma_new, sizes_new, comm_new != comm, 0, dq
+
+
+class HybridGatherScanner(HybridShardedScanner):
+    """The hybrid layout over the gather backend: worst-case caps (every
+    owned vertex a boundary mover, ``2 * v_per`` touched communities), so
+    the exchange never overflows and reads no branch."""
+
+    can_overflow = False
+
+
 #: comm_backend -> scanner class of the replicated layout.
 COMM_SCANNERS = {"gather": ShardedScanner, "delta": DeltaShardedScanner}
+
+#: comm_backend -> scanner class of the hybrid layout.
+HYBRID_SCANNERS = {"gather": HybridGatherScanner,
+                   "delta": HybridShardedScanner}
 
 
 def _scanner_cls(backend: str, state_layout: str):
     """The scanner of a concrete (comm backend, state layout) pair."""
-    if state_layout == "hybrid":
-        raise NotImplementedError(
-            f"state_layout='hybrid' is not ported yet: {_NEXT_ITEM}")
-    return COMM_SCANNERS[backend]
+    table = HYBRID_SCANNERS if state_layout == "hybrid" else COMM_SCANNERS
+    return table[backend]
 
 
 def sharded_comm_plan(spec: ShardedGraphSpec, backend: str,
@@ -431,7 +614,8 @@ def distributed_move(group: ShardGroup, spec: ShardedGraphSpec, src_l, dst_l,
                      config: EngineConfig, comm_backend: str = "gather",
                      state_layout: str = "replicated"):
     """The local-moving phase of one rank (``make_distributed_move``):
-    returns (comm, sigma, iters, dq_sum, rounds, fallbacks), all replicated.
+    returns (comm, sigma, iters, dq_sum, rounds, fallbacks), all replicated
+    (a hybrid phase re-replicates its membership before it returns).
     ``frontier_g`` is the replicated (n_pad + 1,) seed frontier."""
     scanner = _scanner_cls(comm_backend, state_layout)(
         group, spec, src_l, dst_l, w_l, k, m)
@@ -439,18 +623,20 @@ def distributed_move(group: ShardGroup, spec: ShardedGraphSpec, src_l, dst_l,
     frontier0 = (frontier_g[v0:v0 + spec.v_per_shard]
                  & scanner.frontier_valid)
     st = MoveEngine(scanner, config).run(comm0, sigma0, frontier0, tolerance)
-    return (st.comm, st.sigma, st.iters, st.dq_sum,
+    return (scanner.resync_comm(st.comm), st.sigma, st.iters, st.dq_sum,
             st.iters * config.gate_fraction, st.comm_fb)
 
 
 def distributed_refine(group: ShardGroup, spec: ShardedGraphSpec, src_l,
-                       dst_l, w_l, outer, k, n_live: int, m, tolerance, *,
+                       dst_l, w_l, outer, k, n_live, m, tolerance, *,
                        config: EngineConfig, comm_backend: str = "gather",
                        state_layout: str = "replicated"):
     """The Leiden refinement phase of one rank (``make_distributed_refine``):
     from singletons, the constrained sweep over the cross-outer-masked slots
     inside ``ConstrainedScanner``; ``k``/``m`` stay the full graph's.
-    Returns (comm, iters, dq_sum, rounds, fallbacks)."""
+    ``n_live`` is the live count of a dense prefix or the (n_pad + 1,) live
+    mask of a re-sharded layout.  Returns (comm, iters, dq_sum, rounds,
+    fallbacks)."""
     sent = spec.sentinel
     outer_s = sanitize_outer(outer, n_live, sent)
     # The reference's ConstrainedScanner checks the (sanitized) outer ids
@@ -462,13 +648,13 @@ def distributed_refine(group: ShardGroup, spec: ShardedGraphSpec, src_l,
                                                  w_m, k, m),
         outer_s, gate_fraction=config.gate_fraction)
     ids = torch.arange(sent + 1, dtype=torch.int32, device=k.device)
-    live_v = ids < n_live
+    live_v = valid_ids(ids, n_live, sent)
     comm0 = torch.where(live_v, ids, sent)
     frontier0 = scanner.frontier_valid & live_v[
         torch.clamp(scanner.local_ids, max=sent)]
     st = MoveEngine(scanner, config).run(comm0, k, frontier0, tolerance)
-    return (st.comm, st.iters, st.dq_sum, st.iters * config.gate_fraction,
-            st.comm_fb)
+    return (scanner.resync_comm(st.comm), st.iters, st.dq_sum,
+            st.iters * config.gate_fraction, st.comm_fb)
 
 
 def sorted_relabelled_slots(src_l, dst_l, w_l, comm, sent: int):
@@ -552,13 +738,14 @@ def _total_weight(group: ShardGroup, w_l) -> torch.Tensor:
     return group.psum(part)[0].to(torch.float32) * 0.5
 
 
-def _warm_comm_sigma(mem, k, n_valid: int):
-    """(comm0, sigma0) resuming a move phase from the replicated ``mem``
-    (scalar ``n_valid`` form): valid vertices without an assignment take
-    their own singleton; Sigma comes from the current K."""
+def _warm_comm_sigma(mem, k, n_valid):
+    """(comm0, sigma0) resuming a move phase from the replicated ``mem``:
+    valid vertices without an assignment take their own singleton; Sigma
+    comes from the current K.  ``n_valid`` is the live count of a dense
+    prefix or the (n_pad + 1,) bool live mask of a re-sharded layout."""
     n_pad = mem.shape[0] - 1
     idx = torch.arange(n_pad + 1, dtype=torch.int32, device=mem.device)
-    valid = idx < n_valid
+    valid = valid_ids(idx, n_valid, n_pad)
     assigned = torch.where(mem < n_pad, mem.to(torch.int32), idx)
     comm0 = torch.where(valid, assigned, n_pad).to(torch.int32)
     sigma0 = segment_sum(k[:n_pad], comm0[:n_pad], n_pad + 1)
@@ -608,14 +795,20 @@ def sentinel_forced_membership(global_comm, n_valid: int, n_pad: int):
                                      device=dev)])
 
 
-def _rebucket_live(group: ShardGroup, src_l, dst_l, w_l, old_sent: int,
-                   spec_new: ShardedGraphSpec):
-    """Gather every rank's live slots to the host and re-bucket them into
-    ``spec_new``'s layout, doubling ``e_per_shard`` until the ownership
-    fits (the reference's ``_rebucket_live_host``); returns this rank's
-    slices and the final spec."""
-    parts = [group.all_gather(x).cpu().numpy() for x in (src_l, dst_l, w_l)]
-    src, dst, w = parts
+def _gather_host(group: ShardGroup, src_l, dst_l, w_l):
+    """Every rank's slots gathered to the host: the global numpy arrays of
+    the reference's layout (shard s's slice at ``[s * e_per, (s + 1) *
+    e_per)``)."""
+    return [group.all_gather(x).cpu().numpy() for x in (src_l, dst_l, w_l)]
+
+
+def _rebucket_live_host(src_g, dst_g, w_g, old_sent: int,
+                        spec_new: ShardedGraphSpec):
+    """Re-bucket the live slots of global numpy arrays into ``spec_new``'s
+    layout, doubling ``e_per_shard`` until the ownership fits (the
+    reference's ``_rebucket_live_host``); returns the global arrays and the
+    final spec.  A vertex id beyond the layout raises ``ValueError``."""
+    src, dst, w = (np.asarray(x) for x in (src_g, dst_g, w_g))
     live = src < old_sent
     src, dst, w = src[live], dst[live], w[live]
     if len(src) and int(src.max()) >= spec_new.n_pad:
@@ -624,13 +817,69 @@ def _rebucket_live(group: ShardGroup, src_l, dst_l, w_l, old_sent: int,
             f"layout (n_pad={spec_new.n_pad})")
     while True:
         try:
-            glob = bucket_slots_host(src, dst, w, spec_new)
-            break
+            return (*bucket_slots_host(src, dst, w, spec_new), spec_new)
         except ValueError:
             spec_new = spec_new._replace(
                 e_per_shard=2 * spec_new.e_per_shard)
-    return (*rank_slice(*glob, spec_new, group.shard_index(),
-                        src_l.device), spec_new)
+
+
+def _rebucket_live(group: ShardGroup, src_l, dst_l, w_l, old_sent: int,
+                   spec_new: ShardedGraphSpec, host=None):
+    """``_rebucket_live_host`` of every rank's slots (``host``: their
+    ``_gather_host`` arrays, when the caller has them already); returns this
+    rank's slices and the final spec."""
+    if host is None:
+        host = _gather_host(group, src_l, dst_l, w_l)
+    *glob, spec = _rebucket_live_host(*host, old_sent, spec_new)
+    return (*rank_slice(*glob, spec, group.shard_index(), src_l.device),
+            spec)
+
+
+def _reshard_relabel(bounds: np.ndarray, v_per: int, n_pad_new: int,
+                     old_cap: int) -> np.ndarray:
+    """Monotone relabel LUT of a skew-aware owner split: the dense coarse id
+    range ``[bounds[s], bounds[s + 1])`` lands on ``[s * v_per, s * v_per +
+    width_s)``; everything else (the old sentinel included) maps to
+    ``n_pad_new``.  Returns an (old_cap + 1,) int32 array, strictly
+    increasing on the live ids, so every ordered reduction keeps its
+    order."""
+    n_live = int(bounds[-1])
+    lut = np.full(old_cap + 1, n_pad_new, np.int64)
+    ids = np.arange(n_live)
+    owner = np.searchsorted(bounds, ids, side="right") - 1
+    lut[:n_live] = owner * v_per + (ids - bounds[owner])
+    return lut.astype(np.int32)
+
+
+def _reshard_coarse_host(src_g, dst_g, w_g, old_sent: int, plan):
+    """Apply a ``ReshardPlan`` to the global numpy arrays of a coarse
+    graph: both endpoints of every live slot go through the LUT and the
+    slots re-bucket into the balanced layout.  Returns ``(src', dst', w',
+    spec', lut, live_mask)``; ``live_mask`` is the (n_pad' + 1,) bool mask
+    of live ids in the gappy layout."""
+    n_shards = len(plan.bounds) - 1
+    spec_new = ShardedGraphSpec(n_shards, plan.v_per_shard, plan.e_per_shard,
+                                n_shards * plan.v_per_shard)
+    lut = _reshard_relabel(plan.bounds, plan.v_per_shard, spec_new.n_pad,
+                           old_sent)
+    src, dst, w = (np.asarray(x) for x in (src_g, dst_g, w_g))
+    live = src < old_sent
+    out = bucket_slots_host(lut[src[live]], lut[dst[live]], w[live],
+                            spec_new)
+    live_mask = np.zeros(spec_new.n_pad + 1, bool)
+    live_mask[lut[:int(plan.bounds[-1])]] = True
+    return (*out, spec_new, lut, live_mask)
+
+
+def boundary_frac(group: ShardGroup, spec: ShardedGraphSpec, src_l, dst_l,
+                  n_live: int) -> float:
+    """``measure_boundary_frac`` of the slots spread over the ranks: each
+    rank counts its owned vertices with a cross-rank slot, and the integer
+    counts are summed."""
+    v0 = group.shard_index() * spec.v_per_shard
+    n_bnd = boundary_mask(src_l, dst_l, v0, spec.v_per_shard,
+                          spec.sentinel).sum(dtype=torch.int64).view(1)
+    return int(group.psum(n_bnd)) / max(int(n_live), 1)
 
 
 def _sync(device: torch.device) -> None:
@@ -653,30 +902,38 @@ def sharded_louvain_passes(
 
     ``init_membership`` / ``init_frontier`` ((n_pad + 1,) replicated)
     warm-start pass 0; later passes restart from singletons on the coarse
-    graph (with ``refine="leiden"``, from the outer partition on it).  With
-    ``use_ladder`` coarse graphs re-bucket down to the power-of-two tier
-    that fits them.  An aggregation that overflows ``e_per_shard`` is
-    retried with ``regrow``: first the owner map shrinks to the tier that
-    fits the live vertices, then ``e_per_shard`` grows; without ``regrow``
-    it raises ``AggregationOverflow``.  ``comm_backend`` /
-    ``state_layout`` are the concrete exchange and layout.
-    ``pipeline_fetch`` runs the next aggregation before the pass's stop
-    decision is read (the reference's dispatch order; the same results).
+    graph (with ``refine="leiden"``, from the outer partition on it).  The
+    rank's slots are never changed in place (aggregation makes new ones),
+    so a streaming caller keeps them resident.  With ``use_ladder`` coarse
+    graphs re-bucket down to the power-of-two tier that fits them.  An
+    aggregation that overflows ``e_per_shard`` is retried with ``regrow``:
+    first the owner map shrinks to the tier that fits the live vertices
+    (not on a re-sharded layout), then ``e_per_shard`` grows; without
+    ``regrow`` it raises ``AggregationOverflow``.
+
+    ``reshard="auto"`` checks, after each aggregation on more than one
+    rank, the coarse edge load per rank under the uniform owner map
+    (``plan_reshard``); above the threshold the coarse ids are relabelled
+    onto balanced blocks (``_reshard_coarse_host``) in place of the ladder
+    tier, the fold and the Leiden warm start go through the same LUT, and
+    the next pass carries the layout's live mask.  The ladder and the
+    re-shard share one gather of the coarse graph to the host.
+
+    ``comm_backend`` / ``state_layout`` are the concrete exchange and
+    layout.  ``pipeline_fetch`` runs the next aggregation before the pass's
+    stop decision is read (the reference's dispatch order; the same
+    results).
 
     Returns (membership (n_pad,), n_communities, stats): the rows carry the
     reference's columns (``comm_backend``, ``comm_rounds``,
     ``comm_fallback_rounds``, ``comm_bytes``, ``state_layout``,
-    ``halo_bytes``, ``boundary_frac``, ``seconds``, ...) and
+    ``halo_bytes``, ``boundary_frac``, ``reshard``, ``reshard_bytes``,
+    ``max_shard_load_frac_before`` / ``_after``, ``seconds``, ...) and
     ``phase_seconds``, the pass's local-move, refine and aggregate times.
     """
     if refine not in ("none", "leiden"):
         raise ValueError(f"refine must be 'none' or 'leiden', got {refine!r}")
     reshard_on = resolve_reshard(reshard) == "auto"
-    if reshard_on and spec.n_shards > 1:
-        raise NotImplementedError(
-            f"reshard='auto' on more than one rank is not ported yet: "
-            f"{_NEXT_ITEM}")
-    _scanner_cls(comm_backend, state_layout)   # refuses hybrid up front
     refine_on = refine == "leiden"
     config = EngineConfig(max_iterations=max_iterations,
                           use_pruning=use_pruning,
@@ -692,21 +949,25 @@ def sharded_louvain_passes(
     stats = []
     n_report = n_live
     leiden_warm = None
+    live = None          # None: a dense prefix [0, n_live); else a mask
     for p in range(max_passes):
         t_pass0 = time.perf_counter()
+        # The live-vertex operand of the warm start, the refine sweep and
+        # the Leiden fold: the count, or the mask of a re-sharded layout.
+        nv = n_live if live is None else live
         k = _vertex_k(group, spec, src_l, w_l)
         m = _total_weight(group, w_l)
         ones_frontier = torch.ones(sent + 1, dtype=torch.bool, device=dev)
         if p == 0 and init_membership is not None:
-            comm0, sigma0 = _warm_comm_sigma(init_membership, k, n_live)
+            comm0, sigma0 = _warm_comm_sigma(init_membership, k, nv)
             frontier0 = (ones_frontier if init_frontier is None
                          else init_frontier)
         elif leiden_warm is not None:
-            comm0, sigma0 = _warm_comm_sigma(leiden_warm, k, n_live)
+            comm0, sigma0 = _warm_comm_sigma(leiden_warm, k, nv)
             frontier0 = ones_frontier
         else:
             idx = torch.arange(sent + 1, dtype=torch.int32, device=dev)
-            comm0 = torch.where(idx < n_live, idx, sent)
+            comm0 = torch.where(valid_ids(idx, nv, sent), idx, sent)
             sigma0 = k
             frontier0 = ones_frontier
         comm, _, iters, dq_sum, rounds, fallbacks = distributed_move(
@@ -719,7 +980,7 @@ def sharded_louvain_passes(
         rounds_extra = fb_extra = 0
         if refine_on:
             refined, refine_iters, _, r_rounds, r_fb = distributed_refine(
-                group, spec, src_l, dst_l, w_l, comm, k, n_live, m, tol,
+                group, spec, src_l, dst_l, w_l, comm, k, nv, m, tol,
                 **phase)
             outer_ren, n_outer = replicated_renumber(comm)
             comm_ren, n_comms = replicated_renumber(refined)
@@ -752,7 +1013,9 @@ def sharded_louvain_passes(
                       "comm_bytes": phase_bytes(plan, rounds_i, fb_i),
                       "state_layout": state_layout,
                       "halo_bytes": plan.halo_round_bytes * rounds_i,
-                      "boundary_frac": None,
+                      "boundary_frac": (
+                          boundary_frac(group, spec, src_l, dst_l, n_live)
+                          if state_layout == "hybrid" else None),
                       "seconds": time.perf_counter() - t_pass0,
                       "refine_iterations": refine_iters,
                       "n_refined": n_comms if refine_on else None,
@@ -771,7 +1034,7 @@ def sharded_louvain_passes(
             # Outer-on-coarse warm start, before any owner-map change:
             # coarse ids [0, n_comms) whatever the next layout.
             warm_flat = _leiden_warm_membership(
-                comm_ren, outer_ren, n_live, n_comms)[:n_comms].cpu().numpy()
+                comm_ren, outer_ren, nv, n_comms)[:n_comms].cpu().numpy()
         while True:
             if pending_agg is not None:
                 a_src, a_dst, a_w, e_valid, owned = pending_agg
@@ -786,10 +1049,12 @@ def sharded_louvain_passes(
                 raise AggregationOverflow(owned, spec.e_per_shard)
             # Community skew: coarse ids form a dense prefix that an owner
             # map sized for the original vertex range parks on the first
-            # ranks.  Shrink the owner map first, then grow e_per_shard.
+            # ranks.  Shrink the owner map first (a re-sharded layout's
+            # live ids are not a prefix: only the edges grow there), then
+            # grow e_per_shard.
             old_sent = spec.sentinel
             v_tight = _pow2_at_least(-(-n_live // spec.n_shards))
-            if v_tight < spec.v_per_shard:
+            if live is None and v_tight < spec.v_per_shard:
                 tier = ShardedGraphSpec(spec.n_shards, v_tight,
                                         spec.e_per_shard,
                                         spec.n_shards * v_tight)
@@ -808,7 +1073,49 @@ def sharded_louvain_passes(
                     torch.where(ids < n_live, torch.clamp(body, max=sent),
                                 sent).to(torch.int32),
                     torch.full((1,), sent, dtype=torch.int32, device=dev)])
-        if use_ladder:
+        host = None         # the coarse graph on the host, gathered once
+        resharded = False
+        if reshard_on and spec.n_shards > 1:
+            host = _gather_host(group, src_l, dst_l, w_l)
+            counts = np.bincount(host[0][host[0] < spec.sentinel],
+                                 minlength=max(n_comms, 1))
+            if use_ladder:
+                n_new, _ = resolve_coarse_capacity(
+                    n_comms, e_valid, spec.n_pad,
+                    spec.e_per_shard * spec.n_shards)
+                v_uniform = -(-n_new // spec.n_shards)
+            else:
+                v_uniform = spec.v_per_shard
+            rplan = plan_reshard(counts, spec.n_shards, v_uniform)
+            if rplan is not None:
+                old_sent = spec.sentinel
+                cost = reshard_bytes(spec.n_shards * spec.e_per_shard,
+                                     spec.n_shards * rplan.e_per_shard)
+                *glob, spec, lut, live_mask = _reshard_coarse_host(
+                    *host, old_sent, rplan)
+                src_l, dst_l, w_l = rank_slice(*glob, spec,
+                                               group.shard_index(), dev)
+                sent = spec.sentinel
+                # The fold (values) and the Leiden warm start (index and
+                # values) go through the same monotone LUT.
+                lut_t = torch.from_numpy(lut).to(dev)
+                global_comm = lut_t[torch.clamp(global_comm, max=old_sent)]
+                if refine_on:
+                    warm = np.full(spec.n_pad + 1, sent, np.int32)
+                    warm[lut[:n_comms]] = lut[warm_flat]
+                    leiden_warm = torch.from_numpy(warm).to(dev)
+                live = torch.from_numpy(live_mask).to(dev)
+                resharded = True
+                stats[-1].update(
+                    reshard=True, reshard_bytes=cost,
+                    max_shard_load_frac_before=rplan.load_frac_before,
+                    max_shard_load_frac_after=rplan.load_frac_after,
+                    comm_bytes=phase_bytes(plan, rounds_i, fb_i,
+                                           reshard_cost=cost))
+        if not resharded:
+            # Aggregation emits dense coarse ids: a dense prefix again.
+            live = None
+        if use_ladder and not resharded:
             n_new, e_new = resolve_coarse_capacity(
                 n_comms, e_valid, spec.n_pad,
                 spec.e_per_shard * spec.n_shards)
@@ -822,9 +1129,9 @@ def sharded_louvain_passes(
                                         spec.n_shards * v_new)
                 if tier != spec:
                     src_l, dst_l, w_l, spec = _rebucket_live(
-                        group, src_l, dst_l, w_l, old_sent, tier)
+                        group, src_l, dst_l, w_l, old_sent, tier, host)
                     sent = spec.sentinel
-        if refine_on:
+        if refine_on and not resharded:
             leiden_warm = torch.from_numpy(
                 pad_membership(warm_flat, spec.n_pad)).to(dev)
         n_live = n_comms
@@ -851,10 +1158,14 @@ def distributed_louvain(
     of ``(mesh, axes)``.  ``graph`` may lie on any device: its slots are
     partitioned on the host and this rank's slice moves to
     ``group.device``.  ``comm_backend`` ("gather" | "delta" | "auto": delta
-    on more than one rank) never changes a membership.  ``state_layout``
-    "hybrid", or "auto" resolving to it on more than one rank, raises
-    ``NotImplementedError``; so does ``reshard="auto"`` on more than one
-    rank (on one it is a no-op, as in the reference).
+    on more than one rank) and ``state_layout`` ("replicated" | "hybrid" |
+    "auto": hybrid on more than one rank when the measured boundary
+    fraction is at most ``HYBRID_BOUNDARY_FRAC_MAX``) never change a
+    membership.  ``reshard="auto"`` re-balances the coarse owner ranges by
+    measured load after each aggregation (a no-op on one rank and on
+    balanced graphs); it renames the coarse vertices, so the round gate
+    and the labels can differ from ``reshard="none"``'s, as in the
+    reference (whose contract for it is quality parity).
 
     Returns (membership (n,) numpy, n_communities, pass_stats).
     """
@@ -869,7 +1180,6 @@ def distributed_louvain(
         boundary_frac=(measure_boundary_frac(src_g, dst_g, spec, n)
                        if state_layout == "auto" and n_shards > 1
                        else None))
-    _scanner_cls(cb, sl)
     dev = group.device
     src_l, dst_l, w_l = rank_slice(src_g, dst_g, w_g, spec,
                                    group.shard_index(), dev)
@@ -909,12 +1219,24 @@ def rank_runs(group: ShardGroup, graphs: dict, runs: list) -> dict:
     ``n_valid``, ``e_valid``).  A run whose kwargs hold ``"expect"`` (an
     exception class name) must raise it; its result is the message.  A run
     whose kwargs hold ``"regrow"`` calls the pass loop with it on the
-    partitioned graph (``regrow=False``: no overflow retry).  Returns
-    ``{"results": [(membership, n_communities, stats) or message, ...],
-    "staged_bytes", "collectives", "branch_reads"}``."""
-    from repro_torch.interop import graph_from_numpy
+    partitioned graph (``regrow=False``: no overflow retry).  A run whose
+    kwargs hold ``"batches"`` (``EdgeBatch`` buffer dicts: ``src``,
+    ``dst``, ``weight``, ``b_valid``) streams them through
+    ``louvain_dynamic_sharded``, with ``"config"`` a dict of
+    ``LouvainConfig`` fields; its result is the ``ShardedDynamicResult``.
+    Returns ``{"results": [...], "staged_bytes", "collectives",
+    "branch_reads"}``."""
+    from repro_torch.core.distributed_dynamic import louvain_dynamic_sharded
+    from repro_torch.interop import (config_from_dict, edge_batch_from_numpy,
+                                     graph_from_numpy)
 
     def run(g, kwargs):
+        if "batches" in kwargs:
+            batches = [edge_batch_from_numpy(**b, device=group.device)
+                       for b in kwargs.pop("batches")]
+            config = config_from_dict(kwargs.pop("config", {}))
+            return louvain_dynamic_sharded(g, group, batches, config=config,
+                                           **kwargs)
         if "regrow" not in kwargs:
             return distributed_louvain(g, group, **kwargs)
         *glob, spec = partition_graph_host(g, group.world_size)

@@ -239,47 +239,69 @@ class MoveEngine:
 # Leiden refinement: the constrained sweep.
 # ---------------------------------------------------------------------------
 
-def sanitize_outer(outer: torch.Tensor, n_valid: int,
-                   sentinel: int) -> torch.Tensor:
+def _is_live_mask(n_valid) -> bool:
+    return isinstance(n_valid, torch.Tensor) and n_valid.dtype == torch.bool
+
+
+def valid_ids(ids: torch.Tensor, n_valid, sentinel: int) -> torch.Tensor:
+    """Which of ``ids`` are live vertices: ``ids < n_valid`` for a live
+    count (an int, or a fleet's per-vertex thresholds), or ``n_valid``
+    itself when it is a bool live mask over ``ids`` (the reference's mask
+    form, for the gappy layouts that skew-aware re-sharding makes); the
+    sentinel slot is never live."""
+    if _is_live_mask(n_valid):
+        return n_valid & (ids < sentinel)
+    return ids < n_valid
+
+
+def sanitize_outer(outer: torch.Tensor, n_valid, sentinel: int
+                   ) -> torch.Tensor:
     """An outer-community membership made safe for a constrained sweep.
 
-    Invalid vertex slots (id >= ``n_valid``) pin to the sentinel; a stale
-    label (< 0 or >= ``n_valid``, e.g. an earlier capacity's sentinel) on a
-    valid slot falls back to the vertex's own singleton, never to another
-    community's id.  The scalar-``n_valid`` form of the reference's (over
-    a fleet, ``n_valid`` is a ``FleetView``'s per-vertex thresholds, which
-    compare the same way); its live-mask form serves the sharded layouts
-    only.
+    Invalid vertex slots pin to the sentinel; a stale label (not a live id,
+    e.g. an earlier capacity's sentinel) on a valid slot falls back to the
+    vertex's own singleton, never to another community's id.  ``n_valid``
+    is the live count (over a fleet, a ``FleetView``'s per-vertex
+    thresholds, which compare the same way) or, for a re-sharded sharded
+    layout, a (sentinel + 1,) bool live mask: labels are representative
+    vertex ids, so a label is live where the mask is.
     """
     ids = torch.arange(outer.shape[0], dtype=torch.int32,
                        device=outer.device)
     lab = outer.to(torch.int32)
-    valid_slot = ids < n_valid
-    in_range = (lab >= 0) & (lab < n_valid)
+    valid_slot = valid_ids(ids, n_valid, sentinel)
+    if _is_live_mask(n_valid):
+        safe = torch.clamp(lab, 0, sentinel).to(torch.int64)
+        in_range = (lab >= 0) & (lab < sentinel) & n_valid[safe]
+    else:
+        in_range = (lab >= 0) & (lab < n_valid)
     out = torch.where(valid_slot & in_range, lab, ids)
     return torch.where(valid_slot, out, sentinel)
 
 
-def assert_outer_sane(outer: torch.Tensor, n_valid: int,
-                      sentinel: int) -> None:
+def assert_outer_sane(outer: torch.Tensor, n_valid, sentinel: int) -> None:
     """Raise ``ValueError`` if a stale outer id would reach a constrained
-    sweep: a valid slot whose label lies outside [0, ``n_valid``), or an
-    invalid slot not at the sentinel.  One host read.  Nothing in the
-    single-device or multi-stream paths calls it: their refine phases
-    sanitize on the device instead, as the reference's jitted sweeps do
-    (its check is a no-op under ``jit``).  It is kept for the sharded
-    driver, which hands outer labels across devices (ROADMAP item 10) and
-    is to call it where a stale id must fail loudly."""
+    sweep: a valid slot whose label is not a live id, or an invalid slot
+    not at the sentinel (``n_valid`` in either of ``sanitize_outer``'s
+    forms).  One host read.  The single-device and multi-stream refine
+    phases sanitize on the device instead, as the reference's jitted
+    sweeps do (its check is a no-op under ``jit``); the sharded driver,
+    which hands outer labels across ranks, calls it."""
     ids = torch.arange(outer.shape[0], device=outer.device)
-    valid = ids < n_valid
-    bad = ((valid & ((outer < 0) | (outer >= n_valid)))
-           | (~valid & (outer != sentinel)))
+    valid = valid_ids(ids, n_valid, sentinel)
+    if _is_live_mask(n_valid):
+        safe = torch.clamp(outer, 0, sentinel).to(torch.int64)
+        lab_ok = (outer >= 0) & (outer < sentinel) & valid[safe]
+        what = f"live mask, sentinel={sentinel}"
+    else:
+        lab_ok = (outer >= 0) & (outer < n_valid)
+        what = f"n_valid={n_valid}, sentinel={sentinel}"
+    bad = (valid & ~lab_ok) | (~valid & (outer != sentinel))
     where = torch.nonzero(bad).flatten()[:8]
     if where.numel():
         raise ValueError(
             f"stale outer-community ids in refinement seed: slots "
-            f"{where.tolist()} hold {outer[where].tolist()} "
-            f"(n_valid={n_valid}, sentinel={sentinel})")
+            f"{where.tolist()} hold {outer[where].tolist()} ({what})")
 
 
 def mask_cross_outer_slots(src: torch.Tensor, dst: torch.Tensor,

@@ -30,7 +30,7 @@ from repro_torch.configs.louvain_arch import (COMPACT_WORK_FRAC,
 from repro_torch.core.aggregate import (aggregate_fleet,
                                         renumber_communities_fleet)
 from repro_torch.core.ell_move import move_phase_ell
-from repro_torch.core.engine import affected_frontier
+from repro_torch.core.engine import affected_frontier, valid_ids
 from repro_torch.core.graph import (CSRGraph, FleetGraph, rebucket_capacity,
                                     stack_graphs)
 from repro_torch.core.local_move import move_phase
@@ -250,7 +250,7 @@ def _aggregate_phase(fleet: FleetGraph, comm_ren: torch.Tensor, n_comms,
 
 
 def _leiden_warm_membership(comm_ren: torch.Tensor, outer_ren: torch.Tensor,
-                            n_valid: int, n_agg: int) -> torch.Tensor:
+                            n_valid, n_agg) -> torch.Tensor:
     """Next-pass warm start after aggregating the refined partition.
 
     The coarse graph's vertices are the refined communities; the next pass
@@ -258,12 +258,14 @@ def _leiden_warm_membership(comm_ren: torch.Tensor, outer_ren: torch.Tensor,
     constant over each refined community, so scattering ``outer_ren``
     through ``comm_ren`` is well defined; each live coarse vertex
     (< ``n_agg``) is labelled with the smallest coarse id that shares its
-    outer community.  Returns (cap + 1,) int32, cap = len(comm_ren) - 1.
+    outer community.  ``n_valid`` may also be the bool live mask of a
+    re-sharded sharded layout (``engine.valid_ids``).  Returns (cap + 1,)
+    int32, cap = len(comm_ren) - 1.
     """
     cap = comm_ren.shape[0] - 1
     dev = comm_ren.device
     idx = torch.arange(cap + 1, dtype=torch.int32, device=dev)
-    valid = idx < n_valid
+    valid = valid_ids(idx, n_valid, cap)
     tgt = torch.where(valid, torch.clamp(comm_ren, max=cap), cap)
     oc = torch.full((cap + 1,), cap, dtype=torch.int32, device=dev)
     oc[tgt.to(torch.int64)] = torch.where(valid, outer_ren.to(torch.int32),

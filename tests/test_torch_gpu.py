@@ -5,8 +5,10 @@ the batch apply's kernel backend against its sort backend, ``louvain()``
 and ``louvain_dynamic()`` on the card against the committed sbm goldens,
 ``refine="leiden"`` included, the batched multi-stream drivers against
 the solo ones, with K3/K4 launched once per fleet operation, and the
-sharded driver: its sbm goldens through NCCL at world size 1, K3 in its
-aggregation, and staged gloo ranks on the one card.
+sharded drivers: their sbm goldens through NCCL at world size 1 (the
+hybrid state layout and ``louvain_dynamic_sharded`` included), K3 in the
+aggregation, K4 in each rank's batch apply, and staged gloo ranks on the
+one card.
 
 Every test here is marked ``gpu`` and skips without a card (the decision is
 made inside the ``cuda`` fixture, never at import).  The machine with the
@@ -35,7 +37,7 @@ from _k3_bounds import k3_tolerances
 from _wide_rows import hub_graph_slots, star_graph_slots, wide_csr_arrays
 from repro_torch import (FleetCapacityOverflow, LouvainConfig, ShardGroup,
                          apply_edge_batch, build_csr, distributed_louvain,
-                         louvain,
+                         louvain, louvain_dynamic_sharded,
                          louvain_batched, louvain_dynamic,
                          louvain_dynamic_batched, make_edge_batch,
                          sbm_edge_stream, sbm_graph, sbm_holdout_stream,
@@ -826,15 +828,17 @@ def test_nccl_refuses_more_ranks_than_cards(cuda):
         ShardGroup.init("nccl", 0, n + 1, "file:///nonexistent", device=cuda)
 
 
+@pytest.mark.parametrize("state_layout", ["replicated", "hybrid"])
 @pytest.mark.parametrize("refine", ["none", "leiden"])
 @pytest.mark.parametrize("comm_backend", ["gather", "delta"])
 def test_sharded_sbm_goldens_through_nccl(nccl_group, cuda, refine,
-                                          comm_backend):
+                                          comm_backend, state_layout):
     gold = np.load(GOLDEN)
     g, _ = sbm_graph(8, 16, 0.4, 0.01, seed=2, device=cuda)
     before = coarsen.coarsen_groups.launches
     mem, _, stats = distributed_louvain(g, nccl_group, refine=refine,
-                                        comm_backend=comm_backend)
+                                        comm_backend=comm_backend,
+                                        state_layout=state_layout)
     key = f"sharded{'_leiden' if refine == 'leiden' else ''}__sbm"
     np.testing.assert_array_equal(mem, gold[key])
     assert coarsen.coarsen_groups.launches - before == 2 * (len(stats) - 1)
@@ -890,3 +894,102 @@ def test_staged_gloo_ranks_on_one_card_equal_world_size_one(nccl_group,
         assert o["staged_bytes"] > 0
         for mem, _, _ in o["results"]:
             np.testing.assert_array_equal(mem, want)
+
+
+@pytest.mark.parametrize("state_layout", ["replicated", "hybrid"])
+@pytest.mark.parametrize("refine", ["none", "leiden"])
+def test_sharded_stream_goldens_through_nccl(nccl_group, cuda, refine,
+                                             state_layout):
+    """``louvain_dynamic_sharded`` on the card reproduces both
+    ``sharded_dynamic*`` goldens, K4 launched once per batch."""
+    gold = np.load(GOLDEN)
+    init, batches = sbm_edge_stream(device=cuda)
+    before = resolve.resolve_groups.launches
+    res = louvain_dynamic_sharded(
+        init, nccl_group, batches,
+        config=LouvainConfig(refine=refine, state_layout=state_layout))
+    key = (f"sharded_dynamic{'_leiden' if refine == 'leiden' else ''}"
+           "__sbm_stream")
+    np.testing.assert_array_equal(res.membership, gold[key])
+    assert resolve.resolve_groups.launches - before == len(batches)
+
+
+@pytest.mark.parametrize("dead", [False, True])
+def test_per_rank_k4_equals_plain_on_the_card(cuda, dead):
+    """Each rank of a 4-rank layout of an R-MAT graph at scale 14 resolves a
+    batch of inserts, deletions and reweights (endpoints past n_cap too,
+    with ``dead``): K4 on the rank's sorted slot list equals the plain
+    version bit for bit, and the rank's apply through K4 equals the sort
+    chain's."""
+    from repro_torch import rmat_graph
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.core import distributed_dynamic as dd
+    g = rmat_graph(14, 16, seed=5, device=cuda)
+    *glob, spec = dist_mod.partition_graph_host(g, 4, n_target=g.n_cap,
+                                                e_per_shard=g.e_valid // 2)
+    rng = np.random.default_rng(6)
+    e = g.e_valid
+    pick = rng.integers(0, e, 1000)
+    hi = g.n_cap + (8 if dead else 0)
+    bsrc = np.concatenate([rng.integers(0, hi, 3000),
+                           g.src[pick].cpu().numpy()])
+    bdst = np.concatenate([rng.integers(0, hi, 3000),
+                           g.indices[pick].cpu().numpy()])
+    bw = np.where(rng.random(4000) < 0.3, 0.0,
+                  rng.choice([0.25, 3.0, 1.5], 4000)).astype(np.float32)
+    batch = make_edge_batch(np.minimum(bsrc, g.n_cap),
+                            np.minimum(bdst, g.n_cap), bw, g.n_cap,
+                            b_cap=4096, device=cuda)
+    for rank in range(4):
+        sl = dist_mod.rank_slice(*glob, spec, rank, cuda)
+        args = (*sl, batch.src, batch.dst, batch.weight, batch.b_valid)
+        slots = dd.sorted_shard_batch_slots(spec, rank, *args,
+                                            n_limit=g.n_cap)
+        got = resolve.resolve_groups(*slots, sent=spec.sentinel)
+        want = resolve.resolve_groups_ref(*slots, sent=spec.sentinel)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        before = resolve.resolve_groups.launches
+        k = dd.apply_batch_shard(spec, rank, *args, n_limit=g.n_cap,
+                                 backend="kernel")
+        assert resolve.resolve_groups.launches == before + 1
+        srt = dd.apply_batch_shard(spec, rank, *args, n_limit=g.n_cap,
+                                   backend="sort")
+        for a, b in zip(k, srt):
+            assert torch.equal(a, b)
+
+
+def test_staged_gloo_ranks_hybrid_and_stream_equal_world_size_one(
+        nccl_group, cuda):
+    """Two gloo ranks on the one card: the hybrid layout under both
+    exchanges, and ``louvain_dynamic_sharded`` on the golden stream, equal
+    world size 1."""
+    from repro_torch import rmat_graph
+    from repro_torch.core import collectives
+    from repro_torch.core import distributed as dist_mod
+    gold = np.load(GOLDEN)
+    g = rmat_graph(12, 16, seed=4, device=cuda)
+    want = distributed_louvain(g, nccl_group)[0]
+    init, batches = sbm_edge_stream(device=cuda)
+
+    def arrays(x):
+        out = {k: getattr(x, k).cpu().numpy()
+               for k in ("indptr", "indices", "weights", "src")}
+        out.update(n_valid=x.n_valid, e_valid=x.e_valid)
+        return out
+
+    bl = [{"src": b.src.cpu().numpy(), "dst": b.dst.cpu().numpy(),
+           "weight": b.weight.cpu().numpy(), "b_valid": b.b_valid}
+          for b in batches]
+    out = collectives.launch(
+        dist_mod.rank_runs, 2, {"g": arrays(g), "stream": arrays(init)},
+        [("g", {"comm_backend": "gather", "state_layout": "hybrid"}),
+         ("g", {"comm_backend": "delta", "state_layout": "hybrid"}),
+         ("stream", {"batches": bl})],
+        backend="gloo", devices=["cuda"] * 2, timeout=300)
+    for o in out:
+        assert o["staged_bytes"] > 0
+        for mem, _, _ in o["results"][:2]:
+            np.testing.assert_array_equal(mem, want)
+        np.testing.assert_array_equal(o["results"][2].membership,
+                                      gold["sharded_dynamic__sbm_stream"])

@@ -56,7 +56,8 @@ def test_no_forbidden_import_anywhere_in_the_port():
     assert len(files) >= 19
     for module in ("core/delta.py", "core/dynamic.py",
                    "kernels/batch_apply/resolve.py", "core/comm.py",
-                   "core/collectives.py", "core/distributed.py"):
+                   "core/collectives.py", "core/distributed.py",
+                   "core/distributed_dynamic.py"):
         assert os.path.join(PORT_DIR, module) in files
     files.append(os.path.join(os.path.dirname(SRC_DIR), "chip_smoke.py"))
     for path in files:
