@@ -74,11 +74,24 @@ each timed; any failure exits non-zero:
   8. phase 5's stream once more through ``louvain_dynamic_sharded`` at
      world size 1 (NCCL, gather, replicated): its final membership must be
      phase 5's, with K4 launched once per batch in the rank's apply, and
-     that K4 launch of the first batch held against its plain version.
+     that K4 launch of the first batch held against its plain version;
+  9. the multi-tenant sharded serving fleet (``serve_fleet``,
+     ``FleetRouter``) through NCCL at world size 1: (a) the
+     ``sharded_dynamic__sbm_stream`` golden through one- and two-tenant
+     fleets under both state layouts, K4 once per bucket dispatch; (b) a
+     whale that migrates buckets beside its buddy, and a configuration
+     whose lanes replay through the solo pass loop (K3 in the replays),
+     every tenant equal to its solo ``louvain_dynamic_sharded``; (c) phase
+     6's tenants admitted with their cold memberships into one envelope
+     and served 8 steps (one K4 launch per step over all 16 lanes, the
+     first held against its plain version bit for bit and over 20 more
+     calls), each ending on its phase 6 stream membership; (d) the fleet
+     run of phase 7's staged launch (two tenants of its stream on 4 gloo
+     ranks) equal to that launch's ``louvain_dynamic_sharded`` stream.
 
 Cut for time: phase 4's Leiden route through K2 (its ``ell_leiden__sbm``
 golden through K2 stays in phase 3), and phase 6's solo comparison to the
-first ``SOLO_TENANTS`` (8) of the 16 tenants.
+first ``SOLO_TENANTS`` (4) of the 16 tenants.
 
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, time, plain time and bound; the last line
@@ -141,6 +154,11 @@ KERNELS = {
     # K4 in one rank's batch apply of the sharded stream (phase 8).
     "resolve_groups_sharded": ("src/repro_torch/csrc/batch_apply.cu",
                                "src/repro/kernels/batch_apply/resolve.py:134"),
+    # K4 once per rank and bucket dispatch of the sharded serving fleet,
+    # over the bucket's flat, lane-keyed slot list (phase 9).
+    "resolve_groups_fleet_sharded": (
+        "src/repro_torch/csrc/batch_apply.cu",
+        "src/repro/kernels/batch_apply/resolve.py:134"),
 }
 
 #: Phase 5: the batch mix of the DF-Louvain dynamic evaluation (Sahu,
@@ -160,8 +178,9 @@ F1_WIDTHS = (16, 64, 256, 2048, 32768)
 PLAIN_CHUNK_SLOTS = 8192 * 2048
 
 #: Phase 6: the tenants also served alone (their solo runs are the
-#: comparison; the fleet holds all ``--streams``).
-SOLO_TENANTS = 8
+#: comparison; the fleet holds all ``--streams``, and phase 9 carries every
+#: tenant's fleet membership through a second driver).
+SOLO_TENANTS = 4
 
 #: Phase 7: ranks and R-MAT seed of the staged gloo run on the one card,
 #: and the batch capacity of its stream (phase 5's recipe at that scale).
@@ -1610,6 +1629,7 @@ def phase_fleet(torch, args, dev, report):
         f"solo updates_per_second {fleet_ups / (solo_updates / solo_s):.3f}; "
         f"each tenant's membership, final graph and frontier sizes equal")
     step_s = res.apply_seconds[0] + res.update_seconds[0]
+    finals = [res.stream_membership(s) for s in range(S)]
     del res
 
     # Where a step's time goes: the first step once more under the
@@ -1658,7 +1678,7 @@ def phase_fleet(torch, args, dev, report):
         f"{k4_ms / (k4_bytes / HBM_BYTES_PER_S * 1e3):.3f}x the bound")
     report.append(kernel_entry("resolve_groups_fleet", k4_fleet, k4_err,
                                k4_ms, k4_plain, k4_bytes, total))
-    del slots, fleet, graphs, streams
+    del slots, fleet
 
     # The sbm goldens through a one-stream fleet.
     gold = np.load(GOLDEN)
@@ -1705,6 +1725,9 @@ def phase_fleet(torch, args, dev, report):
     log("fleet", f"regrow: FleetCapacityOverflow (step, e_need, e_cap) "
         f"{overflow} without growth; with growth {grown.n_regrows} regrow to "
         f"e_cap {grown.graphs.e_cap}, equal to the amply provisioned fleet")
+    # Phase 9 serves the same tenants through the sharded fleet.
+    return (graphs, streams, [cold["none"][0][s, :n] for s in range(S)],
+            finals)
 
 
 def sharded_k3_check(torch, g, level0, report, launches):
@@ -1883,6 +1906,8 @@ def phase_sharded(torch, args, dev, report, g, membership, level0):
             torch, g18, dev, 13, SHARDED_STREAM_B_CAP)
         want_stream = louvain_dynamic_sharded(init18, group,
                                               batches18).membership
+        # The staged fleet's tenants start from the stream's cold start.
+        cold18 = louvain_dynamic_sharded(init18, group, []).membership
         log("sharded", f"the staged run's stream at R-MAT scale "
             f"{args.sharded_scale}: {sizes}")
 
@@ -1895,7 +1920,11 @@ def phase_sharded(torch, args, dev, report, g, membership, level0):
             ("rmat", {"comm_backend": "gather", "state_layout": "hybrid"}),
             ("rmat", {"comm_backend": "delta", "state_layout": "hybrid"}),
             ("rmat", {"comm_backend": "auto", "reshard": "auto"}),
-            ("stream", {"batches": bl})]
+            ("stream", {"batches": bl}),
+            # Phase 9 (d): two tenants of the stream through serve_fleet.
+            ("stream", {"tenants": {t: {"graph": "stream", "batches": bl,
+                                        "prev": cold18} for t in "ab"},
+                        "screening": "community"})]
     del init18, batches18
     t = time.perf_counter()
     out = collectives.launch(dist_mod.rank_runs, SHARDED_RANKS, graphs, runs,
@@ -1903,14 +1932,21 @@ def phase_sharded(torch, args, dev, report, g, membership, level0):
                              devices=[str(dev)] * SHARDED_RANKS,
                              timeout=300)
     wall = time.perf_counter() - t
+    def memberships(res):
+        if isinstance(res, tuple):
+            return [res[0]]
+        if isinstance(res.membership, dict):
+            return list(res.membership.values())
+        return [res.membership]
+
     for i in range(len(runs)):
-        first = out[0]["results"][i]
-        first = first.membership if i == len(runs) - 1 else first[0]
+        first = memberships(out[0]["results"][i])
         for o in out[1:]:
-            other = o["results"][i]
-            other = other.membership if i == len(runs) - 1 else other[0]
-            require(np.array_equal(other, first),
-                    f"the staged ranks disagree in run {runs[i][1]}")
+            other = memberships(o["results"][i])
+            require(len(other) == len(first)
+                    and all(np.array_equal(a, b)
+                            for a, b in zip(other, first)),
+                    f"the staged ranks disagree in run {i}")
     for i, what in enumerate(("gather", "auto (delta)", "hybrid, gather",
                               "hybrid, delta")):
         mem, n_comms, stats = out[0]["results"][i]
@@ -1944,7 +1980,7 @@ def phase_sharded(torch, args, dev, report, g, membership, level0):
     require(q_auto >= q_none - 0.01 * abs(q_none),
             f"reshard='auto' Q {q_auto} more than 1% below reshard='none' "
             f"{q_none}")
-    res = out[0]["results"][-1]
+    res = out[0]["results"][5]
     require(np.array_equal(res.membership, want_stream),
             f"the {SHARDED_RANKS}-rank louvain_dynamic_sharded differs from "
             f"world size 1")
@@ -1959,6 +1995,7 @@ def phase_sharded(torch, args, dev, report, g, membership, level0):
         f"per rank {[o['collectives'] for o in out]}; {wall:.2f} s wall for "
         f"{len(runs)} runs incl. {SHARDED_RANKS} process starts "
         f"(host-staged collectives on one card: not a multi-GPU number)")
+    return out[0]["results"][6], res.membership
 
 
 def phase_sharded_stream(torch, dev, report, stream):
@@ -2051,6 +2088,271 @@ def phase_sharded_stream(torch, dev, report, stream):
                                plain_ms, bound_bytes, total))
 
 
+def ring_whale(dev, n=64, n_batches=8, k=12):
+    """Phase 9's whale: a sparse ring whose envelope is tight, and dense
+    insert batches that blow through it mid-stream (the reference's
+    ``tests/test_fleet.py`` whale)."""
+    from repro_torch import build_csr, make_edge_batch
+    s = np.arange(n, dtype=np.int64)
+    d = (s + 1) % n
+    g = build_csr(np.concatenate([s, d]), np.concatenate([d, s]),
+                  np.ones(2 * n, np.float32), n, e_cap=2 * n + 4 * k,
+                  device=dev)
+    rng = np.random.default_rng(7)
+    batches = []
+    for _ in range(n_batches):
+        bs = rng.integers(0, n, k)
+        bd = (bs + 2 + rng.integers(0, n - 3, k)) % n
+        batches.append(make_edge_batch(bs, bd, np.ones(k, np.float32),
+                                       g.n_cap, b_cap=k, device=dev))
+    return g, batches
+
+
+def phase_serving_fleet(torch, args, dev, report, tenants, staged):
+    """The multi-tenant sharded serving fleet (``serve_fleet``,
+    ``FleetRouter``): (a) the sbm golden stream through one- and two-tenant
+    fleets through NCCL at world size 1 under both state layouts; (b) the
+    whale with its buddy and a fallback configuration, each tenant against
+    its solo ``louvain_dynamic_sharded``; (c) phase 6's tenants from their
+    cold memberships, each of which must end on its phase 6 stream
+    membership, with K4 launched once per bucket dispatch and the first
+    dispatch's K4 held against its plain version; (d) phase 7's staged
+    4-rank fleet against that launch's solo stream."""
+    from repro_torch import (FleetRouter, LouvainConfig,
+                             louvain_dynamic_sharded, sbm_edge_stream,
+                             sbm_holdout_stream, serve_fleet)
+    from repro_torch.core.delta import FleetBatch
+    from repro_torch.core.distributed import LaneLayout, ShardedGraphSpec
+    from repro_torch.core.distributed_dynamic import sorted_shard_batch_slots
+    from repro_torch.kernels.aggregate import coarsen
+    from repro_torch.kernels.batch_apply import resolve
+    gold = np.load(GOLDEN)
+    graphs, streams, prevs, finals = tenants
+    with nccl_world_of_one(dev) as group:
+        # (a) the sbm golden stream through one- and two-tenant fleets.
+        init, batches = sbm_edge_stream(device=dev)
+        for layout in ("replicated", "hybrid"):
+            for tids in ("a", "ab"):
+                resolve.resolve_groups.launches = 0
+                res = serve_fleet({t: init for t in tids},
+                                  {t: batches for t in tids}, group,
+                                  screening="community",
+                                  config=LouvainConfig(state_layout=layout))
+                k4 = resolve.resolve_groups.launches
+                require(all(np.array_equal(
+                    res.membership[t], gold["sharded_dynamic__sbm_stream"])
+                    for t in tids),
+                    f"a {len(tids)}-tenant fleet misses "
+                    f"sharded_dynamic__sbm_stream under {layout}")
+                require(k4 == res.n_dispatches == len(batches),
+                        f"K4 launched {k4} times over {res.n_dispatches} "
+                        f"dispatches")
+                log("serving_fleet", f"{len(tids)}-tenant fleet, "
+                    f"state_layout={layout}: sharded_dynamic__sbm_stream "
+                    f"reproduced through NCCL at world size 1; K4 launched "
+                    f"{k4} times ({res.n_dispatches} dispatches), comm_rounds "
+                    f"{res.comm_rounds}, bytes_on_wire {res.bytes_on_wire}, "
+                    f"wire_bytes {res.wire_bytes}, halo_bytes "
+                    f"{res.halo_bytes}")
+
+        # (b) the control paths, small: whale migration, fallback replay.
+        whale = ring_whale(dev)
+        buddy = sbm_holdout_stream(39, n_cap=128, e_cap=1400, n_hold=24,
+                                   n_steps=len(whale[1]), b_cap=8,
+                                   device=dev)[:2]
+        cases = {"whale": whale, "buddy": buddy}
+        resolve.resolve_groups.launches = 0
+        res = serve_fleet({t: c[0] for t, c in cases.items()},
+                          {t: c[1] for t, c in cases.items()}, group,
+                          screening="community")
+        k4 = resolve.resolve_groups.launches
+        homes = [env for env, tids in res.buckets.items() if "whale" in tids]
+        require(res.n_migrations >= 1 and len(homes) == 1
+                and homes[0].e_per_shard > 2 * whale[0].n_valid,
+                f"the whale did not migrate into one bigger bucket "
+                f"({res.n_migrations} migrations, homes {homes})")
+        for t, (g, b) in cases.items():
+            solo = louvain_dynamic_sharded(g, group, b, screening="community")
+            require(np.array_equal(res.membership[t], solo.membership),
+                    f"fleet tenant {t} differs from its solo stream")
+        log("serving_fleet", f"whale and buddy: {res.n_migrations} "
+            f"migration(s), the whale's home {homes[0]}, buckets "
+            f"{ {tuple(k): v for k, v in res.buckets.items()} }; K4 launched "
+            f"{k4} times ({res.n_dispatches} dispatches + the re-applies); "
+            f"both equal their solo louvain_dynamic_sharded")
+        cfg = LouvainConfig(aggregation_tolerance=1.0, initial_tolerance=0.0)
+        router = FleetRouter(group, cfg, screening="community")
+        small = {}
+        for tid, seed in (("a", 36), ("b", 37)):
+            g, b, _ = sbm_holdout_stream(seed, n_cap=128, e_cap=1400,
+                                         n_hold=24, n_steps=3, b_cap=8,
+                                         device=dev)
+            router.admit(tid, g, prev=np.arange(g.n_cap, dtype=np.int32),
+                         b_cap=8)
+            small[tid] = (g, b)
+        coarsen.coarsen_groups.launches = 0
+        res = router.serve({t: c[1] for t, c in small.items()})
+        k3 = coarsen.coarsen_groups.launches
+        require(res.n_fallbacks > 0 and k3 > 0,
+                f"the fallback configuration replayed {res.n_fallbacks} "
+                f"lanes, K3 launched {k3} times")
+        for t, (g, b) in small.items():
+            solo = louvain_dynamic_sharded(
+                g, group, b, prev=np.arange(g.n_cap, dtype=np.int32),
+                config=cfg, screening="community")
+            require(np.array_equal(res.membership[t], solo.membership),
+                    f"fallback tenant {t} differs from its solo stream")
+        log("serving_fleet", f"fallback configuration: {res.n_fallbacks} "
+            f"lanes replayed through the solo pass loop, K3 launched {k3} "
+            f"times; both tenants equal their solo louvain_dynamic_sharded")
+        del whale, buddy, cases, small, router
+
+        # (c) phase 6's tenants from their cold memberships.
+        S = len(graphs)
+        tids = [f"t{s}" for s in range(S)]
+        cfg = LouvainConfig(comm_backend="gather")
+        router = FleetRouter(group, cfg, screening="community")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        envs = [router.admit(tids[s], graphs[s], prev=prevs[s],
+                             b_cap=streams[s][0].b_cap) for s in range(S)]
+        torch.cuda.synchronize()
+        admit_s = time.perf_counter() - t
+        env = envs[0]
+        require(all(e == env for e in envs),
+                f"phase 6's tenants landed in {len(set(envs))} envelopes")
+        spec = ShardedGraphSpec(group.world_size, env.v_per_shard,
+                                env.e_per_shard, env.v_cap(group.world_size))
+        live = sum(int((router.tenants[x].src < spec.sentinel).sum())
+                   for x in tids)
+        log("serving_fleet", f"{S} tenants admitted in {admit_s:.3f} s "
+            f"(two host partitions each): envelope {env}, "
+            f"{S * env.e_per_shard} slots in the bucket, {live} live "
+            f"(padding share {1 - live / (S * env.e_per_shard):.4f})")
+
+        # K4 of the first dispatch: the bucket's flat, lane-keyed slot list
+        # of every tenant's admitted slots and step 0's batches.
+        spec0 = LaneLayout(spec, S)
+        flat = spec0.flat_slots([(router.tenants[x].src,
+                                  router.tenants[x].dst,
+                                  router.tenants[x].w) for x in tids])
+        b0 = [streams[s][0] for s in range(S)]
+        batch0 = FleetBatch(src=torch.stack([b.src for b in b0]),
+                            dst=torch.stack([b.dst for b in b0]),
+                            weight=torch.stack([b.weight for b in b0]),
+                            b_valid=np.array([b.b_valid for b in b0]))
+        slots = sorted_shard_batch_slots(
+            spec0.spec, 0, *flat, batch0.src, batch0.dst, batch0.weight,
+            batch0.b_valid, [g.n_cap for g in graphs])
+        del flat
+        sent = spec0.flat.sentinel
+        got = resolve.resolve_groups(*slots, sent=sent)
+        want = resolve.resolve_groups_ref(*slots, sent=sent)
+        torch.cuda.synchronize()
+        require(same_records(torch, got, want),
+                "the bucket's K4 differs from its plain version on the "
+                "first dispatch")
+        k4_err = float((got[4] - want[4]).abs().max())
+        total = slots[0].numel()
+        log("kernels", f"sharded fleet K4, first dispatch: bit for bit on "
+            f"{total} sorted slots of {S} lanes, {int(got[0].sum())} kept, "
+            f"{int(got[5].sum())} changed")
+        del want
+        repeat_identical(torch, lambda: resolve.resolve_groups(
+            *slots, sent=sent), got, 20, "sharded fleet K4")
+        del got
+        k4_ms = time_ms(torch, lambda: resolve.resolve_groups(
+            *slots, sent=sent), 10)
+        k4_plain = time_ms(torch, lambda: resolve.resolve_groups_ref(
+            *slots, sent=sent), 3)
+        k4_bytes = 13 * total + 18 * (total + 1)
+        log("serving_fleet", f"sharded fleet K4 on {total} slots: "
+            f"{k4_ms:.4f} ms (plain {k4_plain:.4f} ms); bytes once "
+            f"{k4_bytes}, {k4_ms / (k4_bytes / HBM_BYTES_PER_S * 1e3):.3f}x "
+            f"the bound")
+        del slots
+
+        # The serving run.
+        updates = int(sum(b.b_valid for st in streams for b in st))
+        resolve.resolve_groups.launches = 0
+        coarsen.coarsen_groups.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = router.serve(dict(zip(tids, streams)))
+        torch.cuda.synchronize()
+        k4 = resolve.resolve_groups.launches
+        k3 = coarsen.coarsen_groups.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for i in range(len(res.apply_seconds)):
+            log("serving_fleet", f"step {i}: apply_seconds "
+                f"{res.apply_seconds[i]:.6f} update_seconds "
+                f"{res.update_seconds[i]:.6f}")
+        modes = sorted({p.screening for st in res.pass_stats.values()
+                        for p in st}, key=str)
+        log("serving_fleet", f"serve_fleet of {S} tenants ({updates} "
+            f"entries, {STREAM_BATCHES} steps) at world size 1 (NCCL, "
+            f"gather, {res.state_layout}): {res.total_seconds:.3f} s, fleet "
+            f"updates_per_second {updates / res.total_seconds:.4f} "
+            f"({updates / (res.total_seconds + admit_s):.4f} with "
+            f"admission); buckets "
+            f"{ {tuple(k): len(v) for k, v in res.buckets.items()} }, "
+            f"n_dispatches {res.n_dispatches}, n_fallbacks "
+            f"{res.n_fallbacks}, n_migrations {res.n_migrations}, "
+            f"comm_rounds {res.comm_rounds}, bytes_on_wire "
+            f"{res.bytes_on_wire}, wire_bytes {res.wire_bytes}, screening "
+            f"{modes}; launches K4 {k4} K3 {k3}; peak memory {peak:.2f} GiB")
+        require(k4 == res.n_dispatches + res.n_migrations
+                if res.n_migrations == 0 else
+                k4 >= res.n_dispatches + res.n_migrations,
+                f"K4 launched {k4} times over {res.n_dispatches} dispatches")
+        require(res.n_dispatches == len(res.buckets) * STREAM_BATCHES
+                or res.n_migrations > 0,
+                f"{res.n_dispatches} dispatches for {len(res.buckets)} "
+                f"bucket(s) over {STREAM_BATCHES} steps")
+        for s in range(S):
+            got_m = res.membership[tids[s]]
+            if np.array_equal(got_m, finals[s]):
+                continue
+            # Tell a fleet fault from a sharded-versus-single-device one.
+            solo = louvain_dynamic_sharded(graphs[s], group, streams[s],
+                                           prev=prevs[s], config=cfg,
+                                           screening="community").membership
+            first = int(np.flatnonzero(got_m != finals[s])[0])
+            what = ("the fleet differs from its solo sharded stream"
+                    if not np.array_equal(got_m, solo) else
+                    "the solo sharded stream differs from phase 6's")
+            raise Failure(f"tenant {s}: {what}; first at vertex {first}: "
+                          f"{got_m[first]} against {finals[s][first]}")
+        log("serving_fleet", f"all {S} tenants end on their phase 6 "
+            f"louvain_dynamic_batched memberships")
+        report.append(kernel_entry("resolve_groups_fleet_sharded", k4,
+                                   k4_err, k4_ms, k4_plain, k4_bytes, total))
+        step_s = res.apply_seconds[0] + res.update_seconds[0]
+        del res
+
+        # Where a dispatch's time goes: one more step of every tenant.
+        p_ms, n_ops, busy_ms, top = device_profile(torch, lambda: router.serve(
+            {x: streams[s][:1] for s, x in enumerate(tids)}))
+        log("serving_fleet", f"profile of one dispatch ({S} lanes): {n_ops} "
+            f"device operations, device busy {busy_ms:.3f} ms, {p_ms:.3f} ms "
+            f"profiled wall, {step_s * 1e3:.3f} ms unprofiled step 0 (idle "
+            f"share {1 - busy_ms / (step_s * 1e3):.3f}); top by device ms "
+            f"{json.dumps(top)}")
+        del router
+
+    # (d) phase 7's staged 4-rank fleet against that launch's solo stream.
+    fleet4, stream4 = staged
+    require(all(np.array_equal(m, stream4)
+                for m in fleet4.membership.values()),
+            f"the {SHARDED_RANKS}-rank fleet differs from its "
+            f"louvain_dynamic_sharded stream")
+    log("serving_fleet", f"{SHARDED_RANKS} staged gloo ranks: both fleet "
+        f"tenants equal the launch's louvain_dynamic_sharded stream "
+        f"({fleet4.n_dispatches} dispatches, {fleet4.n_fallbacks} "
+        f"fallbacks, comm_rounds {fleet4.comm_rounds}, bytes_on_wire "
+        f"{fleet4.bytes_on_wire}, wire_bytes {fleet4.wire_bytes})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22,
@@ -2088,14 +2390,18 @@ def main() -> int:
                                  torch, ops, args, dev, report)))),
                          ("stream", lambda: state.update(stream=phase_stream(
                              torch, state["g"], dev, report))),
-                         ("fleet", lambda: phase_fleet(
-                             torch, args, dev, report)),
-                         ("sharded", lambda: phase_sharded(
-                             torch, args, dev, report, state.pop("g"),
-                             state.pop("membership"),
-                             state.pop("level0"))),
+                         ("fleet", lambda: state.update(
+                             tenants=phase_fleet(torch, args, dev, report))),
+                         ("sharded", lambda: state.update(
+                             staged=phase_sharded(
+                                 torch, args, dev, report, state.pop("g"),
+                                 state.pop("membership"),
+                                 state.pop("level0")))),
                          ("sharded_stream", lambda: phase_sharded_stream(
-                             torch, dev, report, state.pop("stream")))):
+                             torch, dev, report, state.pop("stream"))),
+                         ("serving_fleet", lambda: phase_serving_fleet(
+                             torch, args, dev, report, state.pop("tenants"),
+                             state.pop("staged")))):
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize()

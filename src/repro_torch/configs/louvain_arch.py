@@ -4,7 +4,7 @@ the JAX package."""
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -309,3 +309,87 @@ def plan_reshard(counts: np.ndarray, n_shards: int, v_per_uniform: int, *,
     e_per = _pow2_at_least(max(int(loads.max() * LADDER_SLACK), e_floor))
     return ReshardPlan(bounds, int(v_per), int(e_per), frac_before,
                        frac_after)
+
+
+# ---------------------------------------------------------------------------
+# Multi-tenant fleet admission policy (the ``core/fleet.py`` serving layer).
+#
+# Every tenant graph is sharded across the ranks (the 1-D vertex partition
+# of ``core/distributed.py``) and the tenants of one capacity envelope are
+# batched per dispatch, as lanes of one flat layout.  Tenants are admitted
+# into power-of-two envelopes ``(v_per_shard, e_per_shard, b_cap)``; those
+# sharing an envelope share a bucket, and a whale tenant that outgrows its
+# envelope migrates to a bigger bucket instead of regrowing the fleet.
+# ---------------------------------------------------------------------------
+
+#: Headroom multiplier on the worst rank's owned edge slots at admission:
+#: the sharded streaming driver's 25% slack, so a tenant's first growth
+#: event needs genuinely new volume.
+FLEET_E_SLACK = 1.25
+
+#: Per-rank vertex-block floor (tiny tenants keep a usable block).
+FLEET_MIN_V_PER = 8
+
+#: Per-rank edge-slot floor (keeps the per-rank sort non-trivial).
+FLEET_MIN_E_PER = 32
+
+#: A migration at least multiplies the edge capacity by this factor, the
+#: geometric growth of the streaming drivers, so a whale cannot thrash the
+#: bucket ladder.
+FLEET_GROW_FACTOR = 2
+
+
+class FleetEnvelope(NamedTuple):
+    """Power-of-two per-tenant capacity envelope of a fleet bucket.  On
+    ``n_shards`` ranks it implies ``v_cap = n_shards * v_per_shard`` vertex
+    slots (the padded vertex count, also the sentinel) and ``e_cap =
+    n_shards * e_per_shard`` directed edge slots."""
+
+    v_per_shard: int
+    e_per_shard: int
+    b_cap: int           # per-step edge-batch capacity of every lane
+
+    def v_cap(self, n_shards: int) -> int:
+        return self.v_per_shard * n_shards
+
+    def e_cap(self, n_shards: int) -> int:
+        return self.e_per_shard * n_shards
+
+
+def fleet_v_per_shard(n_cap: int, n_shards: int) -> int:
+    """Power-of-two per-rank vertex block covering ``n_cap`` vertices."""
+    return max(_pow2_at_least(-(-int(n_cap) // max(int(n_shards), 1))),
+               FLEET_MIN_V_PER)
+
+
+def fleet_envelope(n_cap: int, owned_max: int, b_cap: int,
+                   n_shards: int) -> FleetEnvelope:
+    """Admission envelope of one tenant.  ``owned_max`` is the worst rank's
+    owned live directed slots under the ``fleet_v_per_shard`` owner map.
+    The edge tier reserves ``FLEET_E_SLACK`` headroom plus room for one
+    worst-case batch (``2 * b_cap`` directed slots on one rank) and rounds
+    up to a power of two, so tenants of similar size share a bucket."""
+    b_cap = max(_pow2_at_least(int(b_cap)), 1)
+    e_need = int(int(owned_max) * FLEET_E_SLACK) + 2 * b_cap
+    e_per = max(_pow2_at_least(e_need), FLEET_MIN_E_PER)
+    return FleetEnvelope(fleet_v_per_shard(n_cap, n_shards), e_per, b_cap)
+
+
+def plan_fleet(sizings, n_shards: int) -> Dict[FleetEnvelope, list]:
+    """Group tenants into capacity buckets: ``sizings`` holds one ``(n_cap,
+    owned_max, b_cap)`` per tenant in admission order; returns
+    ``{envelope: [tenant index, ...]}`` in first-seen order."""
+    buckets: Dict[FleetEnvelope, list] = {}
+    for i, (n_cap, owned_max, b_cap) in enumerate(sizings):
+        env = fleet_envelope(n_cap, owned_max, b_cap, n_shards)
+        buckets.setdefault(env, []).append(i)
+    return buckets
+
+
+def migrate_envelope(env: FleetEnvelope, e_need: int) -> FleetEnvelope:
+    """The envelope a whale tenant migrates into after an edge overflow
+    needing ``e_need`` slots on its worst rank: geometric growth
+    (``FLEET_GROW_FACTOR``), rounded to a power of two."""
+    e_per = _pow2_at_least(max(FLEET_GROW_FACTOR * env.e_per_shard,
+                               int(e_need)))
+    return env._replace(e_per_shard=e_per)

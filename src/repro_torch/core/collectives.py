@@ -88,6 +88,10 @@ class ShardGroup:
     #: Host reads of replicated values that chose a branch (the delta
     #: exchange's overflow test, one per round).
     branch_reads: int = 0
+    #: Bytes this rank handed to the collectives (each operand once, as it
+    #: goes on the wire; counted at world size 1 too, where a collective is
+    #: the identity).  The sharded move phase reads its own share of it.
+    wire_bytes: int = 0
 
     @classmethod
     def single(cls, device="cuda") -> "ShardGroup":
@@ -163,6 +167,7 @@ class ShardGroup:
     def all_gather(self, x: torch.Tensor, tiled: bool = True) -> torch.Tensor:
         """Every rank's ``x`` in rank order: concatenated along dim 0
         (``tiled``) or stacked on a new leading axis."""
+        self.wire_bytes += x.numel() * x.element_size()
         if self.group is None:
             return x if tiled else x[None]
         self.collectives += 1
@@ -173,6 +178,7 @@ class ShardGroup:
         return self._from_wire(out, x)
 
     def _all_reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+        self.wire_bytes += x.numel() * x.element_size()
         if self.group is None:
             return x
         self.collectives += 1
@@ -187,6 +193,7 @@ class ShardGroup:
         if not x.is_floating_point():
             return self._all_reduce(x, dist.ReduceOp.SUM)
         if self.group is None:
+            self.wire_bytes += x.numel() * x.element_size()
             return x
         parts = self.all_gather(x, tiled=False)
         acc = parts[0].to(torch.float64)

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 _LANE_MASK = 0xFFFFFFFF
@@ -54,8 +55,10 @@ def _check_width(width: int) -> None:
 
 
 def pack_bits(values: torch.Tensor, width: int) -> torch.Tensor:
-    """Bit-pack ``(k,)`` integers in ``[0, 2**width)`` into 32-bit lanes,
-    returned as an int32 tensor of the lanes' bit patterns.
+    """Bit-pack ``(..., k)`` integers in ``[0, 2**width)`` into 32-bit
+    lanes, returned as an int32 tensor ``(..., lanes)`` of the lanes' bit
+    patterns; each row along the leading axes (a fleet's tenant lanes)
+    packs on its own, as a 1-D tensor would.
 
     Little-endian bit order: value i occupies global bits ``[i * width,
     (i + 1) * width)``; a value may straddle two lanes.  Values are masked
@@ -63,92 +66,109 @@ def pack_bits(values: torch.Tensor, width: int) -> torch.Tensor:
     """
     _check_width(width)
     dev = values.device
-    k = values.shape[0]
+    lead, k = values.shape[:-1], values.shape[-1]
+    rows = values.reshape(int(np.prod(lead, dtype=np.int64)), k)
     lanes = packed_lanes(k, width)
-    vals = values.to(torch.int64) & ((1 << width) - 1)
+    vals = rows.to(torch.int64) & ((1 << width) - 1)
     start = torch.arange(k, dtype=torch.int64, device=dev) * width
-    lane0 = start // 32
+    # Row b's lanes live at [b * (lanes + 1), (b + 1) * (lanes + 1)): the
+    # last of each row takes the bits above its final lane.
+    base = (torch.arange(rows.shape[0], dtype=torch.int64, device=dev)
+            * (lanes + 1))[:, None]
+    lane0 = base + start // 32
     off = start % 32
     lo = (vals << off) & _LANE_MASK
     # A shift by 32 is guarded as in the reference: off == 0 means the
     # value lies wholly inside lane0 and contributes nothing upward.
     hi = torch.where(off > 0, vals >> torch.where(off > 0, 32 - off, 0), 0)
     # Disjoint bit ranges per lane, so the adds assemble without carries.
-    buf = torch.zeros(lanes + 1, dtype=torch.int64, device=dev)
-    buf.index_add_(0, lane0, lo)
-    buf.index_add_(0, lane0 + 1, hi)
-    return _to_int32_bits(buf[:lanes])
+    buf = torch.zeros(rows.shape[0] * (lanes + 1), dtype=torch.int64,
+                      device=dev)
+    buf.index_add_(0, lane0.reshape(-1), lo.reshape(-1))
+    buf.index_add_(0, (lane0 + 1).reshape(-1), hi.reshape(-1))
+    out = buf.view(rows.shape[0], lanes + 1)[:, :lanes]
+    return _to_int32_bits(out).reshape(*lead, lanes)
 
 
 def unpack_bits(lanes: torch.Tensor, width: int, count: int) -> torch.Tensor:
-    """Inverse of ``pack_bits``: ``(L,)`` lanes (int32 bit patterns) ->
-    ``(count,)`` int32 (a 32-bit value wraps, as the reference's uint32 ->
-    int32 cast does)."""
+    """Inverse of ``pack_bits``: ``(..., L)`` lanes (int32 bit patterns) ->
+    ``(..., count)`` int32 (a 32-bit value wraps, as the reference's uint32
+    -> int32 cast does)."""
     _check_width(width)
     dev = lanes.device
     start = torch.arange(count, dtype=torch.int64, device=dev) * width
     lane0 = start // 32
     off = start % 32
     ext = torch.cat([lanes.to(torch.int64) & _LANE_MASK,
-                     torch.zeros(1, dtype=torch.int64, device=dev)])
-    lo = ext[lane0] >> off
+                     torch.zeros(*lanes.shape[:-1], 1, dtype=torch.int64,
+                                 device=dev)], -1)
+    lo = ext[..., lane0] >> off
     hi = torch.where(
         off > 0,
-        (ext[lane0 + 1] << torch.where(off > 0, 32 - off, 0)) & _LANE_MASK,
+        (ext[..., lane0 + 1] << torch.where(off > 0, 32 - off, 0))
+        & _LANE_MASK,
         0)
     return _to_int32_bits((lo | hi) & ((1 << width) - 1))
 
 
 def compact_movers(flag: torch.Tensor, values: torch.Tensor, cap: int, fill):
-    """Rank-compact flagged slots' (local index, value) into static buffers.
+    """Rank-compact flagged slots' (local index, value) into static buffers,
+    along the last axis (each row of a ``(..., L)`` input on its own).
 
-    Returns ``(idx_buf (cap,), val_buf (cap,), n_flagged)``: ``idx_buf``
-    holds the local indices of the first ``cap`` flagged entries (empty
-    slots carry ``L = len(flag)``), ``val_buf`` their values (empty slots
-    ``fill``).  Entries beyond ``cap`` go to a scratch slot that is cut
-    off; ``n_flagged`` (a 0-d int32 tensor) is the true uncapped count, so
-    callers detect ``n_flagged > cap`` and take a dense fallback.
+    Returns ``(idx_buf (..., cap), val_buf (..., cap), n_flagged (...))``:
+    ``idx_buf`` holds the local indices of the first ``cap`` flagged
+    entries (empty slots carry ``L = flag.shape[-1]``), ``val_buf`` their
+    values (empty slots ``fill``).  Entries beyond ``cap`` go to a scratch
+    slot that is cut off; ``n_flagged`` (int32) is the true uncapped count,
+    so callers detect ``n_flagged > cap`` and take a dense fallback.
     """
-    L = flag.shape[0]
+    L = flag.shape[-1]
     dev = flag.device
-    rank = torch.cumsum(flag.to(torch.int32), 0) - 1
+    rank = torch.cumsum(flag.to(torch.int32), -1) - 1
     keep = flag & (rank < cap)
     slot = torch.where(keep, rank, cap).to(torch.int64)
-    idx = torch.arange(L, dtype=torch.int32, device=dev)
-    idx_buf = torch.full((cap + 1,), L, dtype=torch.int32, device=dev)
-    idx_buf.scatter_(0, slot, torch.where(keep, idx, L))
-    val_buf = torch.full((cap + 1,), fill, dtype=values.dtype, device=dev)
-    val_buf.scatter_(0, slot, torch.where(keep, values,
-                                          torch.tensor(fill, dtype=values.dtype,
-                                                       device=dev)))
-    return idx_buf[:cap], val_buf[:cap], flag.sum(dtype=torch.int32)
+    idx = torch.arange(L, dtype=torch.int32, device=dev).expand(flag.shape)
+    shape = (*flag.shape[:-1], cap + 1)
+    idx_buf = torch.full(shape, L, dtype=torch.int32, device=dev)
+    idx_buf.scatter_(-1, slot, torch.where(keep, idx, L))
+    val_buf = torch.full(shape, fill, dtype=values.dtype, device=dev)
+    val_buf.scatter_(-1, slot, torch.where(keep, values,
+                                           torch.tensor(fill,
+                                                        dtype=values.dtype,
+                                                        device=dev)))
+    return (idx_buf[..., :cap], val_buf[..., :cap],
+            flag.sum(-1, dtype=torch.int32))
 
 
 def topk_touched_deltas(delta: torch.Tensor, touched: torch.Tensor, cap: int,
                         sent: int):
-    """Touched communities and their delta values, rank-compacted.
+    """Touched communities and their delta values, rank-compacted along
+    the last axis.
 
-    ``touched`` is a dense ``(sent + 1,)`` bool mask of communities whose
-    value changed (slot ``sent`` is ignored), ``delta`` the dense
-    per-community value.  Returns ``(c_buf (cap,), d_buf (cap,),
-    n_touched)``: the first ``cap`` touched ids in ascending order (empty
-    slots ``sent`` / 0) and the true count, so ``n_touched > cap`` flags an
-    overflow.  A cumsum over the mask, as in the reference: no sort, no
-    ``torch.topk`` (whose ties CUDA does not order).
+    ``touched`` is a dense ``(..., N)`` bool mask of communities whose
+    value changed (ids at or above ``sent`` are ignored), ``delta`` the
+    dense per-community value.  Returns ``(c_buf (..., cap), d_buf (...,
+    cap), n_touched (...))``: the first ``cap`` touched ids in ascending
+    order (empty slots ``sent`` / 0) and the true count, so ``n_touched >
+    cap`` flags an overflow.  A cumsum over the mask, as in the reference:
+    no sort, no ``torch.topk`` (whose ties CUDA does not order).
     """
     dev = touched.device
-    ids = torch.arange(touched.shape[0], dtype=torch.int32, device=dev)
+    ids = torch.arange(touched.shape[-1], dtype=torch.int32,
+                       device=dev).expand(touched.shape)
     live = touched & (ids < sent)
-    rank = torch.cumsum(live.to(torch.int32), 0) - 1
+    rank = torch.cumsum(live.to(torch.int32), -1) - 1
     keep = live & (rank < cap)
     slot = torch.where(keep, rank, cap).to(torch.int64)
-    c_buf = torch.full((cap + 1,), sent, dtype=torch.int32, device=dev)
-    c_buf.scatter_(0, slot, torch.where(keep, ids, sent))
-    d_buf = torch.zeros(cap + 1, dtype=delta.dtype, device=dev)
-    d_buf.scatter_(0, slot, torch.where(keep, delta,
-                                        torch.zeros((), dtype=delta.dtype,
-                                                    device=dev)))
-    return c_buf[:cap], d_buf[:cap], live.sum(dtype=torch.int32)
+    shape = (*touched.shape[:-1], cap + 1)
+    c_buf = torch.full(shape, sent, dtype=torch.int32, device=dev)
+    c_buf.scatter_(-1, slot, torch.where(keep, ids, sent))
+    d_buf = torch.zeros(shape, dtype=delta.dtype, device=dev)
+    d_buf.scatter_(-1, slot, torch.where(keep, delta,
+                                         torch.zeros((), dtype=delta.dtype,
+                                                     device=dev)))
+    return (c_buf[..., :cap], d_buf[..., :cap],
+            live.sum(-1, dtype=torch.int32))
 
 
 def boundary_mask(src_l: torch.Tensor, dst_l: torch.Tensor, v0: int,

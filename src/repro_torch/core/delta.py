@@ -40,8 +40,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.louvain_arch import resolve_apply_backend
-from repro_torch.core.graph import (CSRGraph, FleetGraph, resolve_device,
-                                    scatter_fleet_records, scatter_slots,
+from repro_torch.core.graph import (CSRGraph, FleetGraph, lane_positions,
+                                    resolve_device, scatter_fleet_records,
+                                    scatter_slots,
                                     segment_sum, stack_graphs, stack_rows)
 from repro_torch.kernels.batch_apply.resolve import resolve_groups
 
@@ -108,7 +109,8 @@ def sort_slots(all_src, all_dst, all_w, rank, is_batch, sent: int):
 
 
 def sort_reduce_apply_slots(all_src, all_dst, all_w, rank, is_batch,
-                            sent: int, out_cap: int, backend: str = "auto"):
+                            sent: int, out_cap: int, backend: str = "auto",
+                            lanes=None):
     """The shared batch-apply sort-reduce over a unified directed-slot list.
 
     ``all_*`` concatenate the existing slots (rank 0) and the batch's
@@ -118,24 +120,39 @@ def sort_reduce_apply_slots(all_src, all_dst, all_w, rank, is_batch,
     (src, dst)-sorted order in ``out_cap`` slots (overflow rows land in a
     scratch slot and are reported through the uncapped ``e_new``).
 
+    ``lanes = (v0, v_per, n)`` splits the list into ``n`` lanes (a sharded
+    fleet bucket's tenants on one rank): lane i's live src ids lie in
+    ``[v0 + i * v_per, v0 + (i + 1) * v_per)``, its records compact into
+    its own block ``[i * out_cap, (i + 1) * out_cap)`` of ``n * out_cap``
+    output slots (``core.graph.lane_positions``), and ``e_new`` is the
+    (n,) int32 tensor of each lane's uncapped count.  Still one sort and
+    one group resolve for all lanes.
+
     Returns ``(out_src, out_dst, out_w, e_new, chg_src, chg_dst)``;
-    ``e_new`` is a 0-d device tensor, and ``chg_*`` hold the endpoints of
-    every group whose resolved weight changed (``sent`` elsewhere).
-    ``backend`` is ``"sort"``, ``"kernel"`` (K4) or ``"auto"`` (the kernel
-    on CUDA tensors).  The two backends give the same graph and the same
-    touched set; only the ``chg_*`` encoding differs (every slot of a
-    changed group, against one record per group).
+    ``e_new`` is a 0-d device tensor without ``lanes``, and ``chg_*`` hold
+    the endpoints of every group whose resolved weight changed (``sent``
+    elsewhere).  ``backend`` is ``"sort"``, ``"kernel"`` (K4) or ``"auto"``
+    (the kernel on CUDA tensors).  The two backends give the same graph and
+    the same touched set; only the ``chg_*`` encoding differs (every slot
+    of a changed group, against one record per group).
     """
     backend = resolve_apply_backend(backend, all_src.device)
     s_src, s_dst, s_w, s_batch = sort_slots(all_src, all_dst, all_w, rank,
                                             is_batch, sent)
     keep, pos, r_src, r_dst, r_w, chg_src, chg_dst = resolve_sorted_slots(
         s_src, s_dst, s_w, s_batch, sent, backend)
-    e_new = keep.sum()
-    pos = torch.where(keep & (pos < out_cap), pos, out_cap)
+    if lanes is None:
+        n, lane, lpos, e_new = 1, torch.zeros_like(pos), pos, keep.sum()
+    else:
+        v0, v_per, n = lanes
+        lane, lpos, e_new = lane_positions(keep, pos, torch.div(
+            r_src.to(torch.int32) - int(v0), int(v_per),
+            rounding_mode="floor"), int(n))
+    slot = torch.where(keep & (lpos < out_cap),
+                       lane.to(torch.int64) * out_cap + lpos, n * out_cap)
     out_src, out_dst, out_w = scatter_slots(
-        pos, torch.where(keep, r_src, sent), torch.where(keep, r_dst, sent),
-        torch.where(keep, r_w, 0.0), sent, out_cap)
+        slot, torch.where(keep, r_src, sent), torch.where(keep, r_dst, sent),
+        torch.where(keep, r_w, 0.0), sent, n * out_cap)
     return out_src, out_dst, out_w, e_new, chg_src, chg_dst
 
 

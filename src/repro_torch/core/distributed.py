@@ -96,6 +96,121 @@ class ShardedGraphSpec(NamedTuple):
         return self.n_pad
 
 
+class LaneLayout(NamedTuple):
+    """``n_lanes`` tenants of one ``spec`` side by side (the lanes of a
+    sharded fleet bucket, ``core/fleet.py``) as ONE sharded layout,
+    ``flat``: vertex v of lane i, owned by rank r = v // v_per, has the flat
+    id ``r * (T * v_per) + i * v_per + (v - r * v_per)``, and the flat
+    sentinel is ``T * n_pad``.  So each rank's owned flat ids stay one
+    contiguous block (owned-slice gathers keep their shape), a lane's
+    vertices are a contiguous block inside it (the engine's per-stream dQ
+    blocks), and flat ids keep the order within a lane (sort keys and
+    min-id tie breaks compare what they compare for the tenant alone).  A
+    rank keeps lane i's slots at ``[i * e_per, (i + 1) * e_per)`` of its
+    flat slot list.  With one lane every map is the identity."""
+
+    spec: ShardedGraphSpec
+    n_lanes: int = 1
+
+    @property
+    def flat(self) -> ShardedGraphSpec:
+        s, t = self.spec, self.n_lanes
+        return ShardedGraphSpec(s.n_shards, t * s.v_per_shard,
+                                t * s.e_per_shard, t * s.n_pad)
+
+    def flat_ids(self, x: torch.Tensor, lane) -> torch.Tensor:
+        """Tenant ids of lane(s) ``lane`` (an int or a tensor broadcasting
+        against ``x``) -> int32 flat ids; ids outside [0, n_pad) become
+        the flat sentinel."""
+        if self.n_lanes == 1:
+            return x.to(torch.int32)
+        v_per, n_pad = self.spec.v_per_shard, self.spec.n_pad
+        x64 = x.to(torch.int64)
+        f = ((x64 // v_per) * (self.n_lanes * v_per) + lane * v_per
+             + x64 % v_per)
+        return torch.where((x64 >= 0) & (x64 < n_pad), f,
+                           self.n_lanes * n_pad).to(torch.int32)
+
+    def tenant_ids(self, f: torch.Tensor) -> torch.Tensor:
+        """Flat ids -> int32 ids in their own tenant's layout (the flat
+        sentinel -> n_pad)."""
+        if self.n_lanes == 1:
+            return f.to(torch.int32)
+        v_per, n_pad = self.spec.v_per_shard, self.spec.n_pad
+        f64 = f.to(torch.int64)
+        v = (f64 // (self.n_lanes * v_per)) * v_per + f64 % v_per
+        return torch.where(f64 < self.n_lanes * n_pad, v,
+                           n_pad).to(torch.int32)
+
+    def lane_of(self, f: torch.Tensor) -> torch.Tensor:
+        """The lane of each flat id (``n_lanes`` for the sentinel)."""
+        v_per = self.spec.v_per_shard
+        f64 = f.to(torch.int64)
+        return torch.where(f64 < self.flat.n_pad,
+                           (f64 % (self.n_lanes * v_per)) // v_per,
+                           self.n_lanes)
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """A flat vertex-indexed array (``(T * n_pad [+ 1],)``) -> its (T,
+        n_pad) rows, lane by lane in tenant id order."""
+        s, t = self.spec, self.n_lanes
+        return (x[:t * s.n_pad].view(s.n_shards, t, s.v_per_shard)
+                .transpose(0, 1).reshape(t, s.n_pad))
+
+    def flat_rows(self, rows: torch.Tensor, fill) -> torch.Tensor:
+        """Inverse of ``rows``: (T, n_pad) -> (T * n_pad + 1,), ``fill`` at
+        the flat sentinel."""
+        s, t = self.spec, self.n_lanes
+        body = (rows.reshape(t, s.n_shards, s.v_per_shard).transpose(0, 1)
+                .reshape(-1))
+        return torch.cat([body, torch.full((1,), fill, dtype=rows.dtype,
+                                           device=rows.device)])
+
+    def flat_membership(self, mem: torch.Tensor) -> torch.Tensor:
+        """(T, n_pad + 1) replicated memberships in tenant ids -> the flat
+        (T * n_pad + 1,) membership: positions and labels mapped."""
+        lane = torch.arange(self.n_lanes, device=mem.device)[:, None]
+        return self.flat_rows(self.flat_ids(mem[:, :self.spec.n_pad], lane),
+                              self.flat.sentinel)
+
+    def tenant_rows(self, comm: torch.Tensor) -> torch.Tensor:
+        """Inverse of ``flat_membership``: (T, n_pad + 1) rows in tenant
+        ids, the sentinel column at n_pad."""
+        n_pad = self.spec.n_pad
+        body = self.tenant_ids(self.rows(comm))
+        return torch.cat([body, torch.full((self.n_lanes, 1), n_pad,
+                                           dtype=torch.int32,
+                                           device=comm.device)], 1)
+
+    def flat_slots(self, slots) -> Tuple[torch.Tensor, ...]:
+        """The lanes' ``(src, dst, w)`` slices of one rank, in their own
+        ids, as the rank's flat slot list (lane i's at ``[i * e_per, (i +
+        1) * e_per)``)."""
+        return tuple(torch.cat([self.flat_ids(x[k], i) if k < 2 else x[k]
+                                for i, x in enumerate(slots)])
+                     for k in range(3))
+
+    def lane_slots(self, src, dst, w, lane: int) -> Tuple[torch.Tensor, ...]:
+        """Lane ``lane``'s ``(src, dst, w)`` block of a flat slot list, in
+        its own ids."""
+        blk = slice(lane * self.spec.e_per_shard,
+                    (lane + 1) * self.spec.e_per_shard)
+        return self.tenant_ids(src[blk]), self.tenant_ids(dst[blk]), w[blk]
+
+    def thresholds(self, counts, device) -> torch.Tensor:
+        """(T * n_pad + 1,) per-vertex thresholds of (T,) per-lane live
+        counts (``engine.valid_ids``): flat id f of lane i is live iff f <
+        its threshold, the flat id of count_i (the sentinel at or past
+        n_pad); the sentinel slot's is 0."""
+        c = torch.as_tensor(np.asarray(counts, np.int64), device=device)
+        thr = self.flat_ids(c, torch.arange(self.n_lanes, device=device))
+        ids = torch.arange(self.flat.n_pad + 1, device=device)
+        out = thr.to(torch.int64)[torch.clamp(self.lane_of(ids),
+                                              max=self.n_lanes - 1)]
+        out[-1] = 0
+        return out
+
+
 # ---------------------------------------------------------------------------
 # Host partition.
 # ---------------------------------------------------------------------------
@@ -176,7 +291,8 @@ def best_moves_shard(src_l, dst_l, w_l, src_loc, comm, sigma, k_l,
     over the shard's slots (the reference's ``_best_moves_shard``):
     ``(best_c (v_per,) int32, best_dq (v_per,) float32)``.  A vertex's
     slots all live on its shard, in CSR order, so each (vertex, community)
-    group sums the weights a single-device scan sums, in the same order."""
+    group sums the weights a single-device scan sums, in the same order.
+    ``m`` is 0-d, or (v_per,): each owned vertex's own lane's m."""
     cdst = comm[dst_l]
     own_comm_l = comm[v0:v0 + v_per]
     own_edge = (cdst == comm[src_l]) & (dst_l != src_l)
@@ -200,7 +316,8 @@ def best_moves_shard(src_l, dst_l, w_l, src_loc, comm, sigma, k_l,
         k_i_to_c, torch.where(valid_row, k_to_own[s_src], 0.0),
         torch.where(valid_row, k_l[row], 0.0),
         sigma[torch.clamp(s_c, max=sent)],
-        torch.where(valid_row, sig_own_l[row], 0.0), m)
+        torch.where(valid_row, sig_own_l[row], 0.0),
+        m[row] if m.dim() else m)
     valid = (valid_row & (s_c != comm[src_l[order]]) & (s_c < sent)
              & frontier_l[row])
     dq = torch.where(valid, dq, _NEG_INF)
@@ -222,27 +339,41 @@ class ShardedScanner:
     the rank's ``v_per_shard`` owned vertices; C and Sigma are the
     replicated ``(n_pad + 1,)`` arrays.  Per round: ``all_gather`` of the
     owned membership slices and of the moved masks, and a rank-order sum
-    of the dense Sigma deltas, the community sizes and dQ."""
+    of the dense Sigma deltas, the community sizes and dQ.
+
+    With ``n_lanes`` > 1 the rank holds the lanes of a sharded fleet bucket
+    in their ``LaneLayout`` (``spec`` is one tenant's layout): every array
+    is the flat layout's, each lane is one of the engine's streams (its own
+    m, dQ, tolerance and stop), and the Weyl round gate hashes each
+    vertex's id in its own tenant's layout, so a lane runs what its tenant
+    runs alone.  ``m`` is 0-d or one per lane."""
 
     def __init__(self, group: ShardGroup, spec: ShardedGraphSpec, src_l,
-                 dst_l, w_l, k, m):
+                 dst_l, w_l, k, m, n_lanes: int = 1):
+        self.lanes = LaneLayout(spec, n_lanes)
+        spec = self.lanes.flat
         v_per, sent = spec.v_per_shard, spec.sentinel
+        lane_v = self.lanes.spec.v_per_shard
         dev = src_l.device
         self.group, self.spec = group, spec
         self.src_l, self.dst_l, self.w_l = src_l, dst_l, w_l
-        self.k, self.m = k, m
+        m = torch.as_tensor(m, dtype=torch.float32, device=dev)
+        self.k = k
+        self.m = m if m.dim() == 0 else m.repeat_interleave(lane_v)
         self.sentinel = sent
-        self.n_streams = 1
+        self.n_streams = n_lanes
         self.v0 = group.shard_index() * v_per
         self.local_ids = self.v0 + torch.arange(v_per, dtype=torch.int32,
                                                 device=dev)
-        self.gate_ids = self.local_ids
-        self.stream_of = torch.zeros(v_per, dtype=torch.int64, device=dev)
+        self.gate_ids = self.lanes.tenant_ids(self.local_ids)
+        self.stream_of = torch.arange(v_per, dtype=torch.int64,
+                                      device=dev) // lane_v
         self.k_local = k[self.v0:self.v0 + v_per]
         self.src_loc = torch.where(src_l >= sent, v_per,
                                    src_l - self.v0).to(torch.int64)
         self.move_valid = None           # invalid slots carry comm == sent
         self.frontier_valid = self.local_ids < spec.n_pad
+        self._lane_ix = None
 
     def scan(self, comm, sigma, frontier):
         return best_moves_shard(self.src_l, self.dst_l, self.w_l,
@@ -285,30 +416,49 @@ class ShardedScanner:
         """The membership a phase returns: replicated already here."""
         return comm
 
+    def per_lane(self, over: np.ndarray, dense, delta):
+        """Each lane's state from the dense exchange where its round
+        overflowed (``over``, per lane) and from the delta exchange
+        elsewhere; either is None when no lane takes it.  Lanes never share
+        a vertex or community id, so the choice is a select by lane."""
+        if delta is None:
+            return dense
+        if dense is None:
+            return delta
+        if self._lane_ix is None:
+            self._lane_ix = self.lanes.lane_of(torch.arange(
+                self.sentinel + 1, device=self.k.device))
+        pick = torch.from_numpy(np.append(over, False)).to(
+            self.k.device)[self._lane_ix]
+        return tuple(torch.where(pick, d, x) for d, x in zip(dense, delta))
+
 
 class DeltaShardedScanner(ShardedScanner):
     """Movers-only exchange (the reference's ``DeltaShardedScanner``).
 
-    Per round each rank ships one fused int32 word: its mover count, its
-    float32 dQ (as bits) and its movers as bit-packed (local index, label)
-    pairs (``compact_movers``, ``pack_bits``).  Every rank rebuilds the rest
-    from replicated state: a mover shifts its K_i from its old community to
-    its new one (K and the pre-round membership are replicated), the
-    community sizes move by +-1 (integer-exact), and the moved mask is the
-    label compare.  The gathered counts are replicated, so the overflow
-    test (one host read per round, counted in ``group.branch_reads``)
-    takes the same branch on every rank: a round whose movers exceed the
-    cap on any rank runs the gather exchange instead.  The movers arrive
-    in rank order, each rank's in ascending vertex order, so Sigma's sums
-    run in global vertex order, as on one rank.
+    Per round each rank ships one fused int32 word per lane: its mover
+    count, its float32 dQ (as bits) and its movers as bit-packed (index,
+    label) pairs in the tenant's own layout (``compact_movers``,
+    ``pack_bits``: a lane's word is the tenant's word alone).  Every rank
+    rebuilds the rest from replicated state: a mover shifts its K_i from
+    its old community to its new one (K and the pre-round membership are
+    replicated), the community sizes move by +-1 (integer-exact), and the
+    moved mask is the label compare.  The gathered counts are replicated,
+    so the overflow test (one host read per round, counted in
+    ``group.branch_reads``) takes the same branch on every rank: a lane
+    whose movers exceed the cap on any rank runs the gather exchange that
+    round.  The movers arrive in rank order, each rank's in ascending
+    vertex order, so Sigma's sums run in global vertex order, as on one
+    rank.
     """
 
     def __init__(self, group: ShardGroup, spec: ShardedGraphSpec, src_l,
-                 dst_l, w_l, k, m):
-        super().__init__(group, spec, src_l, dst_l, w_l, k, m)
-        self.move_cap = delta_move_cap(spec.v_per_shard)
-        self.idx_width = label_bits(spec.v_per_shard + 1)
-        self.lab_width = label_bits(spec.n_pad + 1)
+                 dst_l, w_l, k, m, n_lanes: int = 1):
+        super().__init__(group, spec, src_l, dst_l, w_l, k, m, n_lanes)
+        lane = self.lanes.spec
+        self.move_cap = delta_move_cap(lane.v_per_shard)
+        self.idx_width = label_bits(lane.v_per_shard + 1)
+        self.lab_width = label_bits(lane.n_pad + 1)
         # One fused (index, label) pair per mover when it fits an int32.
         self.pair_width = self.idx_width + self.lab_width
         if self.pair_width <= 31:
@@ -327,92 +477,107 @@ class DeltaShardedScanner(ShardedScanner):
                            torch.clamp(body, max=sent), sent + 1)
 
     def _unpack(self, g_mov):
-        """(S, move_cap) local indices and labels of every rank's movers."""
+        """(S, T, move_cap) lane indices and tenant labels of every rank's
+        movers, from the gathered (S, T, lanes) mover words."""
         mcap = self.move_cap
-        rows = range(g_mov.shape[0])
         if self.pair_width is not None:
-            pairs = torch.stack([unpack_bits(g_mov[r], self.pair_width, mcap)
-                                 for r in rows])
+            pairs = unpack_bits(g_mov, self.pair_width, mcap)
             return pairs & ((1 << self.idx_width) - 1), pairs >> self.idx_width
         li = packed_lanes(mcap, self.idx_width)
-        idxs = torch.stack([unpack_bits(g_mov[r, :li], self.idx_width, mcap)
-                            for r in rows])
-        labs = torch.stack([unpack_bits(g_mov[r, li:], self.lab_width, mcap)
-                            for r in rows])
-        return idxs, labs
+        return (unpack_bits(g_mov[..., :li], self.idx_width, mcap),
+                unpack_bits(g_mov[..., li:], self.lab_width, mcap))
 
     def _pack_movers(self, flag, best_c):
-        """(lanes, count): the flagged owned vertices' (local index, label)
-        pairs, bit-packed; dead buffer slots decode to index ``v_per``."""
-        v_per, sent = self.spec.v_per_shard, self.sentinel
+        """(lanes (T, L), counts (T,)): each lane's flagged owned vertices'
+        (lane index, tenant label) pairs, bit-packed; dead buffer slots
+        decode to index ``v_per`` of the tenant."""
+        lane = self.lanes.spec
+        lane_v = lane.v_per_shard
+        flag = flag.view(self.n_streams, lane_v)
+        lab = self.lanes.tenant_ids(best_c).view(self.n_streams, lane_v)
         if self.pair_width is not None:
-            pv = (torch.arange(v_per, dtype=torch.int32, device=flag.device)
-                  | (best_c << self.idx_width))
-            _, pair_buf, n = compact_movers(flag, pv, self.move_cap, v_per)
+            pv = (torch.arange(lane_v, dtype=torch.int32, device=flag.device)
+                  | (lab << self.idx_width))
+            _, pair_buf, n = compact_movers(flag, pv, self.move_cap, lane_v)
             return pack_bits(pair_buf, self.pair_width), n
-        idx_buf, lab_buf, n = compact_movers(flag, best_c, self.move_cap,
-                                             sent)
+        idx_buf, lab_buf, n = compact_movers(flag, lab, self.move_cap,
+                                             lane.n_pad)
         return torch.cat([pack_bits(idx_buf, self.idx_width),
-                          pack_bits(lab_buf, self.lab_width)]), n
+                          pack_bits(lab_buf, self.lab_width)], -1), n
 
     def _scatter_movers(self, comm, g_mov):
         """``comm`` with every rank's gathered movers written in.  Dead
         buffer slots (index v_per) are masked out here, where the
         reference's scatter dropped them out of bounds."""
-        v_per, sent = self.spec.v_per_shard, self.sentinel
+        lane = self.lanes.spec
+        lane_v, t = lane.v_per_shard, self.n_streams
         idxs, labs = self._unpack(g_mov)
-        live = idxs < v_per
+        live = idxs < lane_v
+        dev = comm.device
+        ix = torch.arange(t, dtype=torch.int64, device=dev)[None, :, None]
         base = (torch.arange(g_mov.shape[0], dtype=torch.int64,
-                             device=comm.device)[:, None] * v_per)
+                             device=dev)[:, None, None] * (t * lane_v)
+                + ix * lane_v)
         gid = (base + idxs)[live]
-        lab = torch.clamp(labs, max=sent)[live]
+        lab = self.lanes.flat_ids(torch.clamp(labs, max=lane.n_pad)[live],
+                                  ix.expand(labs.shape)[live])
         out = comm.clone()
         out[gid] = lab
         return out, gid, lab
 
     @staticmethod
     def _rank_order_dq(col):
-        """The gathered per-rank float32 dQ bits summed in rank order in
-        float64, rounded once."""
+        """The gathered per-rank float32 dQ bits (S, T) summed in rank
+        order in float64, rounded once: (T,)."""
         parts = col.contiguous().view(torch.float32)
         dq = parts[0].to(torch.float64)
         for r in range(1, parts.shape[0]):
             dq = dq + parts[r].to(torch.float64)
-        return dq.to(torch.float32).view(1)
+        return dq.to(torch.float32)
+
+    def _gather_words(self, cols):
+        """ONE collective of every lane's fused word (``cols``: (T, k)
+        int32 pieces, concatenated per lane): (S, T, W)."""
+        wire = torch.cat(cols, 1)
+        g = self.group.all_gather(wire.reshape(-1), tiled=False)
+        return g.view(g.shape[0], self.n_streams, wire.shape[1])
 
     def exchange_round(self, comm, sigma, sizes, comm_l, do_move, best_c,
                        dq_local):
-        sent = self.sentinel
+        sent, t = self.sentinel, self.n_streams
         lanes, n_moved = self._pack_movers(do_move, best_c)
         # ONE fused collective: mover count, the local dQ's bits, lanes.
-        wire = torch.cat([n_moved.view(1),
-                          dq_local.to(torch.float32).view(1)
-                          .view(torch.int32), lanes])
-        g = self.group.all_gather(wire, tiled=False)          # (S, W)
-        dq = self._rank_order_dq(g[:, 1])
+        g = self._gather_words([n_moved.view(t, 1),
+                                dq_local.to(torch.float32).view(t, 1)
+                                .view(torch.int32), lanes])
+        dq = self._rank_order_dq(g[:, :, 1])
         # Replicated by construction: every rank reads the same counts.
         self.group.branch_reads += 1
-        over = int(g[:, 0].max()) > self.move_cap
-        if over:
+        over = (g[:, :, 0].amax(0) > self.move_cap).cpu().numpy()
+        dense = delta = None
+        if over.any():
             moved_k = torch.where(do_move, self.k_local, 0.0)
             add = segment_sum(moved_k, torch.where(do_move, best_c, sent),
                               sent + 1)
             sub = segment_sum(moved_k, torch.where(do_move, comm_l, sent),
                               sent + 1)
-            comm_new = self.gather_comm(torch.where(do_move, best_c, comm_l))
-            sigma_new = self.combine_sigma(sigma, add, sub)
-            sizes_new = self.community_sizes(comm_new, comm_l)
-        else:
-            comm_new, gid, lab = self._scatter_movers(comm, g[:, 2:])
+            comm_d = self.gather_comm(torch.where(do_move, best_c, comm_l))
+            dense = (comm_d, self.combine_sigma(sigma, add, sub),
+                     self.community_sizes(comm_d, comm_l))
+        if not over.all():
+            comm_x, gid, lab = self._scatter_movers(comm, g[:, :, 2:])
             old = comm[gid]
             kv = self.k[gid]
-            sigma_new = (sigma + segment_sum(kv, lab, sent + 1)
-                         - segment_sum(kv, old, sent + 1))
             one = torch.ones_like(lab)
-            sizes_new = (sizes.index_add(0, lab.to(torch.int64), one)
-                         .index_add(0, old.to(torch.int64), -one))
+            delta = (comm_x,
+                     sigma + segment_sum(kv, lab, sent + 1)
+                     - segment_sum(kv, old, sent + 1),
+                     sizes.index_add(0, lab.to(torch.int64), one)
+                     .index_add(0, old.to(torch.int64), -one))
+        comm_new, sigma_new, sizes_new = self.per_lane(over, dense, delta)
         # A move always changes the label: the moved mask is a compare.
-        return comm_new, sigma_new, sizes_new, comm_new != comm, int(over), dq
+        return (comm_new, sigma_new, sizes_new, comm_new != comm,
+                over.astype(np.int64), dq)
 
 
 class HybridShardedScanner(DeltaShardedScanner):
@@ -429,45 +594,48 @@ class HybridShardedScanner(DeltaShardedScanner):
     at the phase start, when the membership is replicated).
 
     Only ``k_local`` is read: each rank folds its own movers into
-    per-community Sigma add / sub and size deltas, compacts the touched
-    communities (``topk_touched_deltas``), and ships them with its boundary
-    movers in one fused int32 word per round.  The replicated Sigma then
+    per-community Sigma add / sub and size deltas, compacts each lane's
+    touched communities in its tenant's id order
+    (``topk_touched_deltas``), and ships them with its boundary movers in
+    one fused int32 word per lane and round.  The replicated Sigma then
     becomes ``sigma + A - S`` with ``A`` / ``S`` the ranks' adds / subs
     summed in rank order in float64 and rounded once: the gather
     exchange's ``combine_sigma`` bit for bit at any world size, since a
     rank that did not touch a community adds nothing there.  (Add and sub
     travel as two float32 lanes per touched community; the reference ships
-    their difference, and its byte pricing, which the stats carry, counts
-    one lane.)  Sizes move by integer deltas, exact in any order.
+    their difference, and its byte pricing, which ``comm_bytes`` carries,
+    counts one lane: ``wire_bytes`` counts both.)  Sizes move by integer
+    deltas, exact in any order.
 
     The delta flavor (this class) keeps the policy mover cap and
-    ``hybrid_touched_cap``; a round that overflows either on any rank (one
-    host read of the gathered counts, counted in ``group.branch_reads``)
-    takes the dense resync instead.  ``HybridGatherScanner`` prices
-    worst-case caps and never overflows.  ``resync_comm`` re-replicates
-    the membership at the end of the phase with one owned-slice
-    ``all_gather``.
+    ``hybrid_touched_cap`` per lane; a lane that overflows either on any
+    rank (one host read of the gathered counts, counted in
+    ``group.branch_reads``) takes the dense resync that round.
+    ``HybridGatherScanner`` prices worst-case caps and never overflows.
+    ``resync_comm`` re-replicates the membership at the end of the phase
+    with one owned-slice ``all_gather``.
     """
 
     can_overflow = True     # the delta flavor: policy caps + dense fallback
 
     def __init__(self, group: ShardGroup, spec: ShardedGraphSpec, src_l,
-                 dst_l, w_l, k, m):
-        super().__init__(group, spec, src_l, dst_l, w_l, k, m)
-        v_per, sent = spec.v_per_shard, spec.sentinel
+                 dst_l, w_l, k, m, n_lanes: int = 1):
+        super().__init__(group, spec, src_l, dst_l, w_l, k, m, n_lanes)
+        v_per, sent = self.spec.v_per_shard, self.sentinel
+        lane_v = self.lanes.spec.v_per_shard
         if self.can_overflow:
-            self.touched_cap = hybrid_touched_cap(v_per)
+            self.touched_cap = hybrid_touched_cap(lane_v)
         else:
             # Worst-case caps: every owned vertex a boundary mover, each
             # touching a distinct old and new community.
-            self.move_cap = v_per
-            self.touched_cap = 2 * v_per
+            self.move_cap = lane_v
+            self.touched_cap = 2 * lane_v
             if self.pair_width is not None:
-                self.mover_lanes = packed_lanes(v_per, self.pair_width)
+                self.mover_lanes = packed_lanes(lane_v, self.pair_width)
             else:
-                self.mover_lanes = (packed_lanes(v_per, self.idx_width)
-                                    + packed_lanes(v_per, self.lab_width))
-        self.siz_width = size_delta_width(v_per)
+                self.mover_lanes = (packed_lanes(lane_v, self.idx_width)
+                                    + packed_lanes(lane_v, self.lab_width))
+        self.siz_width = size_delta_width(lane_v)
         # Computed once per phase from this phase's slots: aggregation,
         # ladder and re-shard boundaries build a new scanner.
         self.bnd_own = boundary_mask(src_l, dst_l, self.v0, v_per, sent)
@@ -480,6 +648,8 @@ class HybridShardedScanner(DeltaShardedScanner):
     def exchange_round(self, comm, sigma, sizes, comm_l, do_move, best_c,
                        dq_local):
         v_per, sent = self.spec.v_per_shard, self.sentinel
+        lane = self.lanes.spec
+        lane_v, t = lane.v_per_shard, self.n_streams
         tcap, lab_w = self.touched_cap, self.lab_width
         dev = comm.device
         comm_own = torch.where(do_move, best_c, comm_l)
@@ -495,68 +665,77 @@ class HybridShardedScanner(DeltaShardedScanner):
         cnt_add = segment_sum(moves, tgt, sent + 1)
         cnt_sub = segment_sum(moves, old, sent + 1)
         touched = (cnt_add > 0) | (cnt_sub > 0)
-        c_buf, a_buf, n_t = topk_touched_deltas(add, touched, tcap, sent)
-        # Empty slots hold the sentinel, whose add, sub and counts are 0.
-        at = c_buf.to(torch.int64)
+        # Each lane's touched communities in its tenant's id order; empty
+        # slots hold the sentinel, whose add, sub and counts are 0.
+        lane_ix = torch.arange(t, device=dev)[:, None]
+        c_buf, a_buf, n_t = topk_touched_deltas(
+            self.lanes.rows(add), self.lanes.rows(touched), tcap, lane.n_pad)
+        at = self.lanes.flat_ids(c_buf, lane_ix).to(torch.int64)
         s_buf, z_buf = sub[at], (cnt_add - cnt_sub)[at]
         # Only boundary movers travel, as (row index, label) pairs.
         lanes, n_bnd = self._pack_movers(do_move & self.bnd_own, best_c)
 
         # ONE fused collective: [boundary movers, touched, dQ] header,
         # mover lanes, touched ids, Sigma adds, Sigma subs, size deltas
-        # offset by v_per.
-        wire = torch.cat([n_bnd.view(1), n_t.view(1),
-                          dq_local.to(torch.float32).view(1)
-                          .view(torch.int32),
-                          lanes, pack_bits(c_buf, lab_w),
-                          a_buf.view(torch.int32), s_buf.view(torch.int32),
-                          pack_bits(z_buf + v_per, self.siz_width)])
-        g = self.group.all_gather(wire, tiled=False)          # (S, W)
-        dq = self._rank_order_dq(g[:, 2])
-        over = False
+        # offset by v_per; one word per lane.
+        g = self._gather_words([
+            n_bnd.view(t, 1), n_t.view(t, 1),
+            dq_local.to(torch.float32).view(t, 1).view(torch.int32), lanes,
+            pack_bits(c_buf, lab_w), a_buf.view(torch.int32),
+            s_buf.view(torch.int32), pack_bits(z_buf + lane_v,
+                                               self.siz_width)])
+        dq = self._rank_order_dq(g[:, :, 2])
+        over = np.zeros(t, bool)
         if self.can_overflow:
             # Replicated by construction: every rank reads the same counts.
             self.group.branch_reads += 1
-            cnts = g[:, :2].amax(0).cpu()
-            over = int(cnts[0]) > self.move_cap or int(cnts[1]) > tcap
-        if over:
+            cnts = g[:, :, :2].amax(0).cpu().numpy()
+            over = (cnts[:, 0] > self.move_cap) | (cnts[:, 1] > tcap)
+        dense = delta = None
+        if over.any():
             # Dense resync: the owned slices are fresh, so one gather
             # rebuilds the replicated membership; the moved mask comes from
             # do_move (the stale pre-round labels make a compare unsound).
-            return (self.gather_comm(comm_own),
-                    self.combine_sigma(sigma, add, sub),
-                    sizes + self.group.psum(cnt_add - cnt_sub),
-                    self.gather_mask(do_move), 1, dq)
-
-        l_m = lanes.shape[0]
-        l_t = packed_lanes(tcap, lab_w)
-        o_t = 3 + l_m
-        o_a = o_t + l_t
-        o_s = o_a + tcap
-        o_z = o_s + tcap
-        base = comm.clone()
-        base[self.v0:self.v0 + v_per] = comm_own
-        comm_new, _, _ = self._scatter_movers(base, g[:, 3:o_t])
-        acc_a = torch.zeros(sent + 1, dtype=torch.float64, device=dev)
-        acc_s = torch.zeros(sent + 1, dtype=torch.float64, device=dev)
-        sizes_new = sizes
-        for r in range(g.shape[0]):
-            # Rank by rank, in rank order: the touched ids of one rank are
-            # unique, so each add is deterministic (its empty slots add
-            # zeros at the sentinel).
-            cs = torch.clamp(unpack_bits(g[r, o_t:o_a], lab_w, tcap),
-                             max=sent).to(torch.int64)
-            acc_a.index_add_(0, cs, g[r, o_a:o_s].contiguous()
-                             .view(torch.float32).to(torch.float64))
-            acc_s.index_add_(0, cs, g[r, o_s:o_z].contiguous()
-                             .view(torch.float32).to(torch.float64))
-            dz = unpack_bits(g[r, o_z:], self.siz_width, tcap) - v_per
-            sizes_new = sizes_new.index_add(0, cs, dz)
-        sigma_new = (sigma + acc_a.to(torch.float32)
-                     - acc_s.to(torch.float32))
-        # Fresh wherever the moved mask is read: the own block and the
-        # remote boundary; stale interior labels compare equal.
-        return comm_new, sigma_new, sizes_new, comm_new != comm, 0, dq
+            dense = (self.gather_comm(comm_own),
+                     self.combine_sigma(sigma, add, sub),
+                     sizes + self.group.psum(cnt_add - cnt_sub),
+                     self.gather_mask(do_move))
+        if not over.all():
+            l_m = lanes.shape[1]
+            l_t = packed_lanes(tcap, lab_w)
+            o_t = 3 + l_m
+            o_a = o_t + l_t
+            o_s = o_a + tcap
+            o_z = o_s + tcap
+            base = comm.clone()
+            base[self.v0:self.v0 + v_per] = comm_own
+            comm_new, _, _ = self._scatter_movers(base, g[:, :, 3:o_t])
+            acc_a = torch.zeros(sent + 1, dtype=torch.float64, device=dev)
+            acc_s = torch.zeros(sent + 1, dtype=torch.float64, device=dev)
+            sizes_new = sizes
+            for r in range(g.shape[0]):
+                # Rank by rank, in rank order: the touched ids of one rank
+                # are unique, so each add is deterministic (its empty slots
+                # add zeros at the sentinel).
+                cs = self.lanes.flat_ids(torch.clamp(
+                    unpack_bits(g[r, :, o_t:o_a], lab_w, tcap),
+                    max=lane.n_pad), lane_ix).reshape(-1).to(torch.int64)
+                acc_a.index_add_(0, cs, g[r, :, o_a:o_s].contiguous()
+                                 .view(torch.float32).reshape(-1)
+                                 .to(torch.float64))
+                acc_s.index_add_(0, cs, g[r, :, o_s:o_z].contiguous()
+                                 .view(torch.float32).reshape(-1)
+                                 .to(torch.float64))
+                dz = unpack_bits(g[r, :, o_z:], self.siz_width,
+                                 tcap) - lane_v
+                sizes_new = sizes_new.index_add(0, cs, dz.reshape(-1))
+            # Fresh wherever the moved mask is read: the own block and the
+            # remote boundary; stale interior labels compare equal.
+            delta = (comm_new, sigma + acc_a.to(torch.float32)
+                     - acc_s.to(torch.float32), sizes_new, comm_new != comm)
+        comm_new, sigma_new, sizes_new, moved = self.per_lane(over, dense,
+                                                              delta)
+        return comm_new, sigma_new, sizes_new, moved, over.astype(np.int64), dq
 
 
 class HybridGatherScanner(HybridShardedScanner):
@@ -612,19 +791,30 @@ def measure_boundary_frac(src_g, dst_g, spec: ShardedGraphSpec,
 def distributed_move(group: ShardGroup, spec: ShardedGraphSpec, src_l, dst_l,
                      w_l, comm0, sigma0, k, frontier_g, m, tolerance, *,
                      config: EngineConfig, comm_backend: str = "gather",
-                     state_layout: str = "replicated"):
+                     state_layout: str = "replicated", n_lanes: int = 1):
     """The local-moving phase of one rank (``make_distributed_move``):
-    returns (comm, sigma, iters, dq_sum, rounds, fallbacks), all replicated
-    (a hybrid phase re-replicates its membership before it returns).
-    ``frontier_g`` is the replicated (n_pad + 1,) seed frontier."""
+    returns (comm, sigma, iters, dq_sum, rounds, fallbacks, wire_bytes),
+    all replicated (a hybrid phase re-replicates its membership before it
+    returns).  ``frontier_g`` is the replicated (n_pad + 1,) seed frontier.
+
+    With ``n_lanes`` > 1 the arrays are the flat ones of the ``LaneLayout``
+    of ``n_lanes`` tenants of ``spec`` (a sharded fleet bucket), ``m`` and
+    ``tolerance`` hold one value per lane, and iters, dq_sum, rounds and
+    fallbacks come back per lane: each lane's equal its tenant's phase
+    alone.  ``wire_bytes`` counts the bytes the phase handed to the
+    collectives (rounds and resync), over all ranks: every rank hands the
+    same shapes, so it is ``world_size`` times this rank's."""
     scanner = _scanner_cls(comm_backend, state_layout)(
-        group, spec, src_l, dst_l, w_l, k, m)
+        group, spec, src_l, dst_l, w_l, k, m, n_lanes)
     v0 = scanner.v0
-    frontier0 = (frontier_g[v0:v0 + spec.v_per_shard]
+    frontier0 = (frontier_g[v0:v0 + scanner.spec.v_per_shard]
                  & scanner.frontier_valid)
+    wire0 = group.wire_bytes
     st = MoveEngine(scanner, config).run(comm0, sigma0, frontier0, tolerance)
-    return (scanner.resync_comm(st.comm), st.sigma, st.iters, st.dq_sum,
-            st.iters * config.gate_fraction, st.comm_fb)
+    comm = scanner.resync_comm(st.comm)
+    return (comm, st.sigma, st.iters, st.dq_sum,
+            st.iters * config.gate_fraction, st.comm_fb,
+            (group.wire_bytes - wire0) * group.world_size)
 
 
 def distributed_refine(group: ShardGroup, spec: ShardedGraphSpec, src_l,
@@ -636,7 +826,7 @@ def distributed_refine(group: ShardGroup, spec: ShardedGraphSpec, src_l,
     inside ``ConstrainedScanner``; ``k``/``m`` stay the full graph's.
     ``n_live`` is the live count of a dense prefix or the (n_pad + 1,) live
     mask of a re-sharded layout.  Returns (comm, iters, dq_sum, rounds,
-    fallbacks)."""
+    fallbacks, wire_bytes)."""
     sent = spec.sentinel
     outer_s = sanitize_outer(outer, n_live, sent)
     # The reference's ConstrainedScanner checks the (sanitized) outer ids
@@ -652,9 +842,11 @@ def distributed_refine(group: ShardGroup, spec: ShardedGraphSpec, src_l,
     comm0 = torch.where(live_v, ids, sent)
     frontier0 = scanner.frontier_valid & live_v[
         torch.clamp(scanner.local_ids, max=sent)]
+    wire0 = group.wire_bytes
     st = MoveEngine(scanner, config).run(comm0, k, frontier0, tolerance)
-    return (scanner.resync_comm(st.comm), st.iters, st.dq_sum,
-            st.iters * config.gate_fraction, st.comm_fb)
+    comm = scanner.resync_comm(st.comm)
+    return (comm, st.iters, st.dq_sum, st.iters * config.gate_fraction,
+            st.comm_fb, (group.wire_bytes - wire0) * group.world_size)
 
 
 def sorted_relabelled_slots(src_l, dst_l, w_l, comm, sent: int):
@@ -732,10 +924,13 @@ def _vertex_k(group: ShardGroup, spec: ShardedGraphSpec, src_l, w_l):
     return torch.cat([k, torch.zeros(1, dtype=k.dtype, device=k.device)])
 
 
-def _total_weight(group: ShardGroup, w_l) -> torch.Tensor:
-    """Replicated m = sum(w) / 2 (float64 partials in rank order)."""
-    part = torch.sum(w_l, dtype=torch.float64).view(1)
-    return group.psum(part)[0].to(torch.float32) * 0.5
+def _total_weight(group: ShardGroup, w_l, n_lanes: int = 1) -> torch.Tensor:
+    """Replicated m = sum(w) / 2 (float64 partials in rank order, rounded
+    once): 0-d, or one per lane of a ``LaneLayout``'s flat slots."""
+    part = torch.stack([torch.sum(x, dtype=torch.float64)
+                        for x in w_l.view(n_lanes, -1)])
+    m = group.psum(part).to(torch.float32) * 0.5
+    return m[0] if n_lanes == 1 else m
 
 
 def _warm_comm_sigma(mem, k, n_valid):
@@ -769,30 +964,38 @@ def sharded_modularity(group: ShardGroup, src_l, dst_l, w_l, comm) -> float:
     return float(q)
 
 
-def replicated_renumber(comm: torch.Tensor) -> Tuple[torch.Tensor, int]:
+def replicated_renumber(comm: torch.Tensor):
     """Dense relabel of a replicated (n_pad + 1,) community array: returns
-    (ids, n_comms) with invalid slots and the sentinel at n_pad."""
-    n_pad = comm.shape[0] - 1
+    (ids, n_comms) with invalid slots and the sentinel at n_pad.  A (T,
+    n_pad + 1) stack of such arrays (a fleet bucket's lanes, each in its
+    own tenant's ids) is relabelled row by row, with (T,) host counts."""
+    n_pad = comm.shape[-1] - 1
     idx = torch.arange(n_pad + 1, device=comm.device)
     valid = (comm < n_pad) & (idx < n_pad)
     cs = torch.where(valid, comm, n_pad).to(torch.int64)
-    present = torch.zeros(n_pad + 1, dtype=torch.int32, device=comm.device)
-    present[cs] = 1
-    present[n_pad] = 0
-    new_id = torch.cumsum(present, 0, dtype=torch.int32) - present
-    n_comms = int(present.sum())
-    new_id[n_pad] = n_pad
-    return torch.where(valid, new_id[cs], n_pad).to(torch.int32), n_comms
+    present = torch.zeros(comm.shape, dtype=torch.int32, device=comm.device)
+    present.scatter_(-1, cs, 1)
+    present[..., n_pad] = 0
+    new_id = torch.cumsum(present, -1, dtype=torch.int32) - present
+    counts = present.sum(-1)
+    n_comms = int(counts) if comm.dim() == 1 else counts.cpu().numpy()
+    new_id[..., n_pad] = n_pad
+    return (torch.where(valid, torch.gather(new_id, -1, cs),
+                        n_pad).to(torch.int32), n_comms)
 
 
-def sentinel_forced_membership(global_comm, n_valid: int, n_pad: int):
+def sentinel_forced_membership(global_comm, n_valid, n_pad: int):
     """Replicated (n_pad + 1,) membership from a pass-loop fold, invalid
-    slots forced to the layout sentinel."""
+    slots forced to the layout sentinel; a (T, n_pad + 1) stack takes (T,)
+    live counts."""
     dev = global_comm.device
-    gc = torch.where(torch.arange(n_pad, device=dev) < n_valid,
-                     global_comm[:n_pad], n_pad).to(torch.int32)
-    return torch.cat([gc, torch.full((1,), n_pad, dtype=torch.int32,
-                                     device=dev)])
+    nv = torch.as_tensor(np.asarray(n_valid, np.int64), device=dev)
+    if global_comm.dim() == 2:
+        nv = nv[:, None]
+    gc = torch.where(torch.arange(n_pad, device=dev) < nv,
+                     global_comm[..., :n_pad], n_pad).to(torch.int32)
+    return torch.cat([gc, torch.full((*gc.shape[:-1], 1), n_pad,
+                                     dtype=torch.int32, device=dev)], -1)
 
 
 def _gather_host(group: ShardGroup, src_l, dst_l, w_l):
@@ -930,6 +1133,16 @@ def sharded_louvain_passes(
     ``halo_bytes``, ``boundary_frac``, ``reshard``, ``reshard_bytes``,
     ``max_shard_load_frac_before`` / ``_after``, ``seconds``, ...) and
     ``phase_seconds``, the pass's local-move, refine and aggregate times.
+    The port adds ``wire_bytes``: the bytes the pass's move and refine
+    phases handed to the collectives, over all ranks, where ``comm_bytes``
+    keeps the reference's price of the same rounds.  Per rank and round the
+    wire exceeds the price by ``4 * (n_pad + 1)`` B in a replicated gather
+    round and in every fallback round (Sigma's add and sub travel as two
+    dense arrays; in a hybrid fallback the size deltas are the extra
+    array), by ``4 * touched_cap`` B in every hybrid round (add and sub as
+    two float32 lanes per touched community), and by nothing in a delta
+    round; a hybrid Leiden pass also ships its refine phase's resync
+    (``4 * v_per`` B a rank), which the price counts once a pass.
     """
     if refine not in ("none", "leiden"):
         raise ValueError(f"refine must be 'none' or 'leiden', got {refine!r}")
@@ -970,7 +1183,7 @@ def sharded_louvain_passes(
             comm0 = torch.where(valid_ids(idx, nv, sent), idx, sent)
             sigma0 = k
             frontier0 = ones_frontier
-        comm, _, iters, dq_sum, rounds, fallbacks = distributed_move(
+        comm, _, iters, dq_sum, rounds, fallbacks, wire = distributed_move(
             group, spec, src_l, dst_l, w_l, comm0, sigma0, k, frontier0, m,
             tol, **phase)
         _sync(dev)
@@ -979,12 +1192,14 @@ def sharded_louvain_passes(
         outer_ren = None
         rounds_extra = fb_extra = 0
         if refine_on:
-            refined, refine_iters, _, r_rounds, r_fb = distributed_refine(
+            (refined, refine_iters, _, r_rounds, r_fb,
+             r_wire) = distributed_refine(
                 group, spec, src_l, dst_l, w_l, comm, k, nv, m, tol,
                 **phase)
             outer_ren, n_outer = replicated_renumber(comm)
             comm_ren, n_comms = replicated_renumber(refined)
             rounds_extra, fb_extra = r_rounds, r_fb
+            wire += r_wire
         else:
             comm_ren, n_comms = replicated_renumber(comm)
         _sync(dev)
@@ -1011,6 +1226,7 @@ def sharded_louvain_passes(
                       "comm_rounds": rounds_i,
                       "comm_fallback_rounds": fb_i,
                       "comm_bytes": phase_bytes(plan, rounds_i, fb_i),
+                      "wire_bytes": wire,
                       "state_layout": state_layout,
                       "halo_bytes": plan.halo_round_bytes * rounds_i,
                       "boundary_frac": (
@@ -1224,16 +1440,34 @@ def rank_runs(group: ShardGroup, graphs: dict, runs: list) -> dict:
     ``dst``, ``weight``, ``b_valid``) streams them through
     ``louvain_dynamic_sharded``, with ``"config"`` a dict of
     ``LouvainConfig`` fields; its result is the ``ShardedDynamicResult``.
+    A run whose kwargs hold ``"tenants"`` serves a fleet through
+    ``serve_fleet``: each tenant id maps to ``{"graph": name, "batches":
+    [...], "prev": membership or None}``, with ``"config"`` as above and
+    ``serve_fleet``'s other keywords; its result is the ``FleetResult``.
     Returns ``{"results": [...], "staged_bytes", "collectives",
     "branch_reads"}``."""
     from repro_torch.core.distributed_dynamic import louvain_dynamic_sharded
+    from repro_torch.core.fleet import serve_fleet
     from repro_torch.interop import (config_from_dict, edge_batch_from_numpy,
                                      graph_from_numpy)
 
+    def batches_of(dicts):
+        return [edge_batch_from_numpy(**b, device=group.device)
+                for b in dicts]
+
     def run(g, kwargs):
+        if "tenants" in kwargs:
+            tenants = kwargs.pop("tenants")
+            config = config_from_dict(kwargs.pop("config", {}))
+            return serve_fleet(
+                {tid: graph_from_numpy(**graphs[t["graph"]],
+                                       device=group.device)
+                 for tid, t in tenants.items()},
+                {tid: batches_of(t["batches"]) for tid, t in tenants.items()},
+                group, {tid: t["prev"] for tid, t in tenants.items()
+                        if t.get("prev") is not None}, config, **kwargs)
         if "batches" in kwargs:
-            batches = [edge_batch_from_numpy(**b, device=group.device)
-                       for b in kwargs.pop("batches")]
+            batches = batches_of(kwargs.pop("batches"))
             config = config_from_dict(kwargs.pop("config", {}))
             return louvain_dynamic_sharded(g, group, batches, config=config,
                                            **kwargs)

@@ -38,7 +38,7 @@ from repro_torch.configs.louvain_arch import (resolve_comm_backend,
 from repro_torch.core.collectives import ShardGroup
 from repro_torch.core.delta import (EdgeBatch, sort_reduce_apply_slots,
                                     sort_slots)
-from repro_torch.core.distributed import (ShardedGraphSpec,
+from repro_torch.core.distributed import (LaneLayout, ShardedGraphSpec,
                                           measure_boundary_frac,
                                           partition_graph_host, rank_slice,
                                           sentinel_forced_membership,
@@ -50,9 +50,24 @@ from repro_torch.core.graph import CSRGraph
 from repro_torch.core.louvain import LouvainConfig, pad_membership
 
 
+def _lane_batch(b_src, b_dst, b_w, b_valid, n_limit, sent: int):
+    """One tenant's batch arrays, or T lanes' ((T, b_cap) arrays with T
+    live counts and T limits), as (T, b_cap) arrays with (T, 1) live
+    counts and limits (a missing limit is ``sent``)."""
+    if b_src.dim() == 1:
+        b_src, b_dst, b_w = b_src[None], b_dst[None], b_w[None]
+        b_valid = [b_valid]
+        n_limit = None if n_limit is None else [n_limit]
+    t = b_src.shape[0]
+    cols = [torch.as_tensor(np.asarray(x, np.int64),
+                            device=b_src.device).view(t, 1)
+            for x in (b_valid, [sent] * t if n_limit is None else n_limit)]
+    return (b_src, b_dst, b_w, *cols)
+
+
 def shard_batch_slots(spec: ShardedGraphSpec, shard_ix: int, src_l, dst_l,
-                      w_l, b_src, b_dst, b_w, b_valid: int,
-                      n_limit: Optional[int] = None):
+                      w_l, b_src, b_dst, b_w, b_valid,
+                      n_limit=None):
     """The unified slot list of one rank's batch apply: ``(all_src,
     all_dst, all_w, rank, is_batch)``, the rank's ``(e_per_shard,)`` slots
     (rank 0) and then the batch's directed slots that it owns.
@@ -64,48 +79,65 @@ def shard_batch_slots(spec: ShardedGraphSpec, shard_ix: int, src_l, dst_l,
     ...`` with rank ``1 + i``: rank order is list order, so one stable key
     sort gives the reference's (src, dst, rank) order (the reference lists
     every forward slot before every reverse one; a forward and a reverse
-    slot of one key come from two entries, so their ranks differ)."""
+    slot of one key come from two entries, so their ranks differ).
+
+    The T lanes of a sharded fleet bucket take (T, b_cap) batch arrays in
+    tenant ids with T live counts and T limits: the slots are then the
+    flat ones of their ``LaneLayout`` (lane i's at ``[i * e_per, (i + 1) *
+    e_per)``), the batches follow lane by lane, and lane i's entry j ranks
+    ``1 + i * b_cap + j``.  Keys of two lanes never meet, so each lane
+    resolves as its tenant alone."""
     sent = spec.sentinel
-    lim = sent if n_limit is None else int(n_limit)
-    v_per, e_per = spec.v_per_shard, spec.e_per_shard
-    v0 = int(shard_ix) * v_per
+    b_src, b_dst, b_w, bv, lim = _lane_batch(b_src, b_dst, b_w, b_valid,
+                                             n_limit, sent)
+    t, b_cap = b_src.shape
+    lanes = LaneLayout(spec, t)
+    v_per = spec.v_per_shard
     dev = src_l.device
-    b_cap = b_src.shape[0]
     u = b_src.to(torch.int32)
     v = b_dst.to(torch.int32)
-    b_live = ((torch.arange(b_cap, device=dev) < int(b_valid))
-              & (u < lim) & (v < lim))
-    live_fwd = b_live & (u >= v0) & (u < v0 + v_per)
-    live_rev = b_live & (v >= v0) & (v < v0 + v_per) & (u != v)
+    b_live = ((torch.arange(b_cap, device=dev) < bv) & (u < lim)
+              & (v < lim))
+    own_u = torch.div(u, v_per, rounding_mode="floor") == int(shard_ix)
+    own_v = torch.div(v, v_per, rounding_mode="floor") == int(shard_ix)
+    live_fwd = b_live & own_u
+    live_rev = b_live & own_v & (u != v)
+    lane_ix = torch.arange(t, device=dev)[:, None]
+    uf, vf = lanes.flat_ids(u, lane_ix), lanes.flat_ids(v, lane_ix)
+    fsent = lanes.flat.sentinel
 
     def interleave(fwd, rev, fill):
         return torch.stack([torch.where(live_fwd, fwd, fill),
-                            torch.where(live_rev, rev, fill)], 1).reshape(-1)
+                            torch.where(live_rev, rev, fill)],
+                           -1).reshape(-1)
 
-    all_src = torch.cat([src_l, interleave(u, v, sent)])
-    all_dst = torch.cat([dst_l, interleave(v, u, sent)])
+    all_src = torch.cat([src_l, interleave(uf, vf, fsent)])
+    all_dst = torch.cat([dst_l, interleave(vf, uf, fsent)])
     all_w = torch.cat([w_l, interleave(b_w, b_w, 0.0)]).to(torch.float32)
-    is_batch = torch.cat([torch.zeros(e_per, dtype=torch.bool, device=dev),
-                          torch.ones(2 * b_cap, dtype=torch.bool,
+    n_old = src_l.shape[0]
+    is_batch = torch.cat([torch.zeros(n_old, dtype=torch.bool, device=dev),
+                          torch.ones(2 * t * b_cap, dtype=torch.bool,
                                      device=dev)])
-    rank = torch.cat([torch.zeros(e_per, dtype=torch.int32, device=dev),
-                      1 + torch.arange(2 * b_cap, dtype=torch.int32,
+    rank = torch.cat([torch.zeros(n_old, dtype=torch.int32, device=dev),
+                      1 + torch.arange(2 * t * b_cap, dtype=torch.int32,
                                        device=dev) // 2])
     return all_src, all_dst, all_w, rank, is_batch
 
 
-def sorted_shard_batch_slots(spec: ShardedGraphSpec, shard_ix: int, *args,
-                             **kwargs):
+def sorted_shard_batch_slots(spec: ShardedGraphSpec, shard_ix: int, src_l,
+                             dst_l, w_l, b_src, *args, **kwargs):
     """The sorted slot list that K4 resolves in one rank's batch apply:
     ``(s_src, s_dst, s_w, s_batch)`` (``shard_batch_slots``'s arguments;
-    ``sent`` is ``spec.sentinel``)."""
-    return sort_slots(*shard_batch_slots(spec, shard_ix, *args, **kwargs),
-                      spec.sentinel)
+    ``sent`` is its layout's sentinel, the flat one over lanes)."""
+    n_lanes = b_src.shape[0] if b_src.dim() == 2 else 1
+    return sort_slots(*shard_batch_slots(spec, shard_ix, src_l, dst_l, w_l,
+                                         b_src, *args, **kwargs),
+                      LaneLayout(spec, n_lanes).flat.sentinel)
 
 
 def apply_batch_shard(spec: ShardedGraphSpec, shard_ix: int, src_l, dst_l,
-                      w_l, b_src, b_dst, b_w, b_valid: int,
-                      n_limit: Optional[int] = None, backend: str = "auto"):
+                      w_l, b_src, b_dst, b_w, b_valid,
+                      n_limit=None, backend: str = "auto"):
     """One rank's batch apply: the batch's directed slots that rank
     ``shard_ix`` owns (``shard_batch_slots``), resolved against its
     ``(e_per_shard,)`` slots by the single-device apply's sort-reduce, so
@@ -116,13 +148,24 @@ def apply_batch_shard(spec: ShardedGraphSpec, shard_ix: int, src_l, dst_l,
     the uncapped live slot count (a 0-d tensor; above ``e_per_shard`` the
     apply overflowed) and ``touched_own`` marks the owned vertices whose
     incident weights changed.
+
+    Over the T lanes of a sharded fleet bucket (``shard_batch_slots``) it
+    is still one slot-list build, one stable key sort and one group
+    resolve (ONE K4 launch for all lanes); each lane's records then compact
+    into its own ``e_per_shard`` block (``sort_reduce_apply_slots`` with
+    ``lanes``), touched_own is the rank's (T * v_per,) flat block and
+    e_new the (T,) per-lane counts: a lane above ``e_per_shard`` (a whale)
+    leaves the others as they would be alone.
     """
-    sent, v_per = spec.sentinel, spec.v_per_shard
+    n_lanes = b_src.shape[0] if b_src.dim() == 2 else 1
+    flat = LaneLayout(spec, n_lanes).flat
+    sent, v_per = flat.sentinel, flat.v_per_shard
     v0 = int(shard_ix) * v_per
     out_src, out_dst, out_w, e_new, chg_src, _ = sort_reduce_apply_slots(
         *shard_batch_slots(spec, shard_ix, src_l, dst_l, w_l, b_src, b_dst,
                            b_w, b_valid, n_limit),
-        sent, spec.e_per_shard, backend)
+        sent, spec.e_per_shard, backend,
+        lanes=(v0, spec.v_per_shard, n_lanes))
     # Every changed slot's src is owned here (K4 records one per changed
     # group, the sort chain every slot of it: read as a set); the mirror
     # rank marks the other endpoint through its own (v, u) slot.
@@ -130,12 +173,12 @@ def apply_batch_shard(spec: ShardedGraphSpec, shard_ix: int, src_l, dst_l,
                       0, v_per).to(torch.int64)
     touched = torch.zeros(v_per + 1, dtype=torch.bool, device=src_l.device)
     touched[loc] = True
-    return out_src, out_dst, out_w, touched[:v_per], e_new
+    return (out_src, out_dst, out_w, touched[:v_per],
+            e_new if b_src.dim() == 2 else e_new[0])
 
 
 def sharded_batch_apply(group: ShardGroup, spec: ShardedGraphSpec, src_l,
-                        dst_l, w_l, batch: EdgeBatch, n_valid: int,
-                        n_limit: Optional[int] = None,
+                        dst_l, w_l, batch, n_valid, n_limit=None,
                         backend: str = "auto"):
     """The batch apply of one rank of ``group`` (the reference's
     ``make_sharded_batch_apply``): ``apply_batch_shard`` on its slots, one
@@ -144,20 +187,33 @@ def sharded_batch_apply(group: ShardGroup, spec: ShardedGraphSpec, src_l,
     e_max, n_valid')``: the replicated touched mask, the largest rank's
     slot count and the valid-vertex prefix extended past the highest
     touched id, both host ints read from replicated values in one
-    transfer."""
+    transfer.
+
+    ``batch`` may be a ``FleetBatch`` of the T lanes of a sharded fleet
+    bucket, with T live counts ``n_valid`` and T limits ``n_limit`` (the
+    tenants' n_cap, which may differ within a bucket): the slots and the
+    touched mask are then the flat ones of their ``LaneLayout``, and
+    e_max and n_valid' are (T,) host arrays, all read in one transfer."""
+    lanes_in = batch.src.dim() == 2
+    n_lanes = batch.src.shape[0] if lanes_in else 1
+    lanes = LaneLayout(spec, n_lanes)
     src2, dst2, w2, touched_own, e_new = apply_batch_shard(
         spec, group.shard_index(), src_l, dst_l, w_l, batch.src, batch.dst,
         batch.weight, batch.b_valid, n_limit, backend)
     touched = torch.cat([group.all_gather(touched_own),
                          torch.zeros(1, dtype=torch.bool,
                                      device=touched_own.device)])
-    idx = torch.arange(spec.n_pad + 1, device=touched.device)
-    top = torch.max(torch.where(touched, idx, -1))
-    e_max, top = torch.stack([group.pmax(e_new.to(torch.int64)),
-                              top.to(torch.int64)]).cpu().tolist()
+    idx = torch.arange(spec.n_pad, device=touched.device)
+    top = torch.max(torch.where(lanes.rows(touched), idx, -1), 1).values
+    host = torch.cat([group.pmax(e_new.to(torch.int64).view(n_lanes)),
+                      top.to(torch.int64)]).cpu().numpy()
     group.branch_reads += 1
-    return (src2, dst2, w2, touched, int(e_max),
-            max(int(n_valid), int(top) + 1))
+    e_max = host[:n_lanes]
+    nv = np.maximum(np.asarray(n_valid, np.int64).reshape(n_lanes),
+                    host[n_lanes:] + 1)
+    if not lanes_in:
+        return src2, dst2, w2, touched, int(e_max[0]), int(nv[0])
+    return src2, dst2, w2, touched, e_max, nv
 
 
 def _grow_slots(spec: ShardedGraphSpec, src_l, dst_l, w_l,
@@ -195,6 +251,9 @@ class ShardedDynamicResult:
     comm_rounds: int = 0                  # engine rounds across the stream
     comm_fallback_rounds: int = 0         # rounds the delta caps overflowed
     bytes_on_wire: int = 0                # priced move-phase bytes
+    #: Bytes the move phases handed to the collectives, over all ranks
+    #: (the port's wire; ``bytes_on_wire`` keeps the reference's price).
+    wire_bytes: int = 0
     reshard_passes: int = 0               # skew-aware owner re-shards
     reshard_bytes: int = 0                # their priced one-time bytes
     #: Worst rank load fraction before / after a re-shard across the
@@ -291,7 +350,7 @@ def louvain_dynamic_sharded(
                    reshard=config.reshard,
                    pipeline_fetch=config.pipeline_fetch)
     acc = dict(comm_rounds=0, comm_fallback_rounds=0, bytes_on_wire=0,
-               halo_bytes=0, reshard_passes=0, reshard_bytes=0,
+               wire_bytes=0, halo_bytes=0, reshard_passes=0, reshard_bytes=0,
                coarse_e_per_max=0, pass_seconds_total=0.0,
                max_shard_load_frac_before=None,
                max_shard_load_frac_after=None)
@@ -303,6 +362,7 @@ def louvain_dynamic_sharded(
         acc["comm_fallback_rounds"] += sum(r["comm_fallback_rounds"]
                                            for r in rows)
         acc["bytes_on_wire"] += sum(r["comm_bytes"] for r in rows)
+        acc["wire_bytes"] += sum(r["wire_bytes"] for r in rows)
         acc["halo_bytes"] += sum(r["halo_bytes"] for r in rows)
         acc["pass_seconds_total"] += sum(r["seconds"] for r in rows)
         for r in rows[1:]:      # coarse tiers only (row 0 is the fine pass)

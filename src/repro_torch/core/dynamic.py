@@ -27,7 +27,12 @@ from repro_torch.core.delta import EdgeBatch, apply_edge_batch
 from repro_torch.core.engine import affected_frontier, normalize_screening
 from repro_torch.core.graph import CSRGraph
 from repro_torch.core.louvain import (LouvainConfig, LouvainResult, louvain,
-                                      membership_modularity, pad_membership)
+                                      membership_modularity, pad_membership,
+                                      screened_frontier)
+
+#: The frontier rule under its historical single-device name (the
+#: engine's ``affected_frontier``, shared with the sharded layout).
+delta_frontier = screened_frontier
 
 
 @dataclasses.dataclass

@@ -15,7 +15,7 @@ sweep's dQ) from the device per sweep.  The streaming seed-frontier policy
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -57,8 +57,10 @@ class MoveState:
     masks the vertices of the streams still sweeping.  ``MoveEngine.run``
     hands one stream's back as a host int and 0-d tensors.  ``sizes`` is
     the (sent + 1,) community-size array a scanner with ``exchange_round``
-    maintains across rounds (None otherwise); ``comm_fb`` counts the rounds
-    its exchange fell back to the dense path."""
+    maintains across rounds (None otherwise); ``comm_fb`` counts, per
+    stream, the rounds its exchange fell back to the dense path (an (S,)
+    host int array; ``MoveEngine.run`` hands one stream's back as an
+    int)."""
 
     comm: torch.Tensor
     sigma: torch.Tensor
@@ -68,7 +70,7 @@ class MoveState:
     dq_sum: torch.Tensor
     live: torch.Tensor
     sizes: Optional[torch.Tensor] = None
-    comm_fb: int = 0
+    comm_fb: Union[np.ndarray, int] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,10 +122,11 @@ class MoveEngine:
     (sent + 1,) int32 sizes in place of the engine's reduction; and
     ``exchange_round(comm, sigma, sizes, comm_l, do_move, best_c,
     dq_local)`` -> (comm', sigma', sizes', moved (sent + 1,) bool,
-    fallback 0/1 host int, dq), which replaces the Sigma / membership /
-    moved-mask / dQ exchange with the backend's own.  A scanner with
-    ``exchange_round`` keeps the sizes across rounds (seeded once per
-    phase by ``community_sizes``) instead of reducing them every round.
+    fallback (n_streams,) host 0/1 ints, dq), which replaces the Sigma /
+    membership / moved-mask / dQ exchange with the backend's own.  A
+    scanner with ``exchange_round`` keeps the sizes across rounds (seeded
+    once per phase by ``community_sizes``) instead of reducing them every
+    round.
     """
 
     def __init__(self, scanner, config: EngineConfig):
@@ -211,7 +214,8 @@ class MoveEngine:
         dev = comm0.device
         zero = torch.zeros(sc.n_streams, dtype=torch.float32, device=dev)
         st = MoveState(comm0, sigma0, frontier0,
-                       np.zeros(sc.n_streams, np.int64), zero, zero, None)
+                       np.zeros(sc.n_streams, np.int64), zero, zero, None,
+                       comm_fb=np.zeros(sc.n_streams, np.int64))
         if getattr(sc, "exchange_round", None) is not None:
             st.sizes = sc.community_sizes(comm0, sc.comm_local(comm0))
         dq = np.full(sc.n_streams, np.inf, np.float32)  # >= 1 sweep each
@@ -231,7 +235,8 @@ class MoveEngine:
             dq = np.where(running, st.dq.cpu().numpy(), dq)
         if np.ndim(tolerance) == 0:
             return dataclasses.replace(st, iters=int(st.iters[0]),
-                                       dq=st.dq[0], dq_sum=st.dq_sum[0])
+                                       dq=st.dq[0], dq_sum=st.dq_sum[0],
+                                       comm_fb=int(st.comm_fb[0]))
         return st
 
 

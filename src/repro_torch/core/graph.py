@@ -409,6 +409,32 @@ class FleetGraph:
             n_streams=self.n_streams, sentinel=self.sentinel)
 
 
+def lane_positions(keep: torch.Tensor, pos: torch.Tensor,
+                   lane: torch.Tensor, n_lanes: int):
+    """Per-lane positions of the records of one group resolve (K3/K4 or
+    their sort chains) over a slot list keyed lane by lane.
+
+    ``keep`` marks the records to write, ``pos`` is each one's rank among
+    all kept records, ``lane`` each record's lane (int32, never decreasing
+    along the list: the records follow the sorted slot list, K3/K4's first
+    one carrying the phantom key -2, so its lane may be negative, and dead
+    keys fall at or past ``n_lanes``).  A lane's records are then
+    contiguous, and a record's position in its lane is ``pos`` minus the
+    kept records before the lane's first.  Returns ``(lane_k, lpos,
+    counts)``: the lane of each kept record (``n_lanes`` elsewhere), its
+    position in its lane, and the (n_lanes,) int32 kept counts."""
+    dev = keep.device
+    first = torch.searchsorted(lane, torch.arange(
+        n_lanes + 1, dtype=lane.dtype, device=dev))
+    kept = torch.cumsum(keep, 0, dtype=torch.int32)
+    offs = torch.where(first > 0, kept[torch.clamp(first - 1, min=0)], 0)
+    del kept
+    counts = offs[1:] - offs[:-1]
+    lane_k = torch.where(keep, lane, n_lanes)
+    lpos = pos.to(torch.int32) - torch.index_select(offs, 0, lane_k)
+    return lane_k, lpos, counts
+
+
 def scatter_fleet_records(fleet: FleetGraph, keep: torch.Tensor,
                           pos: torch.Tensor, r_src: torch.Tensor,
                           r_dst: torch.Tensor, r_w: torch.Tensor,
@@ -418,15 +444,11 @@ def scatter_fleet_records(fleet: FleetGraph, keep: torch.Tensor,
     buffers of ``e_cap`` slots.
 
     ``keep`` marks the records to write, ``pos`` is each one's rank among
-    all kept records of the fleet.  The records follow the sorted slot
-    list (each on or next to its group's slots, K3/K4's first one carrying
-    the phantom key -2), so their keys' streams never decrease along it:
-    a stream's records are contiguous, and a record's position in its
-    stream is ``pos`` minus the kept records before the stream's first.
-    Records past ``e_cap`` are dropped (an overflow the caller reads from
-    the counts).  Returns ``(src, dst, w, counts, indptr)``: (S, e_cap)
-    buffers in stream-local ids, the (S,) uncapped kept counts as a device
-    tensor, and the (S, n_cap + 1) CSR offsets.
+    all kept records; a stream's records are contiguous
+    (``lane_positions``).  Records past ``e_cap`` are dropped (an overflow
+    the caller reads from the counts).  Returns ``(src, dst, w, counts,
+    indptr)``: (S, e_cap) buffers in stream-local ids, the (S,) uncapped
+    kept counts as a device tensor, and the (S, n_cap + 1) CSR offsets.
     """
     S, n_cap = fleet.n_streams, fleet.n_cap
     N, sent = n_cap + 1, fleet.sentinel
@@ -435,16 +457,8 @@ def scatter_fleet_records(fleet: FleetGraph, keep: torch.Tensor,
     # sentinel G = S * N of the dead keys falls in "stream" S, the phantom
     # key -2 in "stream" -1.
     r_src, r_dst = r_src.to(torch.int32), r_dst.to(torch.int32)
-    stream_all = torch.div(r_src, N, rounding_mode="floor")
-    first = torch.searchsorted(stream_all, torch.arange(
-        S + 1, dtype=torch.int32, device=dev))
-    kept = torch.cumsum(keep, 0, dtype=torch.int32)
-    offs = torch.where(first > 0, kept[torch.clamp(first - 1, min=0)], 0)
-    del kept
-    counts = offs[1:] - offs[:-1]
-    stream = torch.where(keep, stream_all, S)
-    del stream_all
-    lpos = pos.to(torch.int32) - torch.index_select(offs, 0, stream)
+    stream, lpos, counts = lane_positions(
+        keep, pos, torch.div(r_src, N, rounding_mode="floor"), S)
     ok = keep & (lpos < e_cap)
     base = stream * N
     loc_src = torch.where(ok, r_src - base, n_cap)

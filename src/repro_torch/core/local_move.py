@@ -17,7 +17,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.engine import (ConstrainedScanner, EngineConfig,
-                                     MoveEngine, ReplicatedScannerBase,
+                                     MoveEngine, MoveState,
+                                     ReplicatedScannerBase,
                                      mask_cross_outer_slots, sanitize_outer)
 from repro_torch.core.graph import CSRGraph, scatter_slots, segment_sum
 from repro_torch.core.modularity import delta_modularity
@@ -43,6 +44,14 @@ def _scan_communities_slots(src, dst, w, comm):
     gid = torch.cumsum(new_group, 0) - 1
     group_w = segment_sum(s_w, gid, src.shape[0])
     return order, s_src, s_c, group_w[gid]
+
+
+def scan_communities_sorted(graph: CSRGraph, comm: torch.Tensor):
+    """Group the graph's edge slots by (src, C[dst]) and compute K_{i->c}
+    per slot: (order, s_src, s_c, k_i_to_c) in sorted slot order,
+    self-loop slots contributing 0."""
+    return _scan_communities_slots(graph.src, graph.indices, graph.weights,
+                                   comm)
 
 
 def best_moves_slots(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
@@ -188,6 +197,22 @@ def cross_outer_masked(graph: CSRGraph, refine_outer: torch.Tensor):
     return outer, dataclasses.replace(graph, indices=dst, weights=w)
 
 
+def _move_engine(graph: CSRGraph, k, m, *, max_iterations: int,
+                 use_pruning: bool, gate_fraction: int, work_cap: int,
+                 refine_outer: Optional[torch.Tensor]) -> MoveEngine:
+    """The engine of one sort-reduce move phase (see ``move_phase``)."""
+    if refine_outer is not None:
+        outer, graph = cross_outer_masked(graph, refine_outer)
+    scanner = (CompactSortReduceScanner(graph, k, m, work_cap) if work_cap
+               else SortReduceScanner(graph, k, m))
+    if refine_outer is not None:
+        scanner = ConstrainedScanner(scanner, outer,
+                                     gate_fraction=gate_fraction)
+    return MoveEngine(scanner, EngineConfig(
+        max_iterations=max_iterations, use_pruning=use_pruning,
+        gate_fraction=gate_fraction))
+
+
 def move_phase(graph: CSRGraph, comm0, sigma0, frontier0, tolerance: float,
                *, max_iterations: int = 20, use_pruning: bool = True,
                gate_fraction: int = 2, work_cap: int = 0,
@@ -206,17 +231,32 @@ def move_phase(graph: CSRGraph, comm0, sigma0, frontier0, tolerance: float,
     (an (S,) array): then each stream stops on its own dQ
     (``MoveEngine.run``), and ``iters`` and ``dq_sum`` are per stream.
     """
-    k = graph.vertex_weights()
-    m = graph.total_weight()
-    if refine_outer is not None:
-        outer, graph = cross_outer_masked(graph, refine_outer)
-    scanner = (CompactSortReduceScanner(graph, k, m, work_cap) if work_cap
-               else SortReduceScanner(graph, k, m))
-    if refine_outer is not None:
-        scanner = ConstrainedScanner(scanner, outer,
-                                     gate_fraction=gate_fraction)
-    engine = MoveEngine(scanner, EngineConfig(
+    st = _move_engine(
+        graph, graph.vertex_weights(), graph.total_weight(),
         max_iterations=max_iterations, use_pruning=use_pruning,
-        gate_fraction=gate_fraction))
-    st = engine.run(comm0, sigma0, frontier0, tolerance)
+        gate_fraction=gate_fraction, work_cap=work_cap,
+        refine_outer=refine_outer).run(comm0, sigma0, frontier0, tolerance)
     return st.comm, st.iters, st.dq_sum
+
+
+def louvain_move(graph: CSRGraph, comm: torch.Tensor, sigma: torch.Tensor,
+                 k: torch.Tensor, m: torch.Tensor, *, tolerance,
+                 max_iterations: int = 20, use_pruning: bool = True,
+                 gate_fraction: int = 2,
+                 frontier0: Optional[torch.Tensor] = None,
+                 work_cap: int = 0,
+                 refine_outer: Optional[torch.Tensor] = None) -> MoveState:
+    """Algorithm 2 on the sort-reduce backend with the caller's K and m
+    (the reference's adapter; ``move_phase`` computes them from the graph):
+    returns the engine's ``MoveState``.  ``comm``/``sigma`` may be any
+    consistent start (a warm start passes the previous membership);
+    ``frontier0`` restricts the first round to a seed set, ``None`` meaning
+    every valid vertex; ``work_cap`` and ``refine_outer`` as in
+    ``move_phase``."""
+    valid = (torch.arange(graph.n_cap + 1, device=graph.device)
+             < graph.n_valid)
+    frontier0 = valid if frontier0 is None else (frontier0 & valid)
+    return _move_engine(
+        graph, k, m, max_iterations=max_iterations, use_pruning=use_pruning,
+        gate_fraction=gate_fraction, work_cap=work_cap,
+        refine_outer=refine_outer).run(comm, sigma, frontier0, tolerance)

@@ -312,3 +312,90 @@ def test_policy_knobs_reject_unknown_values():
     assert tarch.STATE_LAYOUTS == jarch.STATE_LAYOUTS
     assert tarch.COMM_BACKENDS == jarch.COMM_BACKENDS
     assert tarch.resolve_reshard("auto") == jarch.resolve_reshard("auto")
+
+
+# -- lane-batched primitives -------------------------------------------------------
+
+@pytest.mark.parametrize("width", [1, 5, 13, 32])
+@pytest.mark.parametrize("rows,count", [(1, 7), (3, 33), (4, 0), (2, 64)])
+def test_pack_bits_rows_equal_each_row_alone(width, rows, count):
+    """A (rows, count) batch packs and unpacks row by row exactly as each
+    row would alone (a sharded fleet's lanes)."""
+    rng = np.random.default_rng(width * 100 + rows)
+    vals = rng.integers(0, 2 ** min(width, 31), (rows, count)).astype(
+        np.int64)
+    packed = tcomm.pack_bits(t(vals), width)
+    for r in range(rows):
+        alone = tcomm.pack_bits(t(vals[r]), width)
+        assert torch.equal(packed[r], alone)
+    back = tcomm.unpack_bits(packed, width, count)
+    np.testing.assert_array_equal(back.numpy().astype(np.int64) & (
+        (1 << width) - 1), vals)
+
+
+@pytest.mark.parametrize("cap", [1, 4, 9])
+def test_compact_and_touched_rows_equal_each_row_alone(cap):
+    rng = np.random.default_rng(cap)
+    flag = rng.random((3, 12)) < 0.4
+    vals = rng.integers(0, 50, (3, 12)).astype(np.int32)
+    delta = rng.random((3, 12)).astype(np.float32)
+    got = tcomm.compact_movers(t(flag), t(vals), cap, -7)
+    got_t = tcomm.topk_touched_deltas(t(delta), t(flag), cap, 10)
+    for r in range(3):
+        want = tcomm.compact_movers(t(flag[r]), t(vals[r]), cap, -7)
+        want_t = tcomm.topk_touched_deltas(t(delta[r]), t(flag[r]), cap, 10)
+        for a, b in zip(got, want):
+            assert torch.equal(a[r], b)
+        for a, b in zip(got_t, want_t):
+            assert torch.equal(a[r], b)
+
+
+# -- wire_bytes against comm_bytes ---------------------------------------------------
+
+def expected_wire_bytes(row: dict, n_shards: int) -> int:
+    """The bytes a pass row's move and refine phases hand to the
+    collectives over all ranks, from the row's priced ``comm_bytes`` (less
+    its re-shard cost) and the port's stated excess per rank and round:
+    ``4 * (n_pad + 1)`` B in a replicated gather round and in every
+    fallback round, ``4 * touched_cap`` B in every hybrid round, and one
+    more resync (``4 * v_per``) in a hybrid Leiden pass
+    (``distributed.sharded_louvain_passes``)."""
+    rep = row["n_pad"] + 1
+    v_per = row["n_pad"] // n_shards
+    rounds = row["comm_rounds"]
+    fb = min(row["comm_fallback_rounds"], rounds)
+    hybrid = row["state_layout"] == "hybrid"
+    gather = row["comm_backend"] == "gather"
+    excess = 4 * rep * (rounds if gather and not hybrid else fb)
+    if hybrid:
+        tcap = 2 * v_per if gather else tarch.hybrid_touched_cap(v_per)
+        excess += 4 * tcap * rounds
+        if row["refine_iterations"] is not None:
+            excess += 4 * v_per          # the refine phase's own resync
+    return row["comm_bytes"] - row["reshard_bytes"] + n_shards * excess
+
+
+@pytest.mark.parametrize("refine", ["none", "leiden"])
+@pytest.mark.parametrize("layout", ["replicated", "hybrid"])
+@pytest.mark.parametrize("backend", ["gather", "delta"])
+def test_wire_bytes_keep_their_stated_relation_at_world_size_one(
+        backend, layout, refine):
+    """Each pass row's ``wire_bytes`` is its ``comm_bytes`` plus the
+    port's stated excess; hybrid rounds ship exactly 4 * touched_cap B more
+    a rank, a delta round exactly its price."""
+    from repro_torch import ShardGroup, distributed_louvain, sbm_graph
+    g, _ = sbm_graph(8, 16, 0.4, 0.01, seed=2, device="cpu")
+    _, _, rows = distributed_louvain(g, ShardGroup.single("cpu"),
+                                     comm_backend=backend,
+                                     state_layout=layout, refine=refine)
+    for row in rows:
+        assert row["wire_bytes"] == expected_wire_bytes(row, 1), row
+    if backend == "delta" and layout == "replicated":
+        assert all(r["wire_bytes"] == r["comm_bytes"] for r in rows
+                   if r["comm_fallback_rounds"] == 0)
+    if layout == "hybrid" and backend == "delta" and refine == "none":
+        row = rows[0]
+        hyb = tarch.hybrid_touched_cap(row["n_pad"])
+        assert (row["wire_bytes"] - row["comm_bytes"]
+                == 4 * hyb * row["comm_rounds"]
+                + 4 * (row["n_pad"] + 1) * row["comm_fallback_rounds"])

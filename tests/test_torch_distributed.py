@@ -299,6 +299,19 @@ def test_four_gloo_ranks_reproduce_the_goldens(gold, four_ranks):
                for o in out)
 
 
+def test_four_gloo_ranks_wire_bytes_keep_their_relation(four_ranks):
+    """Every pass row of the 4-rank runs (gather, delta, the hybrid
+    layout of ``"auto"``, a re-shard) hands the collectives its priced
+    bytes plus the port's stated excess, the same on every rank."""
+    from test_torch_comm import expected_wire_bytes
+    runs, out = four_ranks
+    for i in range(len(runs) - 1):
+        for r in range(4):
+            for row in out[r]["results"][i][2]:
+                assert row["wire_bytes"] == expected_wire_bytes(row, 4), (
+                    runs[i], row)
+
+
 def test_four_gloo_ranks_retry_an_aggregation_overflow(four_ranks):
     """gnp's pass-0 communities (ids 0 .. 30) fall on ranks 0 and 1 of the
     seed owner map, and rank 0 owns more coarse edges than its 200 slots:

@@ -365,6 +365,26 @@ def test_result_fields_equal_reference_at_one_shard(holdout, cfg, kw):
                                                  abs=1e-5)
 
 
+@pytest.mark.parametrize("cfg", [
+    {"comm_backend": "gather"}, {"comm_backend": "delta"},
+    {"comm_backend": "gather", "state_layout": "hybrid"},
+    {"comm_backend": "delta", "state_layout": "hybrid"}],
+    ids=["gather", "delta", "hybrid-gather", "hybrid-delta"])
+def test_stream_wire_bytes_beside_the_priced_bytes(holdout, cfg):
+    """``wire_bytes`` sums the pass rows' wire beside ``bytes_on_wire``, the
+    reference's price: equal for a delta stream whose rounds never fell
+    back, above it for the gather exchange and the hybrid layout."""
+    _, init, jbatches, prev = holdout
+    res = louvain_dynamic_sharded(to_port(init), ONE,
+                                  to_port_batches(jbatches), prev=prev,
+                                  config=LouvainConfig(**cfg))
+    if cfg == {"comm_backend": "delta"} and res.comm_fallback_rounds == 0:
+        assert res.wire_bytes == res.bytes_on_wire
+    else:
+        assert res.wire_bytes > res.bytes_on_wire
+    assert res.comm_rounds > 0
+
+
 # -- four gloo ranks ---------------------------------------------------------------
 
 STREAM_CONFIGS = [{}, {"comm_backend": "gather"},
@@ -400,6 +420,9 @@ def test_four_ranks_equal_world_size_one(gold, four_ranks, i):
         np.testing.assert_array_equal(other.membership, res.membership)
         assert other.comm_rounds == res.comm_rounds
     assert res.spec.n_shards == 4
+    assert res.wire_bytes >= res.bytes_on_wire - res.reshard_bytes > 0
+    assert all(four_ranks[r]["results"][i].wire_bytes == res.wire_bytes
+               for r in range(1, 4))
     assert res.state_layout == cfg.get("state_layout", "replicated")
     if i == len(STREAM_CONFIGS):
         assert res.n_regrows >= 1

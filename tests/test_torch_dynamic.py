@@ -181,6 +181,84 @@ def test_compact_move_phase_equals_reference(corpora, work_cap):
     assert compact_work_cap(10) == 10 and compact_work_cap(10 ** 6) == 250000
 
 
+@pytest.mark.parametrize("refine", [False, True])
+@pytest.mark.parametrize("work_cap", [0, 64])
+@pytest.mark.parametrize("name", ["sbm", "gnp"])
+def test_louvain_move_equals_reference(corpora, name, work_cap, refine):
+    """``local_move.louvain_move``, the reference's engine adapter with the
+    caller's K and m (a seed frontier masked to the valid vertices, the
+    compacted scanner, the constrained sweep)."""
+    from repro.core.local_move import louvain_move as jlouvain_move
+    from repro_torch.core.local_move import louvain_move
+    jg = corpora[name]
+    tg = to_port(jg)
+    n_cap = tg.n_cap
+    rng = np.random.default_rng(3)
+    front = rng.random(n_cap + 1) < 0.3
+    outer = rng.integers(0, 4, n_cap + 1).astype(np.int32)
+    kw = dict(work_cap=work_cap, max_iterations=20, gate_fraction=2)
+    comm0 = np.arange(n_cap + 1, dtype=np.int32)
+    want = jlouvain_move(jg, jnp.asarray(comm0), jg.vertex_weights(),
+                         jg.vertex_weights(), jg.total_weight(),
+                         tolerance=jnp.float32(0.01),
+                         frontier0=jnp.asarray(front),
+                         refine_outer=jnp.asarray(outer) if refine else None,
+                         **kw)
+    got = louvain_move(tg, torch.from_numpy(comm0), tg.vertex_weights(),
+                       tg.vertex_weights(), tg.total_weight(),
+                       tolerance=0.01, frontier0=torch.from_numpy(front),
+                       refine_outer=torch.from_numpy(outer) if refine
+                       else None, **kw)
+    np.testing.assert_array_equal(got.comm.numpy(), np.asarray(want.comm))
+    assert got.iters == int(want.iters)
+    assert float(got.dq_sum) == pytest.approx(float(want.dq_sum), rel=1e-6)
+    # No seed frontier: every valid vertex, as move_phase's cold start.
+    full = louvain_move(tg, torch.from_numpy(comm0), tg.vertex_weights(),
+                        tg.vertex_weights(), tg.total_weight(),
+                        tolerance=0.01)
+    cold = move_phase(tg, torch.from_numpy(comm0), tg.vertex_weights(),
+                      torch.from_numpy(comm0) < tg.n_valid, 0.01)
+    assert torch.equal(full.comm, cold[0]) and full.iters == cold[1]
+
+
+@pytest.mark.parametrize("name", ["lesmis", "gnp"])
+def test_scan_communities_sorted_equals_reference(corpora, name):
+    from repro.core.local_move import scan_communities_sorted as jscan
+    from repro_torch.core.local_move import scan_communities_sorted
+    jg = corpora[name]
+    rng = np.random.default_rng(5)
+    comm = rng.integers(0, 6, jg.n_cap + 1).astype(np.int32)
+    comm[-1] = jg.n_cap
+    want = jscan(jg, jnp.asarray(comm))
+    got = scan_communities_sorted(to_port(jg), torch.from_numpy(comm))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("mode", ["community", "vertex"])
+def test_delta_frontier_equals_reference(mode):
+    """``dynamic.delta_frontier``, the historical alias of the screening
+    rule, on the reference's case and random ones."""
+    from repro.core.dynamic import delta_frontier as jdelta
+    from repro_torch.core.dynamic import delta_frontier
+    assert delta_frontier is screened_frontier
+    cases = [(np.array([0, 0, 2, 2, 4, 4, 6], np.int32),
+              np.array([1, 0, 0, 0, 0, 0, 0], bool), 6)]
+    rng = np.random.default_rng(2)
+    for _ in range(5):
+        n_cap = 30
+        mem = rng.integers(0, n_cap + 3, n_cap + 1).astype(np.int32)
+        mem[-1] = n_cap
+        cases.append((mem, rng.random(n_cap + 1) < 0.1,
+                      int(rng.integers(1, n_cap + 1))))
+    for mem, touched, n_valid in cases:
+        want = jdelta(jnp.asarray(touched), jnp.asarray(mem),
+                      jnp.int32(n_valid), mode)
+        got = delta_frontier(torch.from_numpy(touched),
+                             torch.from_numpy(mem), n_valid, mode)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("case", ["membership", "frontier", "both"])
 @pytest.mark.parametrize("name", ["lesmis", "sbm", "ring_of_cliques", "gnp"])
 def test_warm_louvain_equals_reference(corpora, name, case):

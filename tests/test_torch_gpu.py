@@ -8,7 +8,9 @@ the solo ones, with K3/K4 launched once per fleet operation, and the
 sharded drivers: their sbm goldens through NCCL at world size 1 (the
 hybrid state layout and ``louvain_dynamic_sharded`` included), K3 in the
 aggregation, K4 in each rank's batch apply, and staged gloo ranks on the
-one card.
+one card; and the multi-tenant sharded serving fleet (``serve_fleet``):
+its goldens through NCCL, the whale and fallback paths against the solo
+driver, and K4 over a bucket's flat, lane-keyed slot list.
 
 Every test here is marked ``gpu`` and skips without a card (the decision is
 made inside the ``cuda`` fixture, never at import).  The machine with the
@@ -993,3 +995,126 @@ def test_staged_gloo_ranks_hybrid_and_stream_equal_world_size_one(
             np.testing.assert_array_equal(mem, want)
         np.testing.assert_array_equal(o["results"][2].membership,
                                       gold["sharded_dynamic__sbm_stream"])
+
+
+# ---------------------------------------------------------------------------
+# The multi-tenant sharded serving fleet on the card.
+# ---------------------------------------------------------------------------
+
+def _ring_whale(dev, n=64, n_batches=8, k=12):
+    """A sparse ring whose envelope is tight and dense insert batches that
+    blow through it (the reference's ``tests/test_fleet.py`` whale)."""
+    s = np.arange(n, dtype=np.int64)
+    d = (s + 1) % n
+    g = build_csr(np.concatenate([s, d]), np.concatenate([d, s]),
+                  np.ones(2 * n, np.float32), n, e_cap=2 * n + 4 * k,
+                  device=dev)
+    rng = np.random.default_rng(7)
+    batches = []
+    for _ in range(n_batches):
+        bs = rng.integers(0, n, k)
+        bd = (bs + 2 + rng.integers(0, n - 3, k)) % n
+        batches.append(make_edge_batch(bs, bd, np.ones(k, np.float32),
+                                       g.n_cap, b_cap=k, device=dev))
+    return g, batches
+
+
+@pytest.mark.parametrize("state_layout", ["replicated", "hybrid"])
+@pytest.mark.parametrize("n_tenants", [1, 2])
+def test_fleet_sbm_goldens_through_nccl(nccl_group, cuda, n_tenants,
+                                        state_layout):
+    """One tenant and two in one bucket reach ``sharded_dynamic__sbm_stream``
+    through NCCL, K4 launched once per bucket dispatch."""
+    from repro_torch import serve_fleet
+    gold = np.load(GOLDEN)
+    init, batches = sbm_edge_stream(device=cuda)
+    tids = "ab"[:n_tenants]
+    before = resolve.resolve_groups.launches
+    res = serve_fleet({t: init for t in tids}, {t: batches for t in tids},
+                      nccl_group, screening="community",
+                      config=LouvainConfig(state_layout=state_layout))
+    for t in tids:
+        np.testing.assert_array_equal(res.membership[t],
+                                      gold["sharded_dynamic__sbm_stream"])
+    assert resolve.resolve_groups.launches - before == res.n_dispatches == 8
+    assert (res.halo_bytes > 0) == (state_layout == "hybrid")
+
+
+def test_fleet_whale_and_fallback_equal_solo_on_the_card(nccl_group, cuda):
+    """The whale migrates and its buddy sails through; a fallback
+    configuration replays lanes through the solo pass loop (K3 in its
+    aggregations): every tenant equals its ``louvain_dynamic_sharded``."""
+    from repro_torch import FleetRouter, serve_fleet
+    whale = _ring_whale(cuda)
+    buddy_g, buddy_b, _ = sbm_holdout_stream(39, n_cap=128, e_cap=1400,
+                                             n_hold=24, n_steps=8, b_cap=8,
+                                             device=cuda)
+    cases = {"whale": whale, "buddy": (buddy_g, buddy_b)}
+    res = serve_fleet({t: c[0] for t, c in cases.items()},
+                      {t: c[1] for t, c in cases.items()}, nccl_group,
+                      screening="community")
+    assert res.n_migrations >= 1
+    for t, (g, b) in cases.items():
+        solo = louvain_dynamic_sharded(g, nccl_group, b,
+                                       screening="community")
+        np.testing.assert_array_equal(res.membership[t], solo.membership)
+    cfg = LouvainConfig(aggregation_tolerance=1.0, initial_tolerance=0.0)
+    router = FleetRouter(nccl_group, cfg, screening="community")
+    streams = {}
+    for tid, seed in (("a", 36), ("b", 37)):
+        g, b, _ = sbm_holdout_stream(seed, n_cap=128, e_cap=1400, n_hold=24,
+                                     n_steps=3, b_cap=8, device=cuda)
+        router.admit(tid, g, prev=np.arange(g.n_cap, dtype=np.int32),
+                     b_cap=8)
+        streams[tid] = (g, b)
+    k3 = coarsen.coarsen_groups.launches
+    res = router.serve({t: s[1] for t, s in streams.items()})
+    assert res.n_fallbacks > 0 and coarsen.coarsen_groups.launches > k3
+    for tid, (g, b) in streams.items():
+        solo = louvain_dynamic_sharded(
+            g, nccl_group, b, prev=np.arange(g.n_cap, dtype=np.int32),
+            config=cfg, screening="community")
+        np.testing.assert_array_equal(res.membership[tid], solo.membership)
+
+
+def test_fleet_bucket_k4_equals_plain_on_the_card(cuda):
+    """A 3-lane bucket of R-MAT tenants on each of 4 ranks: K4 on the
+    flat, lane-keyed sorted slot list equals the plain version bit for bit,
+    and the lane-batched apply through K4 equals the sort chain's."""
+    from repro_torch import rmat_graph
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.core import distributed_dynamic as dd
+    rng = np.random.default_rng(8)
+    graphs = [rmat_graph(12, 16, seed=s, device=cuda) for s in (9, 10, 11)]
+    parts = [dist_mod.partition_graph_host(g, 4, n_target=g.n_cap)
+             for g in graphs]
+    spec = parts[0][3]._replace(e_per_shard=max(
+        p[3].e_per_shard for p in parts) + 4096)
+    glob = [dist_mod.bucket_slots_host(s[s < p.sentinel], d[s < p.sentinel],
+                                       w[s < p.sentinel], spec)
+            for s, d, w, p in parts]
+    lanes = dist_mod.LaneLayout(spec, 3)
+    n_cap = graphs[0].n_cap
+    bs = torch.from_numpy(rng.integers(0, n_cap, (3, 2048))).to(
+        cuda, torch.int32)
+    bd = torch.from_numpy(rng.integers(0, n_cap, (3, 2048))).to(
+        cuda, torch.int32)
+    bw = torch.from_numpy(np.where(rng.random((3, 2048)) < 0.3, 0.0,
+                                   1.5).astype(np.float32)).to(cuda)
+    for rank in range(4):
+        alone = [dist_mod.rank_slice(*glob[i], spec, rank, cuda)
+                 for i in range(3)]
+        flat = lanes.flat_slots(alone)
+        args = (*flat, bs, bd, bw, [2048, 1000, 0], [n_cap] * 3)
+        slots = dd.sorted_shard_batch_slots(spec, rank, *args)
+        sent = lanes.flat.sentinel
+        got = resolve.resolve_groups(*slots, sent=sent)
+        want = resolve.resolve_groups_ref(*slots, sent=sent)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        before = resolve.resolve_groups.launches
+        k = dd.apply_batch_shard(spec, rank, *args, backend="kernel")
+        assert resolve.resolve_groups.launches == before + 1
+        srt = dd.apply_batch_shard(spec, rank, *args, backend="sort")
+        for a, b in zip(k, srt):
+            assert torch.equal(a, b)

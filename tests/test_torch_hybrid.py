@@ -24,6 +24,7 @@ from repro.compat import make_mesh
 from repro.core import distributed as jdist
 
 from repro_torch import ShardGroup, distributed_louvain
+from repro_torch.configs import louvain_arch as tarch
 from repro_torch.core import collectives, distributed as tdist
 from repro_torch.core.engine import EngineConfig, MoveEngine
 from repro_torch.interop import graph_from_numpy
@@ -246,6 +247,24 @@ def test_four_ranks_delta_fallback_rounds_appear(four_ranks):
         fb[cb] += sum(s["comm_fallback_rounds"] for s in stats)
     assert fb["gather"] == 0 and fb["delta"] > 0
     assert all(o["branch_reads"] > 0 for o in four_ranks)
+
+
+def test_four_ranks_hybrid_wire_bytes_keep_their_relation(four_ranks):
+    """On 4 ranks a hybrid round hands the collectives exactly 4 *
+    touched_cap B a rank more than its price (Sigma's add and sub as two
+    lanes), a hybrid fallback round also the dense size deltas."""
+    from test_torch_comm import expected_wire_bytes
+    for i in range(len(RUNS4) + len(NAMES)):
+        for row in four_ranks[0]["results"][i][2]:
+            assert row["wire_bytes"] == expected_wire_bytes(row, 4), row
+            if (row["state_layout"] == "hybrid"
+                    and row["comm_fallback_rounds"] == 0
+                    and row["refine_iterations"] is None
+                    and row["comm_backend"] == "delta"):
+                v_per = row["n_pad"] // 4
+                assert (row["wire_bytes"] - row["comm_bytes"]
+                        == 4 * 4 * tarch.hybrid_touched_cap(v_per)
+                        * row["comm_rounds"])
 
 
 @pytest.mark.parametrize("j", range(len(NAMES)), ids=NAMES)
