@@ -2,6 +2,7 @@
 """Drive the PyTorch port of GVE-Louvain on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--scale 22] [--streams 16] [--stream-scale 18]
+                          [--sharded-scale 18] [--seed 0]
 
 Run from the root of a checkout (it imports ``src/repro_torch``).  Phases,
 each timed; any failure exits non-zero:
@@ -87,7 +88,25 @@ each timed; any failure exits non-zero:
      first held against its plain version bit for bit and over 20 more
      calls), each ending on its phase 6 stream membership; (d) the fleet
      run of phase 7's staged launch (two tenants of its stream on 4 gloo
-     ranks) equal to that launch's ``louvain_dynamic_sharded`` stream.
+     ranks) equal to that launch's ``louvain_dynamic_sharded`` stream;
+ 10. graph workloads at full width: (a) a planted-class graph drawn on the
+     card at ogbn-products' published sizes (2,449,029 vertices,
+     30,929,570 pairs = 61,859,140 directed slots, 47 classes, 100
+     features); (b) ``louvain_partition`` onto 8 devices under the default
+     config (K3) and ``use_ell_kernel=True`` (K1 and K3), one partition
+     from both, against ``random_partition``, the first K3 launch and
+     the first K1 launch of each ELL bucket held against their plain
+     versions, the communities' Q in float64; (c) gin-tu (5 layers, d_hidden 64) on the
+     graph in Louvain order: the first step's loss and gradients against
+     float64, then 5 AdamW steps through ``build_gnn_step`` (finite,
+     falling loss), time a step, peak memory and a ``torch.profiler``
+     breakdown; (d) the halo step through NCCL at world size 1 equal to
+     (c)'s first step, and the halo layouts of 4 and 8 shards at
+     halo_frac 0.25 (measured halo against the cap and the all-gather);
+     (e) gat-cora on a full_graph_sm batch, gin-tu on 32 blocks sampled
+     from (a)'s graph at fanout (15, 10) and on the molecule batch; (f) 4
+     gloo ranks on the one card (the halo GIN, also with bf16 messages,
+     and the all-gather layout) equal to world size 1.
 
 Cut for time: phase 4's Leiden route through K2 (its ``ell_leiden__sbm``
 golden through K2 stays in phase 3), and phase 6's solo comparison to the
@@ -108,6 +127,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -159,6 +179,12 @@ KERNELS = {
     "resolve_groups_fleet_sharded": (
         "src/repro_torch/csrc/batch_apply.cu",
         "src/repro/kernels/batch_apply/resolve.py:134"),
+    # K3 and K1 in the Louvain partitioner of the graph workloads (phase
+    # 10).
+    "coarsen_groups_partition": ("src/repro_torch/csrc/coarsen.cu",
+                                 "src/repro/kernels/aggregate/coarsen.py:113"),
+    "louvain_fused_partition": ("src/repro_torch/csrc/louvain_scan.cu",
+                                "src/repro/kernels/louvain_scan/fused.py:111"),
 }
 
 #: Phase 5: the batch mix of the DF-Louvain dynamic evaluation (Sahu,
@@ -2353,6 +2379,544 @@ def phase_serving_fleet(torch, args, dev, report, tenants, staged):
         f"{fleet4.bytes_on_wire}, wire_bytes {fleet4.wire_bytes})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: graph workloads (the Louvain partitioner, GNN training).
+# ---------------------------------------------------------------------------
+
+#: Phase 10 (a): ogbn-products' published sizes (``GNN_SHAPES[
+#: "ogb_products"]``): vertices, undirected pairs (61,859,140 directed
+#: slots), classes and features.  The dataset is not in the repository, so
+#: a graph of these sizes is drawn from ``--seed``: PRODUCTS_INTRA of the
+#: pairs inside a planted class, the rest uniform.
+PRODUCTS_NODES = 2_449_029
+PRODUCTS_PAIRS = 30_929_570
+PRODUCTS_CLASSES = 47
+PRODUCTS_FEAT = 100
+PRODUCTS_INTRA = 0.8
+#: Devices of the partition (b) and shard counts of the halo layouts (d).
+PARTITION_DEVICES = 8
+HALO_SHARDS = (4, 8)
+GNN_STEPS = 5
+#: Phase 10's AdamW: no warmup, cosine to 0.1 over the steps taken.
+GNN_LR = 1e-4
+#: float32 against float64 (c), and the halo step against the plain one
+#: (d): relative error of the loss, and of each gradient tensor's largest
+#: entry.
+GNN_RTOL = 1e-4
+#: Phase 10 (f): gloo ranks on the one card.
+GNN_RANKS = 4
+
+
+def products_graph(torch, dev, n: int, n_pairs: int, seed: int):
+    """(classes, src, dst) of ``n_pairs`` undirected pairs over ``n``
+    vertices, drawn on the card from ``seed``: each vertex's class uniform
+    over PRODUCTS_CLASSES; a pair joins a uniform vertex u to a uniform
+    member of u's class (probability PRODUCTS_INTRA) or to a uniform
+    vertex; a pair (u, u) takes u + 1 instead."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    cls = torch.randint(PRODUCTS_CLASSES, (n,), generator=gen, device=dev)
+    members = torch.sort(cls, stable=True).indices
+    size = torch.bincount(cls, minlength=PRODUCTS_CLASSES)
+    off = torch.cumsum(size, 0) - size
+    u = torch.randint(n, (n_pairs,), generator=gen, device=dev)
+    cu = cls[u]
+    pick = (torch.rand(n_pairs, generator=gen, device=dev)
+            * size[cu]).long().clamp_max(size[cu] - 1)
+    v = torch.where(torch.rand(n_pairs, generator=gen, device=dev)
+                    < PRODUCTS_INTRA, members[off[cu] + pick],
+                    torch.randint(n, (n_pairs,), generator=gen, device=dev))
+    v = torch.where(v == u, (v + 1) % n, v)
+    return cls, u.to(torch.int32), v.to(torch.int32)
+
+
+@contextlib.contextmanager
+def first_call_recorded(module, name: str, key=None):
+    """Replace ``module.name`` (a by-name import of a kernel wrapper) with a
+    recorder that keeps clones of the first call's arguments and outputs
+    for each value of ``key(kwargs)`` (one entry, ``None``, without a
+    ``key``) and calls the wrapper itself, which counts its launches as
+    before."""
+    real = getattr(module, name)
+    seen = {}
+
+    def clone(a):
+        return a.clone() if hasattr(a, "clone") else a
+
+    def recorder(*args, **kwargs):
+        out = real(*args, **kwargs)
+        k = key(kwargs) if key else None
+        if k not in seen:
+            seen[k] = {"args": tuple(clone(a) for a in args),
+                       "kwargs": dict(kwargs),
+                       "out": tuple(o.clone() for o in out)}
+        return out
+
+    setattr(module, name, recorder)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def timed_calls(torch, module, name: str):
+    """Replace ``module.name`` with a wrapper that calls it between two
+    syncs and records each call's seconds (the wrapper still counts its
+    launches)."""
+    real = getattr(module, name)
+    spent = []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield spent
+    finally:
+        setattr(module, name, real)
+
+
+def modularity_f64(torch, g, membership) -> float:
+    """Q (Eq. 1) of a flat membership on ``g`` in float64, from the valid
+    slots alone: the share of the slot weight inside a community less the
+    sum of squared community totals over 2m (no code of the port)."""
+    e = g.e_valid
+    src, dst = g.src[:e].long(), g.indices[:e].long()
+    w = g.weights[:e].double()
+    mem = torch.as_tensor(np.asarray(membership, np.int64), device=g.device)
+    two_m = w.sum()
+    inside = w[mem[src] == mem[dst]].sum()
+    tot = torch.zeros(int(mem.max()) + 1, dtype=torch.float64,
+                      device=g.device).index_add_(0, mem[src], w)
+    return float(inside / two_m - ((tot / two_m) ** 2).sum())
+
+
+def grads_agree(got: dict, want: dict, rtol: float) -> float:
+    """The largest, over tensors, of max |got - want| / max |want|."""
+    worst = 0.0
+    for k, w in want.items():
+        scale = float(w.abs().max())
+        err = float((got[k].to(w.dtype) - w).abs().max())
+        worst = max(worst, err / scale if scale else err)
+    return worst
+
+
+def gnn_run(torch, arch, shape, batch, dev, steps: int, what: str):
+    """``steps`` AdamW steps of ``arch`` on ``batch`` at world size 1: the
+    losses must be finite and the last below the first."""
+    from repro_torch import ShardGroup
+    from repro_torch.optim import AdamWConfig, adamw_init
+    model = arch.init_model(shape, seed=0, device=dev)
+    step = arch.build_step(shape, ShardGroup.single(dev), opt_cfg=AdamWConfig(
+        lr=GNN_LR, warmup_steps=0, total_steps=steps))
+    opt = adamw_init(model)
+    losses = []
+    t = time.perf_counter()
+    for _ in range(steps):
+        opt, loss = step(model, opt, batch)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    per = (time.perf_counter() - t) / steps
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"{what}: losses {losses} not finite and falling")
+    log("graph", f"{what}: {steps} steps, losses {losses}, {per:.4f} s a "
+        f"step")
+    return losses
+
+
+def phase_graph(torch, ops, args, dev, report):
+    """Phase 10: the Louvain partitioner and GNN training at full width."""
+    import copy
+    from repro_torch import (GAT_CORA, GIN_TU, LouvainConfig, ShardGroup,
+                             build_csr, build_halo_inputs, louvain,
+                             louvain_partition, membership_modularity,
+                             random_partition, sbm_graph)
+    from repro_torch.configs.gnn_common import (GNN_SHAPES, GNN_SMOKE_SHAPES,
+                                                pad512)
+    from repro_torch.core import aggregate, collectives, gnn_halo
+    from repro_torch.kernels.aggregate import coarsen
+    from repro_torch.models.gnn.gin import GINConfig
+    from repro_torch.models.gnn.sampler import sample_block
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    # (a) The input: ogbn-products' sizes, drawn on the card.
+    n, n_pairs = PRODUCTS_NODES, PRODUCTS_PAIRS
+    t = time.perf_counter()
+    cls, u, v = products_graph(torch, dev, n, n_pairs, args.seed)
+    g = build_csr(u, v, torch.ones(n_pairs, device=dev), n, symmetrize=True,
+                  device=dev)
+    del u, v
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 1)
+    means = torch.randn(PRODUCTS_CLASSES, PRODUCTS_FEAT, generator=gen,
+                        device=dev)
+    feat = means[cls] + torch.randn(n, PRODUCTS_FEAT, generator=gen,
+                                    device=dev)
+    torch.cuda.synchronize()
+    log("graph", f"(a) planted-class graph at ogbn-products' sizes: {n} "
+        f"vertices (n_pad {pad512(n)}), {n_pairs} pairs = {2 * n_pairs} "
+        f"directed slots symmetrised, {g.e_valid} left after dedup, "
+        f"{PRODUCTS_CLASSES} classes ({PRODUCTS_INTRA} of the pairs inside "
+        f"one), {PRODUCTS_FEAT} features; built in "
+        f"{time.perf_counter() - t:.2f} s")
+
+    # (b) The partitioner: the default config (K3), then the ELL route (K1
+    # and K3); one partition from both.
+    parts = {}
+    for what, cfg, needs in (
+            ("default", LouvainConfig(), ("coarsen_groups",)),
+            ("use_ell_kernel=True", LouvainConfig(use_ell_kernel=True),
+             ("louvain_fused", "coarsen_groups"))):
+        coarsen.coarsen_groups.launches = 0
+        ops.louvain_fused.launches = 0
+        with first_call_recorded(aggregate, "coarsen_groups") as first, \
+                timed_calls(torch, ops, "louvain_fused") as k1_s, \
+                first_call_recorded(ops, "louvain_fused",
+                                    key=lambda kw: kw["width"]) as k1_first:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lp = louvain_partition(g, PARTITION_DEVICES, cfg)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        counts = {"louvain_fused": ops.louvain_fused.launches,
+                  "coarsen_groups": coarsen.coarsen_groups.launches}
+        for k in needs:
+            require(counts[k] > 0, f"partition ({what}): {k} never launched")
+        parts[what] = (lp, counts, secs, first.get(None), k1_first)
+        log("graph", f"(b) louvain_partition(g, {PARTITION_DEVICES}), "
+            f"{what}: {secs:.3f} s, cut fraction {lp.cut_fraction:.6f} "
+            f"({lp.cut_edges} of {lp.total_edges} slots), balance "
+            f"{lp.balance:.6f}, launches {json.dumps(counts)}"
+            + (f"; K1 through its checked wrapper {sum(k1_s) * 1e3:.3f} ms "
+               f"in all over {len(k1_s)} calls (between syncs)"
+               if k1_s else ""))
+    lp, k3_counts, _, first, _ = parts["default"]
+    lp_ell, k1_counts, _, _, k1_first = parts["use_ell_kernel=True"]
+    require(np.array_equal(lp.assignment, lp_ell.assignment)
+            and np.array_equal(lp.order, lp_ell.order),
+            "the default and the ELL partitions differ")
+    rp = random_partition(g, PARTITION_DEVICES)
+    log("graph", f"(b) random_partition: cut fraction {rp.cut_fraction:.6f}, "
+        f"balance {rp.balance:.6f}; Louvain cuts "
+        f"{rp.cut_fraction / max(lp.cut_fraction, 1e-12):.2f}x fewer slots")
+    res = louvain(g)
+    sizes = np.bincount(res.membership)
+    q32 = membership_modularity(g, res.membership)
+    q64 = modularity_f64(torch, g, res.membership)
+    planted64 = modularity_f64(torch, g, cls.cpu().numpy())
+    log("graph", f"(b) the communities packed: {res.n_communities} (sizes "
+        f"{sizes.min()}-{sizes.max()}, median {int(np.median(sizes))}), Q "
+        f"{q32:.6f} (float64 from the slots: {q64:.8f}); the planted "
+        f"classes' Q {membership_modularity(g, cls.cpu().numpy()):.6f} "
+        f"(float64 {planted64:.8f})")
+    require(abs(q32 - q64) <= 1e-4,
+            "the port's float32 Q disagrees with float64 by more than 1e-4")
+    del res, sizes
+
+    # The first K1 launch of each ELL bucket (round 0 of the first pass,
+    # one state) against its plain version, bit for bit.
+    k1_calls = [k1_first[w] for w in sorted(k1_first)]
+    k1_err = 0.0
+    for c in k1_calls:
+        want = ops.louvain_fused_rows_ref(*c["args"], **c["kwargs"])
+        for i, (a, b) in enumerate(zip(c["out"], want)):
+            require(a.dtype == b.dtype and torch.equal(a, b),
+                    f"K1 differs from its plain version on the partitioner's "
+                    f"width-{c['kwargs']['width']} bucket (output {i})")
+        fin = torch.isfinite(c["out"][1]) & torch.isfinite(want[1])
+        if bool(fin.any()):
+            k1_err = max(k1_err, float((c["out"][1][fin]
+                                        - want[1][fin]).abs().max()))
+
+    def k1_round(fn):
+        return [fn(*c["args"], **c["kwargs"]) for c in k1_calls]
+
+    k1_ms = time_ms(torch, lambda: k1_round(ops.louvain_fused), 10)
+    k1_plain = time_ms(torch, lambda: k1_round(ops.louvain_fused_rows_ref), 2)
+    a0 = k1_calls[0]["args"]
+    csr = types.SimpleNamespace(n_cap=k1_calls[0]["kwargs"]["sentinel"],
+                                indptr=a0[1], indices=a0[2], device=dev)
+    k1_bytes, _, k1_ops, k1_work = scan_work(
+        torch, csr, [(c["kwargs"]["width"], c["args"][0]) for c in k1_calls],
+        a0[4], torch.cat([c["out"][0] for c in k1_calls]))
+    k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops / FP32_OPS_PER_S) * 1e3
+    log("graph", f"(b) K1, the partitioner's first round over the buckets "
+        f"of widths {sorted(k1_first)}: bit for bit on the rows "
+        f"{[c['args'][0].numel() for c in k1_calls]}; {k1_ms:.4f} ms (plain "
+        f"{k1_plain:.4f} ms), {k1_ms / k1_bound:.3f}x its bound; "
+        + json.dumps(k1_work))
+    report.append(kernel_entry("louvain_fused_partition",
+                               k1_counts["louvain_fused"], k1_err, k1_ms,
+                               k1_plain, k1_bytes, k1_ops))
+    del k1_calls, k1_first, a0, csr, c, want, fin
+    # The first K3 launch of the default run against its plain version.
+    s_ci, s_cj, s_w = first["args"]
+    sent = first["kwargs"]["sent"]
+    want = coarsen.coarsen_groups_ref(s_ci, s_cj, s_w, sent=sent)
+    torch.cuda.synchronize()
+    got = first["out"]
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            "K3 differs from its plain version on the partitioner's first "
+            "aggregation")
+    total = s_ci.numel()
+    k3_ms = time_ms(torch, lambda: coarsen.coarsen_groups(
+        s_ci, s_cj, s_w, sent=sent), 10)
+    k3_plain = time_ms(torch, lambda: coarsen.coarsen_groups_ref(
+        s_ci, s_cj, s_w, sent=sent), 3)
+    k3_bytes = 12 * total + 17 * (total + 1)
+    log("graph", f"(b) K3, the partitioner's first aggregation: exact on "
+        f"{total} slots ({int(got[0].sum())} groups); {k3_ms:.4f} ms "
+        f"(plain {k3_plain:.4f} ms), "
+        f"{k3_ms / (k3_bytes / HBM_BYTES_PER_S * 1e3):.3f}x its bound")
+    report.append(kernel_entry("coarsen_groups_partition",
+                               k3_counts["coarsen_groups"],
+                               float((got[4] - want[4]).abs().max()),
+                               k3_ms, k3_plain, k3_bytes, total))
+    del first, got, want, s_ci, s_cj, s_w, parts, lp_ell
+
+    # (c) gin-tu at full width on the graph in Louvain order.
+    sh = GNN_SHAPES["ogb_products"]
+    n_pad, e_pad = pad512(n), pad512(max(sh.n_edges, g.e_valid))
+    order = torch.from_numpy(lp.order.astype(np.int64)).to(dev)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(n, device=dev)
+    e = g.e_valid
+    src_l, dst_l = g.src[:e], g.indices[:e]
+    batch = {"node_feat": torch.zeros(n_pad, PRODUCTS_FEAT, device=dev),
+             "edge_src": torch.full((e_pad,), n_pad, dtype=torch.int32,
+                                    device=dev),
+             "edge_dst": torch.full((e_pad,), n_pad, dtype=torch.int32,
+                                    device=dev),
+             "labels": torch.zeros(n_pad, dtype=torch.int32, device=dev)}
+    batch["node_feat"][:n] = feat[order]
+    batch["labels"][:n] = cls[order].to(torch.int32)
+    batch["edge_src"][:e] = inv[src_l.long()].to(torch.int32)
+    batch["edge_dst"][:e] = inv[dst_l.long()].to(torch.int32)
+    del feat, inv
+    opt_cfg = AdamWConfig(lr=GNN_LR, warmup_steps=0, total_steps=GNN_STEPS)
+    model = GIN_TU.init_model("ogb_products", seed=0, device=dev)
+    init_state = copy.deepcopy(model.state_dict())
+    step = GIN_TU.build_step("ogb_products", ShardGroup.single(dev),
+                             opt_cfg=opt_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    loss32, grads32 = step.loss_and_grads(model, batch)
+    model64 = copy.deepcopy(model).double()
+    batch64 = dict(batch, node_feat=batch["node_feat"].double())
+    loss64, grads64 = step.loss_and_grads(model64, batch64)
+    del model64, batch64
+    rel_loss = abs(float(loss32) - float(loss64)) / abs(float(loss64))
+    rel_grad = grads_agree(grads32, grads64, GNN_RTOL)
+    log("graph", f"(c) first step, float32 against float64 on the card: "
+        f"loss {float(loss32):.8f} / {float(loss64):.8f} (relative "
+        f"{rel_loss:.3e}), gradients {rel_grad:.3e} of their largest entry "
+        f"(tolerance {GNN_RTOL})")
+    require(rel_loss <= GNN_RTOL and rel_grad <= GNN_RTOL,
+            "the float32 step disagrees with float64")
+    del grads64
+    opt = adamw_init(model)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(GNN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        opt, loss = step(model, opt, batch)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"gin-tu x ogb_products: losses {losses} not finite and falling")
+    require(abs(losses[0] - float(loss32)) <= GNN_RTOL * abs(losses[0]),
+            "the first step's loss is not the checked loss")
+    log("graph", f"(c) gin-tu x ogb_products, {GNN_STEPS} AdamW steps "
+        f"(5 layers, d_hidden 64, {PRODUCTS_FEAT} features, "
+        f"{PRODUCTS_CLASSES} classes, {e} edges of {e_pad} slots): losses "
+        f"{losses}; seconds a step {[round(x, 4) for x in times]} (mean of "
+        f"the last {GNN_STEPS - 1}: {np.mean(times[1:]):.4f} s); peak memory "
+        f"{peak:.2f} GiB")
+    p_ms, n_ops, busy_ms, top = device_profile(
+        torch, lambda: step(model, opt, batch), top=8)
+    wall_ms = np.mean(times[1:]) * 1e3
+    log("graph", f"(c) profile of one step: {n_ops} device operations, "
+        f"device busy {busy_ms:.3f} ms, {p_ms:.3f} ms profiled wall, "
+        f"{wall_ms:.3f} ms unprofiled (idle share "
+        f"{1 - busy_ms / wall_ms:.3f}); top by device ms {json.dumps(top)}")
+    del model, opt
+
+    # (d) The halo step at world size 1 through NCCL: its first loss and
+    # gradients equal (c)'s; then the halo layouts at 4 and 8 shards.
+    order_np = lp.order
+    src_np, dst_np = src_l.cpu().numpy(), dst_l.cpu().numpy()
+    with nccl_world_of_one(dev) as group:
+        spec = gnn_halo.make_halo_spec(n_pad, e_pad, 1, 0.25)
+        t = time.perf_counter()
+        halo = build_halo_inputs(src_np, dst_np, order_np, 1, n_pad, e_pad,
+                                 spec, device=dev)
+        halo_s = time.perf_counter() - t
+        hbatch = {"node_feat": batch["node_feat"], "labels": batch["labels"],
+                  **{k: torch.from_numpy(halo[k]).to(dev)
+                     for k in ("edge_src", "edge_dst", "send_idx")}}
+        model = GIN_TU.init_model("ogb_products", seed=0, device=dev)
+        model.load_state_dict(init_state)
+        hstep = GIN_TU.build_step("ogb_products", group, variant=("halo",),
+                                  opt_cfg=opt_cfg, spec=spec)
+        loss_h, grads_h = hstep.loss_and_grads(model, hbatch)
+        rel_h = abs(float(loss_h) - float(loss32)) / abs(float(loss32))
+        rel_hg = grads_agree(grads_h, grads32, GNN_RTOL)
+        log("graph", f"(d) halo step at world size 1 (NCCL; layout built in "
+            f"{halo_s:.2f} s on the card): loss {float(loss_h):.8f} against "
+            f"{float(loss32):.8f} (relative {rel_h:.3e}), gradients "
+            f"{rel_hg:.3e}; wire bytes {group.wire_bytes}")
+        require(rel_h <= GNN_RTOL and rel_hg <= GNN_RTOL,
+                "the halo step differs from the plain step at world size 1")
+        del model, hbatch, halo, grads_h, grads32
+    allgather = n_pad * 64 * 4
+    new_id = torch.empty(n, dtype=torch.int64, device=dev)
+    new_id[order] = torch.arange(n, device=dev)
+    new_src, new_dst = new_id[src_l.long()], new_id[dst_l.long()]
+    del new_id
+    for p in HALO_SHARDS:
+        spec = gnn_halo.make_halo_spec(n_pad, e_pad, p, 0.25)
+        cut = int(torch.sum(new_src // spec.v_per_shard
+                            != new_dst // spec.v_per_shard))
+        counts = gnn_halo.halo_counts(src_np, dst_np, order_np, p,
+                                      spec.v_per_shard, device=dev)
+        off = counts[~np.eye(p, dtype=bool)]
+        overflow = int(counts.max()) > spec.send_cap
+        t = time.perf_counter()
+        try:
+            build_halo_inputs(src_np, dst_np, order_np, p, n_pad, e_pad,
+                              spec, device=dev)
+            raised = None
+        except ValueError as exc:
+            raised = str(exc)
+        secs = time.perf_counter() - t
+        require(overflow == (raised is not None and "halo cap" in raised),
+                f"{p} shards: the halo cap overflow and build_halo_inputs "
+                f"disagree")
+        cap_bytes = 2 * p * spec.send_cap * 64 * 4
+        meas = int((counts.sum(0) + counts.sum(1)).max()) * 64 * 4
+        log("graph", f"(d) {p} shards, halo_frac 0.25: cut {cut} of {e} "
+            f"slots ({cut / e:.6f}); send cap S "
+            f"{spec.send_cap} a peer; measured halo a peer min/mean/max "
+            f"{off.min()}/{off.mean():.1f}/{off.max()}; "
+            f"{'overflows: ' + raised if raised else 'fits'} ({secs:.2f} s); "
+            f"halo bytes a rank and layer at d=64: {cap_bytes} at the cap, "
+            f"{meas} measured (the largest rank's sent and received rows) "
+            f"against the "
+            f"all-gather's {allgather} ({meas / allgather:.4f}x)")
+    del batch, src_l, dst_l, src_np, dst_np, new_src, new_dst, order
+
+    # (e) The other shapes, a few steps each.
+    gnn_run(torch, GAT_CORA, "full_graph_sm",
+            GAT_CORA.make_batch("full_graph_sm", args.seed, device=dev),
+            dev, GNN_STEPS, "(e) gat-cora x full_graph_sm")
+    mb = GNN_SHAPES["minibatch_lg"]
+    indptr, indices = g.indptr.cpu().numpy(), g.indices[:e].cpu().numpy()
+    rng = np.random.default_rng(args.seed)
+    seeds = rng.choice(n, mb.batch * mb.n_seeds, replace=False)
+    t = time.perf_counter()
+    blocks = [sample_block(indptr, indices, seeds[i::mb.batch], (15, 10),
+                           rng) for i in range(mb.batch)]
+    sample_s = time.perf_counter() - t
+    cls_np = cls.cpu().numpy()
+    ids = np.stack([b.node_ids for b in blocks])
+    mbatch = {"node_feat": torch.from_numpy(rng.standard_normal(
+                  (mb.batch, mb.n_nodes, mb.d_feat)).astype(np.float32)),
+              "edge_src": torch.from_numpy(np.stack([b.edge_src
+                                                     for b in blocks])),
+              "edge_dst": torch.from_numpy(np.stack([b.edge_dst
+                                                     for b in blocks])),
+              "labels": torch.from_numpy(np.where(
+                  ids >= 0, cls_np[np.maximum(ids, 0)] % mb.n_classes,
+                  0).astype(np.int32))}
+    mbatch = {k: x.to(dev) for k, x in mbatch.items()}
+    log("graph", f"(e) sampled {mb.batch} blocks of {mb.n_seeds} seeds at "
+        f"fanout (15, 10) from (a)'s graph in {sample_s:.2f} s: nodes "
+        f"{[b.n_nodes for b in blocks[:4]]}... of {mb.n_nodes}")
+    gnn_run(torch, GIN_TU, "minibatch_lg", mbatch, dev, GNN_STEPS,
+            "(e) gin-tu x minibatch_lg")
+    gnn_run(torch, GIN_TU, "molecule",
+            GIN_TU.make_batch("molecule", args.seed, device=dev), dev,
+            GNN_STEPS, "(e) gin-tu x molecule")
+    del g, cls, mbatch, blocks
+
+    # (f) 4 gloo ranks on the one card: the halo GIN (float32 and bf16
+    # messages) and the all-gather layout on a small Louvain-partitioned
+    # graph, equal to world size 1.
+    sg, _ = sbm_graph(8, 16, 0.4, 0.01, seed=2, device=dev)
+    sn = sg.n_valid
+    s_order = louvain_partition(sg, GNN_RANKS).order
+    s_src = sg.src[:sg.e_valid].cpu().numpy()
+    s_dst = sg.indices[:sg.e_valid].cpu().numpy()
+    rng = np.random.default_rng(0)
+    s_feat = rng.standard_normal((sn, 8)).astype(np.float32)[s_order]
+    s_lab = rng.integers(0, 4, sn).astype(np.int32)[s_order]
+    gcfg = GINConfig(n_layers=2, d_hidden=16, d_feat=8, n_classes=4)
+    gmodel = GIN_TU.make_model(gcfg, 0, "cpu")
+    gstate = {k: x.numpy() for k, x in gmodel.state_dict().items()}
+
+    def halo_run(p, bf16):
+        spec = gnn_halo.HaloSpec(p, sn // p, len(s_src), sn // p)
+        h = build_halo_inputs(s_src, s_dst, s_order, p, sn,
+                              len(s_src) * p, spec, device=dev)
+        return {"arch": "gin-tu", "cfg": gcfg, "state": gstate, "steps": 2,
+                "batch": {"node_feat": s_feat, "labels": s_lab,
+                          **{k: h[k] for k in ("edge_src", "edge_dst",
+                                               "send_idx")}},
+                "halo": {"spec": spec, "n_valid": sn, "bf16_msgs": bf16}}
+
+    def step_run(arch, shape, seed):
+        cfg = arch.make_config(GNN_SMOKE_SHAPES[shape], True)
+        m = arch.make_model(cfg, 0, "cpu")
+        b = arch.make_batch(shape, seed, smoke=True, device="cpu")
+        return {"arch": arch.arch_id, "cfg": cfg, "shape": shape,
+                "smoke": True, "steps": 2,
+                "state": {k: x.numpy() for k, x in m.state_dict().items()},
+                "batch": {k: x.numpy() for k, x in b.items()}}
+
+    tail = [step_run(GIN_TU, "full_graph_sm", 1),
+            step_run(GAT_CORA, "full_graph_sm", 2),
+            step_run(GIN_TU, "molecule", 3)]
+    solo = gnn_halo.gnn_rank_runs(ShardGroup.single(dev),
+                                  [halo_run(1, False), halo_run(1, True)]
+                                  + tail)
+    t = time.perf_counter()
+    out = collectives.launch(gnn_halo.gnn_rank_runs, GNN_RANKS,
+                             [halo_run(GNN_RANKS, False),
+                              halo_run(GNN_RANKS, True)] + tail,
+                             backend="gloo", devices=[str(dev)] * GNN_RANKS,
+                             timeout=300)
+    wall = time.perf_counter() - t
+    for rank_out in out:
+        for i, (a, b) in enumerate(zip(rank_out["results"],
+                                       solo["results"])):
+            rtol = 1e-2 if i == 1 else GNN_RTOL
+            rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+            worst = grads_agree({k: torch.from_numpy(x)
+                                 for k, x in a["grads"].items()},
+                                {k: torch.from_numpy(x)
+                                 for k, x in b["grads"].items()}, rtol)
+            require(rel <= rtol / 10 and worst <= rtol
+                    and np.allclose(a["losses"], b["losses"],
+                                    rtol=rtol / 10),
+                    f"{GNN_RANKS} gloo ranks differ from world size 1 in "
+                    f"run {i}: loss {rel:.3e}, gradients {worst:.3e}")
+    log("graph", f"(f) {GNN_RANKS} gloo ranks on one card (halo GIN in "
+        f"float32 and with bf16 messages on the sbm golden graph in Louvain "
+        f"order, the all-gather layout of gin-tu and gat-cora, the molecule "
+        f"split): equal to world size 1; wire bytes a rank "
+        f"{[o['wire_bytes'] for o in out]}, staged "
+        f"{[o['staged_bytes'] for o in out]}; {wall:.2f} s with the rank "
+        f"starts (no multi-GPU number)")
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22,
@@ -2363,6 +2927,8 @@ def main() -> int:
                     help="R-MAT scale of each phase 6 tenant")
     ap.add_argument("--sharded-scale", type=int, default=18,
                     help="R-MAT scale of phase 7's staged gloo ranks")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase 10's graph, features and batches")
     args = ap.parse_args()
 
     import torch
@@ -2401,7 +2967,9 @@ def main() -> int:
                              torch, dev, report, state.pop("stream"))),
                          ("serving_fleet", lambda: phase_serving_fleet(
                              torch, args, dev, report, state.pop("tenants"),
-                             state.pop("staged")))):
+                             state.pop("staged"))),
+                         ("graph", lambda: phase_graph(torch, ops, args, dev,
+                                                       report))):
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize()

@@ -3,8 +3,11 @@ entry point ``louvain_dynamic``, the batched multi-stream drivers
 (``louvain_batched``, ``louvain_dynamic_batched``), the sharded drivers
 over ``torch.distributed`` (``distributed_louvain`` and the streaming
 ``louvain_dynamic_sharded`` on the ranks of a ``ShardGroup``) and the
-multi-tenant sharded serving fleet (``FleetRouter``, ``serve_fleet``), with
-the
+multi-tenant sharded serving fleet (``FleetRouter``, ``serve_fleet``), and
+the graph workloads: the Louvain partitioner (``louvain_partition``,
+``random_partition``) and Louvain-partitioned GNN training (the gin-tu and
+gat-cora configs' ``ARCH``, ``build_gnn_step``, and the halo exchange's
+``build_halo_step`` / ``build_halo_inputs``), with the
 ELL move kernels (K1, K2), the aggregation kernel (K3) and the batch-apply
 kernel (K4) hand-written in CUDA for Hopper (``repro_torch/csrc``).
 
@@ -20,6 +23,9 @@ from repro_torch.configs.louvain_arch import (FLEET_E_SLACK,
                                               fleet_envelope,
                                               fleet_v_per_shard,
                                               migrate_envelope, plan_fleet)
+from repro_torch.configs.gat_cora import ARCH as GAT_CORA
+from repro_torch.configs.gin_tu import ARCH as GIN_TU
+from repro_torch.configs.gnn_common import build_gnn_step
 from repro_torch.core.collectives import ShardGroup
 from repro_torch.core.delta import EdgeBatch, apply_edge_batch, make_edge_batch
 from repro_torch.core.distributed import (AggregationOverflow,
@@ -29,6 +35,7 @@ from repro_torch.core.distributed_dynamic import (ShardedDynamicResult,
 from repro_torch.core.dynamic import (BatchUpdateStats, DynamicResult,
                                       louvain_dynamic)
 from repro_torch.core.fleet import FleetResult, FleetRouter, serve_fleet
+from repro_torch.core.gnn_halo import build_halo_inputs, build_halo_step
 from repro_torch.core.graph import CSRGraph, build_csr, from_networkx
 from repro_torch.core.louvain import (LouvainConfig, LouvainResult, PassStats,
                                       louvain, membership_modularity)
@@ -38,6 +45,8 @@ from repro_torch.core.multistream import (BatchedDynamicResult,
                                           louvain_batched,
                                           louvain_dynamic_batched,
                                           stack_batches, stack_graphs)
+from repro_torch.core.partition import (PartitionResult, louvain_partition,
+                                        random_partition)
 from repro_torch.data.graphs import (rmat_graph, sbm_edge_stream, sbm_graph,
                                      sbm_holdout_stream)
 
@@ -46,13 +55,15 @@ __all__ = ["AggregationOverflow", "BatchUpdateStats", "BatchedDynamicResult",
            "FLEET_E_SLACK", "FLEET_GROW_FACTOR", "FLEET_MIN_E_PER",
            "FLEET_MIN_V_PER", "FleetBatch", "FleetCapacityOverflow",
            "FleetEnvelope", "FleetGraph", "FleetResult", "FleetRouter",
-           "LouvainConfig", "LouvainResult", "PassStats", "ShardGroup",
+           "GAT_CORA", "GIN_TU", "LouvainConfig", "LouvainResult",
+           "PartitionResult", "PassStats", "ShardGroup",
            "ShardedDynamicResult",
-           "apply_edge_batch", "build_csr", "distributed_louvain",
+           "apply_edge_batch", "build_csr", "build_gnn_step",
+           "build_halo_inputs", "build_halo_step", "distributed_louvain",
            "fleet_envelope", "fleet_v_per_shard", "from_networkx", "louvain",
            "louvain_batched", "louvain_dynamic", "louvain_dynamic_batched",
-           "louvain_dynamic_sharded", "make_edge_batch",
+           "louvain_dynamic_sharded", "louvain_partition", "make_edge_batch",
            "membership_modularity", "migrate_envelope", "plan_fleet",
-           "rmat_graph", "sbm_edge_stream", "sbm_graph",
+           "random_partition", "rmat_graph", "sbm_edge_stream", "sbm_graph",
            "sbm_holdout_stream", "serve_fleet", "stack_batches",
            "stack_graphs"]

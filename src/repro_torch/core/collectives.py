@@ -1,6 +1,6 @@
 """Ranks and collectives of the sharded paths: ``torch.distributed`` in
 place of the reference's ``shard_map`` with ``jax.lax.psum`` / ``pmax`` /
-``all_gather`` / ``axis_index``.
+``all_gather`` / ``all_to_all`` / ``axis_index``.
 
 A ``ShardGroup`` is one rank's view: its rank, the world size, its device,
 the backend and the process group.  The reference flattens its mesh axes
@@ -176,6 +176,28 @@ class ShardGroup:
         dist.all_gather(parts, wire, group=self.group)
         out = torch.cat(parts) if tiled else torch.stack(parts)
         return self._from_wire(out, x)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` cut along dim 0 into ``world_size`` equal blocks, block p
+        sent to rank p; returns the received blocks in rank order (block q
+        from rank q), the reference's tiled ``all_to_all`` with
+        ``split_axis = concat_axis = 0``.  Gloo moves the bytes (any
+        type)."""
+        self.wire_bytes += x.numel() * x.element_size()
+        if self.group is None:
+            return x
+        if x.shape[0] % self.world_size:
+            raise ValueError(f"all_to_all: {x.shape[0]} rows do not split "
+                             f"over {self.world_size} ranks")
+        self.collectives += 1
+        raw = x.contiguous()
+        if self.backend == "gloo":
+            raw = raw.view(torch.uint8)
+        wire = self._to_wire(raw)
+        out = torch.empty_like(wire)
+        dist.all_to_all_single(out, wire, group=self.group)
+        out = self._from_wire(out, raw)
+        return out.view(x.dtype) if self.backend == "gloo" else out
 
     def _all_reduce(self, x: torch.Tensor, op) -> torch.Tensor:
         self.wire_bytes += x.numel() * x.element_size()

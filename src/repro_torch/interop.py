@@ -63,3 +63,50 @@ def sharded_from_numpy(src_g, dst_g, w_g, spec, rank: int, device="cuda"):
     ``ShardedGraphSpec`` or its fields."""
     spec = ShardedGraphSpec(*spec)
     return rank_slice(src_g, dst_g, w_g, spec, rank, resolve_device(device))
+
+
+def _tree_leaves(tree, prefix=""):
+    """(name, array) of a JAX GNN parameter pytree as numpy, named like the
+    port module's parameters: dict keys and list indices join with dots,
+    and an MLP's list of ``(w, b)`` pairs becomes ``w.{j}`` / ``b.{j}``."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_leaves(v, f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)) and tree and all(
+            isinstance(x, (list, tuple)) and len(x) == 2 for x in tree):
+        for j, (w, b) in enumerate(tree):
+            yield f"{prefix}w.{j}", w
+            yield f"{prefix}b.{j}", b
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tree_leaves(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+#: The architectures whose modules take a converted JAX parameter tree.
+GNN_ARCH_IDS = ("gin-tu", "gat-cora")
+
+
+def gnn_params_from_numpy(arch_id: str, tree, device="cuda") -> dict:
+    """The port module's state (``load_state_dict``) of ``arch_id`` from the
+    JAX parameter pytree as numpy arrays (``jax.tree.map(np.asarray,
+    params)``); weights keep the reference's ``(in, out)`` layout.  The
+    same names key a converted gradient tree."""
+    if arch_id not in GNN_ARCH_IDS:
+        raise ValueError(f"no port module for {arch_id!r}; ported: "
+                         f"{GNN_ARCH_IDS}")
+    dev = resolve_device(device)
+    return {name: torch.from_numpy(np.array(x, np.float32)).to(dev)
+            for name, x in _tree_leaves(tree)}
+
+
+def adamw_state_from_numpy(arch_id: str, step, mu, nu, device="cuda"):
+    """The port's ``AdamWState`` from the JAX ``AdamWState``'s fields as
+    numpy (``mu`` / ``nu`` trees like the parameters)."""
+    from repro_torch.optim import AdamWState
+    dev = resolve_device(device)
+    return AdamWState(
+        step=torch.tensor(int(step), dtype=torch.int32, device=dev),
+        mu=gnn_params_from_numpy(arch_id, mu, dev),
+        nu=gnn_params_from_numpy(arch_id, nu, dev))

@@ -1,0 +1,114 @@
+"""AdamW with decoupled weight decay, global-norm clipping and a linear
+warmup + cosine decay schedule (``repro.optim.adamw``), over a dict of
+tensors or a module's parameters.
+
+``torch.optim.AdamW`` has neither the clip nor the schedule, so the step is
+written out: every value is computed in float32 in the reference's order,
+and the optimizer state (``step``, ``mu``, ``nu``) stays float32 whatever
+the parameters' type.  Decay is decoupled, ``lr * (step_v + wd * p)``, on
+every parameter, biases and GIN's ``eps`` included.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Mapping, NamedTuple, Union
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor                 # 0-d int32
+    mu: Dict[str, torch.Tensor]        # float32, keyed like the parameters
+    nu: Dict[str, torch.Tensor]
+
+
+Params = Union[torch.nn.Module, Mapping[str, torch.Tensor]]
+
+
+def _named(params: Params) -> Dict[str, torch.Tensor]:
+    if isinstance(params, torch.nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def adamw_init(params: Params) -> AdamWState:
+    named = _named(params)
+    dev = next(iter(named.values())).device
+    zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for k, p in named.items()}
+    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                      mu=zeros, nu={k: z.clone() for k, z in zeros.items()})
+
+
+def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    s = step.to(torch.float32)
+    warm = torch.clamp(s / max(cfg.warmup_steps, 1), max=1.0)
+    prog = torch.clamp((s - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1), 0, 1)
+    cos = 0.5 * (1 + torch.cos(math.pi * prog))
+    return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor, in float32; ``tensors``
+    is a dict (its values in order) or a sequence."""
+    values = tensors.values() if isinstance(tensors, Mapping) else tensors
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                          for x in values))
+
+
+def adamw_update(cfg: AdamWConfig, params: Params, grads, state: AdamWState):
+    """One step.  ``grads`` is keyed like the parameters.  Returns
+    ``(new_params, new_state, metrics)``: new tensors in the parameters'
+    types (the inputs are not written), the new state, and ``grad_norm``
+    and ``lr`` as 0-d float32 tensors."""
+    named = _named(params)
+    gnorm = global_norm([grads[k] for k in named])
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    step = state.step + 1
+    lr = _schedule(cfg, step)
+    b1, b2 = cfg.beta1, cfg.beta2
+    sf = step.to(torch.float32)
+    one = torch.ones((), dtype=torch.float32, device=sf.device)
+    bc1 = 1 - torch.pow(one * b1, sf)
+    bc2 = 1 - torch.pow(one * b2, sf)
+
+    new_p, new_mu, new_nu = {}, {}, {}
+    for k, p in named.items():
+        p = p.detach()
+        g = grads[k].to(torch.float32) * scale
+        mu = b1 * state.mu[k] + (1 - b1) * g
+        nu = b2 * state.nu[k] + (1 - b2) * g * g
+        step_v = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
+        pf = p.to(torch.float32)
+        new_p[k] = (pf - lr * (step_v + cfg.weight_decay * pf)).to(p.dtype)
+        new_mu[k], new_nu[k] = mu, nu
+    return new_p, AdamWState(step, new_mu, new_nu), {"grad_norm": gnorm,
+                                                     "lr": lr}
+
+
+def adamw_apply(cfg: AdamWConfig, module: torch.nn.Module, grads,
+                state: AdamWState):
+    """``adamw_update`` written into ``module``'s parameters in place.
+    Returns ``(new_state, metrics)``."""
+    new_p, state, metrics = adamw_update(cfg, module, grads, state)
+    with torch.no_grad():
+        for k, p in module.named_parameters():
+            p.copy_(new_p[k])
+    return state, metrics

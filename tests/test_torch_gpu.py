@@ -1118,3 +1118,90 @@ def test_fleet_bucket_k4_equals_plain_on_the_card(cuda):
         srt = dd.apply_batch_shard(spec, rank, *args, backend="sort")
         for a, b in zip(k, srt):
             assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Graph workloads: the partitioner, GIN / GAT steps, the halo exchange.
+# ---------------------------------------------------------------------------
+
+def _gnn_loss_and_grads(arch, shape, dev, state=None):
+    from repro_torch import ShardGroup
+    model = arch.init_model(shape, smoke=True, device=dev)
+    if state is not None:
+        model.load_state_dict(state)
+    batch = arch.make_batch(shape, 7, smoke=True, device=dev)
+    step = arch.build_step(shape, ShardGroup.single(dev), smoke=True)
+    loss, grads = step.loss_and_grads(model, batch)
+    return model, float(loss), {k: g.cpu() for k, g in grads.items()}
+
+
+@pytest.mark.parametrize("arch_name,shape", [
+    ("GIN_TU", "full_graph_sm"), ("GIN_TU", "minibatch_lg"),
+    ("GIN_TU", "molecule"), ("GAT_CORA", "full_graph_sm"),
+    ("GAT_CORA", "molecule")])
+def test_gnn_step_on_the_card_equals_the_cpu_path(cuda, arch_name, shape):
+    """The same weights and batch on the card and on the CPU: float32-close
+    loss (rtol 1e-5) and gradients (rtol 1e-4, atol 1e-4 of the largest
+    entry); the card's scatter-adds sum in no fixed order."""
+    import repro_torch
+    arch = getattr(repro_torch, arch_name)
+    model, loss_c, grads_c = _gnn_loss_and_grads(arch, shape, "cpu")
+    _, loss_g, grads_g = _gnn_loss_and_grads(arch, shape, cuda,
+                                             model.state_dict())
+    assert loss_g == pytest.approx(loss_c, rel=1e-5)
+    scale = max(float(g.abs().max()) for g in grads_c.values())
+    for k, g in grads_c.items():
+        torch.testing.assert_close(grads_g[k], g, rtol=1e-4,
+                                   atol=1e-4 * scale)
+
+
+def test_louvain_partition_on_the_card_gives_the_cpu_assignment(cuda):
+    from repro_torch import louvain_partition, random_partition
+    for cfg in (LouvainConfig(), LouvainConfig(use_ell_kernel=True)):
+        got = louvain_partition(sbm_graph(8, 16, 0.4, 0.01, seed=2,
+                                          device=cuda)[0], 4, cfg)
+        want = louvain_partition(sbm_graph(8, 16, 0.4, 0.01, seed=2,
+                                           device="cpu")[0], 4, cfg)
+        np.testing.assert_array_equal(got.assignment, want.assignment)
+        np.testing.assert_array_equal(got.order, want.order)
+        assert (got.cut_edges, got.total_edges, got.balance) == (
+            want.cut_edges, want.total_edges, want.balance)
+    g = sbm_graph(8, 16, 0.4, 0.01, seed=2, device=cuda)[0]
+    assert random_partition(g, 4).cut_edges == random_partition(
+        sbm_graph(8, 16, 0.4, 0.01, seed=2, device="cpu")[0], 4).cut_edges
+
+
+def test_halo_exchange_at_world_size_one_on_the_card(cuda, nccl_group):
+    """The exchange through NCCL at world size 1 is the plain gather
+    forward and the plain scatter-add backward."""
+    from repro_torch.core.gnn_halo import halo_exchange
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.standard_normal((64, 8)), dtype=torch.float32,
+                     device=cuda, requires_grad=True)
+    idx = torch.from_numpy(rng.integers(0, 64, (1, 48))).to(cuda)
+    w = torch.tensor(rng.standard_normal((48, 8)), dtype=torch.float32,
+                     device=cuda)
+    for group in (ShardGroup.single(cuda), nccl_group):
+        out = halo_exchange(x, idx, group)
+        assert torch.equal(out, x[idx.reshape(-1)])
+        (gx,) = torch.autograd.grad((out * w).sum(), x)
+        (want,) = torch.autograd.grad((x[idx.reshape(-1)] * w).sum(), x)
+        torch.testing.assert_close(gx, want, rtol=1e-6, atol=1e-6)
+
+
+def test_halo_inputs_on_the_card_equal_the_cpu_layout(cuda):
+    from repro_torch import build_halo_inputs, louvain_partition
+    from repro_torch.core.gnn_halo import HaloSpec
+    g = sbm_graph(8, 16, 0.4, 0.01, seed=2, device="cpu")[0]
+    src = g.src[:g.e_valid].numpy()
+    dst = g.indices[:g.e_valid].numpy()
+    for p in (1, 2, 4):
+        order = louvain_partition(g, p).order
+        v_l = g.n_valid // p
+        spec = HaloSpec(p, v_l, len(src), v_l)
+        want = build_halo_inputs(src, dst, order, p, g.n_valid,
+                                 len(src) * p, spec, device="cpu")
+        got = build_halo_inputs(src, dst, order, p, g.n_valid, len(src) * p,
+                                spec, device=cuda)
+        for k in ("edge_src", "edge_dst", "send_idx"):
+            np.testing.assert_array_equal(got[k], want[k])

@@ -57,7 +57,12 @@ def test_no_forbidden_import_anywhere_in_the_port():
     for module in ("core/delta.py", "core/dynamic.py",
                    "kernels/batch_apply/resolve.py", "core/comm.py",
                    "core/collectives.py", "core/distributed.py",
-                   "core/distributed_dynamic.py"):
+                   "core/distributed_dynamic.py", "core/partition.py",
+                   "core/gnn_halo.py", "optim/adamw.py",
+                   "models/gnn/common.py", "models/gnn/gin.py",
+                   "models/gnn/gat.py", "models/gnn/sampler.py",
+                   "sharding/rules.py", "configs/gnn_common.py",
+                   "configs/gin_tu.py", "configs/gat_cora.py"):
         assert os.path.join(PORT_DIR, module) in files
     files.append(os.path.join(os.path.dirname(SRC_DIR), "chip_smoke.py"))
     for path in files:
@@ -109,6 +114,38 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         ShardGroup.init("gloo", 0, 1, "file:///nonexistent")
     mem, n_comms, stats = distributed_louvain(g, ShardGroup.single("cpu"))
     assert mem.shape == (8,) and n_comms == len(np.unique(mem)) and stats
+
+
+def test_graph_workload_entry_points_need_a_card_unless_asked_for_the_cpu():
+    """The partitioner runs where its graph is; the GNN models, batches,
+    converters and build_halo_inputs default to the card and raise
+    without one."""
+    from repro_torch import (GAT_CORA, GIN_TU, build_halo_inputs,
+                             louvain_partition, random_partition)
+    from repro_torch.core.gnn_halo import HaloSpec, halo_counts
+    from repro_torch.interop import gnn_params_from_numpy
+    from repro_torch.models.gnn.gat import GAT, GATConfig
+    from repro_torch.models.gnn.gin import GIN, GINConfig
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    g, _ = sbm_graph(2, 4, 0.5, 0.1, device="cpu")
+    assert louvain_partition(g, 2).assignment.shape == (8,)
+    assert random_partition(g, 2).order.shape == (8,)
+    for call in (lambda: GIN(GINConfig()), lambda: GAT(GATConfig()),
+                 lambda: GIN_TU.init_model("molecule", smoke=True),
+                 lambda: GAT_CORA.make_batch("molecule", 0, smoke=True),
+                 lambda: gnn_params_from_numpy("gin-tu", {}),
+                 lambda: build_halo_inputs([0], [1], [0, 1], 1, 2, 2,
+                                           HaloSpec(1, 2, 2, 1)),
+                 lambda: halo_counts([0], [1], [0, 1], 1, 2)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    model = GIN_TU.init_model("molecule", smoke=True, device="cpu")
+    batch = GIN_TU.make_batch("molecule", 0, smoke=True, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
+    step = GIN_TU.build_step("molecule", ShardGroup.single("cpu"), smoke=True)
+    loss, _ = step.loss_and_grads(model, batch)
+    assert loss.device.type == "cpu" and bool(torch.isfinite(loss))
 
 
 def test_config_keeps_the_reference_fields_and_defaults():
