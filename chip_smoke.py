@@ -106,7 +106,27 @@ each timed; any failure exits non-zero:
      (e) gat-cora on a full_graph_sm batch, gin-tu on 32 blocks sampled
      from (a)'s graph at fanout (15, 10) and on the molecule batch; (f) 4
      gloo ranks on the one card (the halo GIN, also with bf16 messages,
-     and the all-gather layout) equal to world size 1.
+     the halo Equiformer at full width and the all-gather layout) equal to
+     world size 1;
+ 11. the geometric models at full width (Equiformer-v2: 12 layers,
+     d_hidden 128, l_max 6, m_max 2, 8 heads; DimeNet: 6 blocks, d 128,
+     n_bilinear 8, n_spherical 7, n_radial 6): (a) Equiformer-v2 on the
+     molecule batch (128 x 30 nodes x 64 edges) and a full_graph_sm batch
+     (2,708 nodes, 10,556 slots, 1,433 features), both from
+     ``make_batch(--seed)`` with their edge lists made undirected
+     (``undirected``), after the Wigner-D blocks' orthogonality at
+     l_max 6: the first step's loss and gradients against a float64 copy
+     on the card, the outputs under a random rotation and translation of
+     the positions, 5 AdamW steps (finite, falling loss), time a step,
+     peak memory and a ``torch.profiler`` breakdown; (b) DimeNet the same
+     way, its triplets built from each graph's edges by
+     ``build_triplets_host``; (c) a planted-class graph of Cora's sizes
+     drawn on the card, ``louvain_partition`` onto 4 devices (K3; K1 and
+     K3; the first launches held against their plain versions), the
+     4-shard halo layout at the smallest halo_frac that holds it, and the
+     full-width Equiformer halo step through NCCL at world size 1 equal to
+     the plain step (m_truncate on and off) and with bf16 edges within
+     2e-2; (d) the halo Equiformer on 4 gloo ranks rides phase 10 (f).
 
 Cut for time: phase 4's Leiden route through K2 (its ``ell_leiden__sbm``
 golden through K2 stays in phase 3), and phase 6's solo comparison to the
@@ -122,6 +142,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -185,6 +206,11 @@ KERNELS = {
                                  "src/repro/kernels/aggregate/coarsen.py:113"),
     "louvain_fused_partition": ("src/repro_torch/csrc/louvain_scan.cu",
                                 "src/repro/kernels/louvain_scan/fused.py:111"),
+    # K3 and K1 in the partition of the Equiformer halo layout (phase 11).
+    "coarsen_groups_halo": ("src/repro_torch/csrc/coarsen.cu",
+                            "src/repro/kernels/aggregate/coarsen.py:113"),
+    "louvain_fused_halo": ("src/repro_torch/csrc/louvain_scan.cu",
+                           "src/repro/kernels/louvain_scan/fused.py:111"),
 }
 
 #: Phase 5: the batch mix of the DF-Louvain dynamic evaluation (Sahu,
@@ -2403,21 +2429,25 @@ GNN_LR = 1e-4
 #: (d): relative error of the loss, and of each gradient tensor's largest
 #: entry.
 GNN_RTOL = 1e-4
-#: Phase 10 (f): gloo ranks on the one card.
+#: Phase 10 (f): gloo ranks on the one card, and the width of the halo
+#: Equiformer they run (phase 11 (d); equiformer-v2's full width).
 GNN_RANKS = 4
+RANKS_EQUIFORMER = dict(n_layers=12, d_hidden=128, l_max=6, m_max=2,
+                        n_heads=8)
 
 
-def products_graph(torch, dev, n: int, n_pairs: int, seed: int):
+def products_graph(torch, dev, n: int, n_pairs: int, seed: int,
+                   n_classes: int = PRODUCTS_CLASSES):
     """(classes, src, dst) of ``n_pairs`` undirected pairs over ``n``
     vertices, drawn on the card from ``seed``: each vertex's class uniform
-    over PRODUCTS_CLASSES; a pair joins a uniform vertex u to a uniform
+    over ``n_classes``; a pair joins a uniform vertex u to a uniform
     member of u's class (probability PRODUCTS_INTRA) or to a uniform
     vertex; a pair (u, u) takes u + 1 instead."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    cls = torch.randint(PRODUCTS_CLASSES, (n,), generator=gen, device=dev)
+    cls = torch.randint(n_classes, (n,), generator=gen, device=dev)
     members = torch.sort(cls, stable=True).indices
-    size = torch.bincount(cls, minlength=PRODUCTS_CLASSES)
+    size = torch.bincount(cls, minlength=n_classes)
     off = torch.cumsum(size, 0) - size
     u = torch.randint(n, (n_pairs,), generator=gen, device=dev)
     cu = cls[u]
@@ -2497,12 +2527,18 @@ def modularity_f64(torch, g, membership) -> float:
     return float(inside / two_m - ((tot / two_m) ** 2).sum())
 
 
-def grads_agree(got: dict, want: dict, rtol: float) -> float:
-    """The largest, over tensors, of max |got - want| / max |want|."""
+def grads_agree(got: dict, want: dict, per_tensor: bool = True) -> float:
+    """The largest, over tensors, of max |got - want| over max |want| of
+    that tensor (``per_tensor``) or of all of them (a tensor whose entries
+    cancel to near zero, as the attention's output bias in Equiformer's
+    segment softmax, is held to the model's gradient scale)."""
+    top = max(float(w.abs().max()) for w in want.values())
     worst = 0.0
     for k, w in want.items():
-        scale = float(w.abs().max())
+        scale = float(w.abs().max()) if per_tensor else top
         err = float((got[k].to(w.dtype) - w).abs().max())
+        if not (np.isfinite(err) and np.isfinite(scale)):
+            return float("inf")
         worst = max(worst, err / scale if scale else err)
     return worst
 
@@ -2530,18 +2566,121 @@ def gnn_run(torch, arch, shape, batch, dev, steps: int, what: str):
     return losses
 
 
+def partition_checked(torch, ops, g, n_devices: int, report, phase: str,
+                      step: str, k3_name: str, k1_name: str):
+    """``louvain_partition(g, n_devices)`` under the default config (K3)
+    and with ``use_ell_kernel=True`` (K1 and K3), which must give one
+    partition; the first K3 launch of the default run and the first K1
+    launch of each ELL bucket are held against their plain versions bit
+    for bit, timed against their bounds and added to ``report`` as
+    ``k3_name`` / ``k1_name``.  Returns the partition."""
+    from repro_torch import LouvainConfig, louvain_partition
+    from repro_torch.core import aggregate
+    from repro_torch.kernels.aggregate import coarsen
+
+    parts = {}
+    for what, cfg, needs in (
+            ("default", LouvainConfig(), ("coarsen_groups",)),
+            ("use_ell_kernel=True", LouvainConfig(use_ell_kernel=True),
+             ("louvain_fused", "coarsen_groups"))):
+        coarsen.coarsen_groups.launches = 0
+        ops.louvain_fused.launches = 0
+        with first_call_recorded(aggregate, "coarsen_groups") as first, \
+                timed_calls(torch, ops, "louvain_fused") as k1_s, \
+                first_call_recorded(ops, "louvain_fused",
+                                    key=lambda kw: kw["width"]) as k1_first:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lp = louvain_partition(g, n_devices, cfg)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        counts = {"louvain_fused": ops.louvain_fused.launches,
+                  "coarsen_groups": coarsen.coarsen_groups.launches}
+        for k in needs:
+            require(counts[k] > 0, f"partition ({what}): {k} never launched")
+        parts[what] = (lp, counts, secs, first.get(None), k1_first)
+        log(phase, f"{step} louvain_partition(g, {n_devices}), "
+            f"{what}: {secs:.3f} s, cut fraction {lp.cut_fraction:.6f} "
+            f"({lp.cut_edges} of {lp.total_edges} slots), balance "
+            f"{lp.balance:.6f}, launches {json.dumps(counts)}"
+            + (f"; K1 through its checked wrapper {sum(k1_s) * 1e3:.3f} ms "
+               f"in all over {len(k1_s)} calls (between syncs)"
+               if k1_s else ""))
+    lp, k3_counts, _, first, _ = parts["default"]
+    lp_ell, k1_counts, _, _, k1_first = parts["use_ell_kernel=True"]
+    require(np.array_equal(lp.assignment, lp_ell.assignment)
+            and np.array_equal(lp.order, lp_ell.order),
+            "the default and the ELL partitions differ")
+    # The first K1 launch of each ELL bucket (round 0 of the first pass,
+    # one state) against its plain version, bit for bit.
+    k1_calls = [k1_first[w] for w in sorted(k1_first)]
+    k1_err = 0.0
+    for c in k1_calls:
+        want = ops.louvain_fused_rows_ref(*c["args"], **c["kwargs"])
+        for i, (a, b) in enumerate(zip(c["out"], want)):
+            require(a.dtype == b.dtype and torch.equal(a, b),
+                    f"K1 differs from its plain version on the partitioner's "
+                    f"width-{c['kwargs']['width']} bucket (output {i})")
+        fin = torch.isfinite(c["out"][1]) & torch.isfinite(want[1])
+        if bool(fin.any()):
+            k1_err = max(k1_err, float((c["out"][1][fin]
+                                        - want[1][fin]).abs().max()))
+
+    def k1_round(fn):
+        return [fn(*c["args"], **c["kwargs"]) for c in k1_calls]
+
+    k1_ms = time_ms(torch, lambda: k1_round(ops.louvain_fused), 10)
+    k1_plain = time_ms(torch, lambda: k1_round(ops.louvain_fused_rows_ref), 2)
+    a0 = k1_calls[0]["args"]
+    csr = types.SimpleNamespace(n_cap=k1_calls[0]["kwargs"]["sentinel"],
+                                indptr=a0[1], indices=a0[2], device=g.device)
+    k1_bytes, _, k1_ops, k1_work = scan_work(
+        torch, csr, [(c["kwargs"]["width"], c["args"][0]) for c in k1_calls],
+        a0[4], torch.cat([c["out"][0] for c in k1_calls]))
+    k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops / FP32_OPS_PER_S) * 1e3
+    log(phase, f"{step} K1, the partitioner's first round over the buckets "
+        f"of widths {sorted(k1_first)}: bit for bit on the rows "
+        f"{[c['args'][0].numel() for c in k1_calls]}; {k1_ms:.4f} ms (plain "
+        f"{k1_plain:.4f} ms), {k1_ms / k1_bound:.3f}x its bound; "
+        + json.dumps(k1_work))
+    report.append(kernel_entry(k1_name,
+                               k1_counts["louvain_fused"], k1_err, k1_ms,
+                               k1_plain, k1_bytes, k1_ops))
+    del k1_calls, k1_first, a0, csr, c, want, fin
+    # The first K3 launch of the default run against its plain version.
+    s_ci, s_cj, s_w = first["args"]
+    sent = first["kwargs"]["sent"]
+    want = coarsen.coarsen_groups_ref(s_ci, s_cj, s_w, sent=sent)
+    torch.cuda.synchronize()
+    got = first["out"]
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            "K3 differs from its plain version on the partitioner's first "
+            "aggregation")
+    total = s_ci.numel()
+    k3_ms = time_ms(torch, lambda: coarsen.coarsen_groups(
+        s_ci, s_cj, s_w, sent=sent), 10)
+    k3_plain = time_ms(torch, lambda: coarsen.coarsen_groups_ref(
+        s_ci, s_cj, s_w, sent=sent), 3)
+    k3_bytes = 12 * total + 17 * (total + 1)
+    log(phase, f"{step} K3, the partitioner's first aggregation: exact on "
+        f"{total} slots ({int(got[0].sum())} groups); {k3_ms:.4f} ms "
+        f"(plain {k3_plain:.4f} ms), "
+        f"{k3_ms / (k3_bytes / HBM_BYTES_PER_S * 1e3):.3f}x its bound")
+    report.append(kernel_entry(k3_name,
+                               k3_counts["coarsen_groups"],
+                               float((got[4] - want[4]).abs().max()),
+                               k3_ms, k3_plain, k3_bytes, total))
+    return lp
+
+
 def phase_graph(torch, ops, args, dev, report):
     """Phase 10: the Louvain partitioner and GNN training at full width."""
     import copy
-    from repro_torch import (GAT_CORA, GIN_TU, LouvainConfig, ShardGroup,
-                             build_csr, build_halo_inputs, louvain,
-                             louvain_partition, membership_modularity,
-                             random_partition, sbm_graph)
-    from repro_torch.configs.gnn_common import (GNN_SHAPES, GNN_SMOKE_SHAPES,
-                                                pad512)
-    from repro_torch.core import aggregate, collectives, gnn_halo
-    from repro_torch.kernels.aggregate import coarsen
-    from repro_torch.models.gnn.gin import GINConfig
+    from repro_torch import (GAT_CORA, GIN_TU, ShardGroup, build_csr,
+                             build_halo_inputs, louvain,
+                             membership_modularity, random_partition)
+    from repro_torch.configs.gnn_common import GNN_SHAPES, pad512
+    from repro_torch.core import gnn_halo
     from repro_torch.models.gnn.sampler import sample_block
     from repro_torch.optim import AdamWConfig, adamw_init
 
@@ -2567,40 +2706,11 @@ def phase_graph(torch, ops, args, dev, report):
         f"{time.perf_counter() - t:.2f} s")
 
     # (b) The partitioner: the default config (K3), then the ELL route (K1
-    # and K3); one partition from both.
-    parts = {}
-    for what, cfg, needs in (
-            ("default", LouvainConfig(), ("coarsen_groups",)),
-            ("use_ell_kernel=True", LouvainConfig(use_ell_kernel=True),
-             ("louvain_fused", "coarsen_groups"))):
-        coarsen.coarsen_groups.launches = 0
-        ops.louvain_fused.launches = 0
-        with first_call_recorded(aggregate, "coarsen_groups") as first, \
-                timed_calls(torch, ops, "louvain_fused") as k1_s, \
-                first_call_recorded(ops, "louvain_fused",
-                                    key=lambda kw: kw["width"]) as k1_first:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            lp = louvain_partition(g, PARTITION_DEVICES, cfg)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t
-        counts = {"louvain_fused": ops.louvain_fused.launches,
-                  "coarsen_groups": coarsen.coarsen_groups.launches}
-        for k in needs:
-            require(counts[k] > 0, f"partition ({what}): {k} never launched")
-        parts[what] = (lp, counts, secs, first.get(None), k1_first)
-        log("graph", f"(b) louvain_partition(g, {PARTITION_DEVICES}), "
-            f"{what}: {secs:.3f} s, cut fraction {lp.cut_fraction:.6f} "
-            f"({lp.cut_edges} of {lp.total_edges} slots), balance "
-            f"{lp.balance:.6f}, launches {json.dumps(counts)}"
-            + (f"; K1 through its checked wrapper {sum(k1_s) * 1e3:.3f} ms "
-               f"in all over {len(k1_s)} calls (between syncs)"
-               if k1_s else ""))
-    lp, k3_counts, _, first, _ = parts["default"]
-    lp_ell, k1_counts, _, _, k1_first = parts["use_ell_kernel=True"]
-    require(np.array_equal(lp.assignment, lp_ell.assignment)
-            and np.array_equal(lp.order, lp_ell.order),
-            "the default and the ELL partitions differ")
+    # and K3); one partition from both, its kernels held to their plain
+    # versions.
+    lp = partition_checked(torch, ops, g, PARTITION_DEVICES, report, "graph",
+                           "(b)", "coarsen_groups_partition",
+                           "louvain_fused_partition")
     rp = random_partition(g, PARTITION_DEVICES)
     log("graph", f"(b) random_partition: cut fraction {rp.cut_fraction:.6f}, "
         f"balance {rp.balance:.6f}; Louvain cuts "
@@ -2618,67 +2728,6 @@ def phase_graph(torch, ops, args, dev, report):
     require(abs(q32 - q64) <= 1e-4,
             "the port's float32 Q disagrees with float64 by more than 1e-4")
     del res, sizes
-
-    # The first K1 launch of each ELL bucket (round 0 of the first pass,
-    # one state) against its plain version, bit for bit.
-    k1_calls = [k1_first[w] for w in sorted(k1_first)]
-    k1_err = 0.0
-    for c in k1_calls:
-        want = ops.louvain_fused_rows_ref(*c["args"], **c["kwargs"])
-        for i, (a, b) in enumerate(zip(c["out"], want)):
-            require(a.dtype == b.dtype and torch.equal(a, b),
-                    f"K1 differs from its plain version on the partitioner's "
-                    f"width-{c['kwargs']['width']} bucket (output {i})")
-        fin = torch.isfinite(c["out"][1]) & torch.isfinite(want[1])
-        if bool(fin.any()):
-            k1_err = max(k1_err, float((c["out"][1][fin]
-                                        - want[1][fin]).abs().max()))
-
-    def k1_round(fn):
-        return [fn(*c["args"], **c["kwargs"]) for c in k1_calls]
-
-    k1_ms = time_ms(torch, lambda: k1_round(ops.louvain_fused), 10)
-    k1_plain = time_ms(torch, lambda: k1_round(ops.louvain_fused_rows_ref), 2)
-    a0 = k1_calls[0]["args"]
-    csr = types.SimpleNamespace(n_cap=k1_calls[0]["kwargs"]["sentinel"],
-                                indptr=a0[1], indices=a0[2], device=dev)
-    k1_bytes, _, k1_ops, k1_work = scan_work(
-        torch, csr, [(c["kwargs"]["width"], c["args"][0]) for c in k1_calls],
-        a0[4], torch.cat([c["out"][0] for c in k1_calls]))
-    k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops / FP32_OPS_PER_S) * 1e3
-    log("graph", f"(b) K1, the partitioner's first round over the buckets "
-        f"of widths {sorted(k1_first)}: bit for bit on the rows "
-        f"{[c['args'][0].numel() for c in k1_calls]}; {k1_ms:.4f} ms (plain "
-        f"{k1_plain:.4f} ms), {k1_ms / k1_bound:.3f}x its bound; "
-        + json.dumps(k1_work))
-    report.append(kernel_entry("louvain_fused_partition",
-                               k1_counts["louvain_fused"], k1_err, k1_ms,
-                               k1_plain, k1_bytes, k1_ops))
-    del k1_calls, k1_first, a0, csr, c, want, fin
-    # The first K3 launch of the default run against its plain version.
-    s_ci, s_cj, s_w = first["args"]
-    sent = first["kwargs"]["sent"]
-    want = coarsen.coarsen_groups_ref(s_ci, s_cj, s_w, sent=sent)
-    torch.cuda.synchronize()
-    got = first["out"]
-    require(all(torch.equal(a, b) for a, b in zip(got, want)),
-            "K3 differs from its plain version on the partitioner's first "
-            "aggregation")
-    total = s_ci.numel()
-    k3_ms = time_ms(torch, lambda: coarsen.coarsen_groups(
-        s_ci, s_cj, s_w, sent=sent), 10)
-    k3_plain = time_ms(torch, lambda: coarsen.coarsen_groups_ref(
-        s_ci, s_cj, s_w, sent=sent), 3)
-    k3_bytes = 12 * total + 17 * (total + 1)
-    log("graph", f"(b) K3, the partitioner's first aggregation: exact on "
-        f"{total} slots ({int(got[0].sum())} groups); {k3_ms:.4f} ms "
-        f"(plain {k3_plain:.4f} ms), "
-        f"{k3_ms / (k3_bytes / HBM_BYTES_PER_S * 1e3):.3f}x its bound")
-    report.append(kernel_entry("coarsen_groups_partition",
-                               k3_counts["coarsen_groups"],
-                               float((got[4] - want[4]).abs().max()),
-                               k3_ms, k3_plain, k3_bytes, total))
-    del first, got, want, s_ci, s_cj, s_w, parts, lp_ell
 
     # (c) gin-tu at full width on the graph in Louvain order.
     sh = GNN_SHAPES["ogb_products"]
@@ -2711,7 +2760,7 @@ def phase_graph(torch, ops, args, dev, report):
     loss64, grads64 = step.loss_and_grads(model64, batch64)
     del model64, batch64
     rel_loss = abs(float(loss32) - float(loss64)) / abs(float(loss64))
-    rel_grad = grads_agree(grads32, grads64, GNN_RTOL)
+    rel_grad = grads_agree(grads32, grads64)
     log("graph", f"(c) first step, float32 against float64 on the card: "
         f"loss {float(loss32):.8f} / {float(loss64):.8f} (relative "
         f"{rel_loss:.3e}), gradients {rel_grad:.3e} of their largest entry "
@@ -2767,7 +2816,7 @@ def phase_graph(torch, ops, args, dev, report):
                                   opt_cfg=opt_cfg, spec=spec)
         loss_h, grads_h = hstep.loss_and_grads(model, hbatch)
         rel_h = abs(float(loss_h) - float(loss32)) / abs(float(loss32))
-        rel_hg = grads_agree(grads_h, grads32, GNN_RTOL)
+        rel_hg = grads_agree(grads_h, grads32)
         log("graph", f"(d) halo step at world size 1 (NCCL; layout built in "
             f"{halo_s:.2f} s on the card): loss {float(loss_h):.8f} against "
             f"{float(loss32):.8f} (relative {rel_h:.3e}), gradients "
@@ -2846,9 +2895,22 @@ def phase_graph(torch, ops, args, dev, report):
             GNN_STEPS, "(e) gin-tu x molecule")
     del g, cls, mbatch, blocks
 
-    # (f) 4 gloo ranks on the one card: the halo GIN (float32 and bf16
-    # messages) and the all-gather layout on a small Louvain-partitioned
-    # graph, equal to world size 1.
+    # (f) 4 gloo ranks on the one card.
+    gnn_ranks_check(torch, dev)
+
+
+def gnn_ranks_check(torch, dev) -> None:
+    """Phase 10 (f): GNN_RANKS gloo ranks on the one card, the halo GIN
+    (float32 and bf16 messages), the halo Equiformer (phase 11 (d)) and
+    the all-gather layout on a small Louvain-partitioned graph, equal to
+    world size 1."""
+    from repro_torch import (GAT_CORA, GIN_TU, ShardGroup, build_halo_inputs,
+                             louvain_partition, sbm_graph)
+    from repro_torch.configs.gnn_common import GNN_SMOKE_SHAPES
+    from repro_torch.core import collectives, gnn_halo
+    from repro_torch.models.gnn.equiformer import EquiformerConfig
+    from repro_torch.models.gnn.gin import GINConfig
+
     sg, _ = sbm_graph(8, 16, 0.4, 0.01, seed=2, device=dev)
     sn = sg.n_valid
     s_order = louvain_partition(sg, GNN_RANKS).order
@@ -2857,19 +2919,29 @@ def phase_graph(torch, ops, args, dev, report):
     rng = np.random.default_rng(0)
     s_feat = rng.standard_normal((sn, 8)).astype(np.float32)[s_order]
     s_lab = rng.integers(0, 4, sn).astype(np.int32)[s_order]
+    s_pos = np.random.default_rng(1).standard_normal(
+        (sn, 3)).astype(np.float32)[s_order]
     gcfg = GINConfig(n_layers=2, d_hidden=16, d_feat=8, n_classes=4)
     gmodel = GIN_TU.make_model(gcfg, 0, "cpu")
     gstate = {k: x.numpy() for k, x in gmodel.state_dict().items()}
+    ecfg = EquiformerConfig(**RANKS_EQUIFORMER, d_feat=8, out_dim=4,
+                            node_level=True)
 
-    def halo_run(p, bf16):
+    def halo_run(p, bf16, arch="gin-tu"):
         spec = gnn_halo.HaloSpec(p, sn // p, len(s_src), sn // p)
         h = build_halo_inputs(s_src, s_dst, s_order, p, sn,
                               len(s_src) * p, spec, device=dev)
-        return {"arch": "gin-tu", "cfg": gcfg, "state": gstate, "steps": 2,
-                "batch": {"node_feat": s_feat, "labels": s_lab,
-                          **{k: h[k] for k in ("edge_src", "edge_dst",
-                                               "send_idx")}},
-                "halo": {"spec": spec, "n_valid": sn, "bf16_msgs": bf16}}
+        run = {"arch": arch, "cfg": gcfg, "state": gstate, "steps": 2,
+               "batch": {"node_feat": s_feat, "labels": s_lab,
+                         **{k: h[k] for k in ("edge_src", "edge_dst",
+                                              "send_idx")}},
+               "halo": {"spec": spec, "n_valid": sn, "bf16_msgs": bf16}}
+        if arch == "equiformer-v2":
+            # Full width; every rank draws the weights from seed 0.
+            del run["state"]
+            run["cfg"] = ecfg
+            run["batch"]["positions"] = s_pos
+        return run
 
     def step_run(arch, shape, seed):
         cfg = arch.make_config(GNN_SMOKE_SHAPES[shape], True)
@@ -2880,20 +2952,23 @@ def phase_graph(torch, ops, args, dev, report):
                 "state": {k: x.numpy() for k, x in m.state_dict().items()},
                 "batch": {k: x.numpy() for k, x in b.items()}}
 
-    tail = [step_run(GIN_TU, "full_graph_sm", 1),
-            step_run(GAT_CORA, "full_graph_sm", 2),
-            step_run(GIN_TU, "molecule", 3)]
-    solo = gnn_halo.gnn_rank_runs(ShardGroup.single(dev),
-                                  [halo_run(1, False), halo_run(1, True)]
-                                  + tail)
+    def runs(p):
+        return ([halo_run(p, False), halo_run(p, True)]
+                + [step_run(GIN_TU, "full_graph_sm", 1),
+                   step_run(GAT_CORA, "full_graph_sm", 2),
+                   step_run(GIN_TU, "molecule", 3)]
+                + [halo_run(p, False, "equiformer-v2")])
+
+    t = time.perf_counter()
+    solo = gnn_halo.gnn_rank_runs(ShardGroup.single(dev), runs(1))
+    solo_s = time.perf_counter() - t
     t = time.perf_counter()
     out = collectives.launch(gnn_halo.gnn_rank_runs, GNN_RANKS,
-                             [halo_run(GNN_RANKS, False),
-                              halo_run(GNN_RANKS, True)] + tail,
-                             backend="gloo", devices=[str(dev)] * GNN_RANKS,
-                             timeout=300)
+                             runs(GNN_RANKS), backend="gloo",
+                             devices=[str(dev)] * GNN_RANKS, timeout=300)
     wall = time.perf_counter() - t
-    for rank_out in out:
+    eq = len(solo["results"]) - 1
+    for rank, rank_out in enumerate(out):
         for i, (a, b) in enumerate(zip(rank_out["results"],
                                        solo["results"])):
             rtol = 1e-2 if i == 1 else GNN_RTOL
@@ -2901,20 +2976,410 @@ def phase_graph(torch, ops, args, dev, report):
             worst = grads_agree({k: torch.from_numpy(x)
                                  for k, x in a["grads"].items()},
                                 {k: torch.from_numpy(x)
-                                 for k, x in b["grads"].items()}, rtol)
+                                 for k, x in b["grads"].items()},
+                                per_tensor=i != eq)
             require(rel <= rtol / 10 and worst <= rtol
                     and np.allclose(a["losses"], b["losses"],
                                     rtol=rtol / 10),
                     f"{GNN_RANKS} gloo ranks differ from world size 1 in "
                     f"run {i}: loss {rel:.3e}, gradients {worst:.3e}")
+            if i == eq:
+                log("graph", f"(f) Equiformer halo, rank {rank}: loss {a['loss']:.8f} against "
+                    f"{b['loss']:.8f} (relative {rel:.3e}), gradients "
+                    f"{worst:.3e} of the largest entry, step losses "
+                    f"{a['losses']} against {b['losses']}")
     log("graph", f"(f) {GNN_RANKS} gloo ranks on one card (halo GIN in "
-        f"float32 and with bf16 messages on the sbm golden graph in Louvain "
-        f"order, the all-gather layout of gin-tu and gat-cora, the molecule "
-        f"split): equal to world size 1; wire bytes a rank "
-        f"{[o['wire_bytes'] for o in out]}, staged "
+        f"float32 and with bf16 messages, and the halo Equiformer "
+        f"{json.dumps(RANKS_EQUIFORMER)}, on "
+        f"the sbm golden graph in Louvain order; the all-gather layout of "
+        f"gin-tu and gat-cora, the molecule split): equal to world size 1; "
+        f"wire bytes a rank {[o['wire_bytes'] for o in out]}, staged "
         f"{[o['staged_bytes'] for o in out]}; {wall:.2f} s with the rank "
-        f"starts (no multi-GPU number)")
+        f"starts, world size 1 {solo_s:.2f} s (no multi-GPU number)")
 
+
+# ---------------------------------------------------------------------------
+# Phase 11: the geometric models (Equiformer-v2, DimeNet) at full width, and
+# the Equiformer halo step on a Louvain partition.
+# ---------------------------------------------------------------------------
+
+#: Phase 11 (c): Cora's published sizes (``GNN_SHAPES["full_graph_sm"]``):
+#: vertices, undirected pairs (10,556 directed slots), classes, features;
+#: drawn like phase 10's graph, positions normal.
+CORA_NODES = 2708
+CORA_PAIRS = 5278
+CORA_CLASSES = 7
+CORA_FEAT = 1433
+#: Phase 11 (c): shards of the Louvain partition and of the measured halo
+#: layout, and the step of the halo_frac search.
+GEO_SHARDS = 4
+HALO_FRAC_STEP = 0.05
+#: Phase 11: outputs under a global rotation and translation of the
+#: positions (energies, or logits), relative to their largest magnitude;
+#: the bf16-edge halo loss against the float32 one, relative.
+GEO_INVARIANCE_RTOL = 1e-3
+GEO_BF16_RTOL = 2e-2
+#: Phase 11's AdamW: no warmup, cosine to 0.1 over the steps taken.  At
+#: 1e-4 Adam's first steps (every weight moved by about lr) raise the
+#: full-width Equiformer's molecule loss.
+GEO_LR = 1e-5
+
+
+def as_float64(batch: dict) -> dict:
+    return {k: x.double() if x.is_floating_point() else x
+            for k, x in batch.items()}
+
+
+def geo_outputs(torch, arch, model, shape: str, batch: dict):
+    """The model's outputs on ``batch`` without autograd: a full graph's
+    node logits (Equiformer) or energy (DimeNet); a molecule batch's
+    energies, one a molecule."""
+    from repro_torch.configs.gnn_common import merged_graph, shape_of
+    from repro_torch.models.gnn.common import GraphBatch
+    sh = shape_of(shape)
+    with torch.no_grad():
+        if sh.kind == "full":
+            nf = batch["node_feat"]
+            g = GraphBatch(node_feat=nf, edge_src=batch["edge_src"],
+                           edge_dst=batch["edge_dst"], n_nodes=sh.n_nodes,
+                           labels=batch["labels"],
+                           graph_id=torch.zeros(nf.shape[0],
+                                                dtype=torch.int64,
+                                                device=nf.device),
+                           n_graphs=1, positions=batch["positions"])
+            extra = ((batch["t_kj"], batch["t_ji"]) if arch.needs_triplets
+                     else ())
+            out = model(g, *extra)
+            return out[:sh.n_nodes] if arch.label_kind_for(shape) == "node" \
+                else out[:1, 0]
+        g = merged_graph(batch)
+        extra = (g.t_kj, g.t_ji) if arch.needs_triplets else ()
+        return model(g, *extra)[:g.n_graphs, 0]
+
+
+def random_rigid_motion(torch, dev, seed: int):
+    """A rotation (QR of a normal matrix, sign-fixed to det +1) and a
+    translation, float32 on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    q, r = torch.linalg.qr(torch.randn(3, 3, generator=gen,
+                                       dtype=torch.float64))
+    q = q * torch.sign(torch.diagonal(r))
+    if torch.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    shift = 3.0 * torch.randn(3, generator=gen, dtype=torch.float64)
+    return q.float().to(dev), shift.float().to(dev)
+
+
+def geo_train(torch, arch, shape: str, batch: dict, dev, what: str,
+              seed: int) -> dict:
+    """One geometric model on one batch at full width, world size 1: the
+    first step's loss and gradients against a float64 copy of the model
+    on the card; its outputs under a random rotation and translation of
+    the positions; GNN_STEPS AdamW steps (finite, falling loss), seconds a
+    step, peak memory and a ``torch.profiler`` breakdown of one step."""
+    import copy
+    from repro_torch import ShardGroup
+    from repro_torch.optim import AdamWConfig, adamw_init
+    model = arch.init_model(shape, seed=0, device=dev)
+    step = arch.build_step(shape, ShardGroup.single(dev), opt_cfg=AdamWConfig(
+        lr=GEO_LR, warmup_steps=0, total_steps=GNN_STEPS))
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    loss32, grads32 = step.loss_and_grads(model, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    peak32 = torch.cuda.max_memory_allocated() / 2 ** 30
+    model64 = copy.deepcopy(model).double()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    loss64, grads64 = step.loss_and_grads(model64, as_float64(batch))
+    torch.cuda.synchronize()
+    f64_s = time.perf_counter() - t
+    peak64 = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model64
+    rel_loss = abs(float(loss32) - float(loss64)) / abs(float(loss64))
+    rel_grad = grads_agree(grads32, grads64, per_tensor=False)
+    rel_tensor = grads_agree(grads32, grads64)
+    log("geometric", f"{what}: {n_params} parameters; first step, float32 "
+        f"against float64 on the card: loss {float(loss32):.8f} / "
+        f"{float(loss64):.10f} (relative {rel_loss:.3e}), gradients "
+        f"{rel_grad:.3e} of the largest entry ({rel_tensor:.3e} of each "
+        f"tensor's own; tolerance {GNN_RTOL} of the largest entry); "
+        f"{first_s:.3f} s float32, {f64_s:.3f} s float64; peak "
+        f"{peak32:.2f} / {peak64:.2f} GiB")
+    require(rel_loss <= GNN_RTOL and rel_grad <= GNN_RTOL,
+            f"{what}: the float32 step disagrees with float64")
+    del grads32, grads64
+
+    rot, shift = random_rigid_motion(torch, dev, seed)
+    moved = dict(batch, positions=batch["positions"] @ rot.T + shift)
+    before = geo_outputs(torch, arch, model, shape, batch)
+    after = geo_outputs(torch, arch, model, shape, moved)
+    inv = float((after - before).abs().max() / before.abs().max())
+    log("geometric", f"{what}: outputs {tuple(before.shape)} under a random "
+        f"rotation and translation: max |change| {inv:.3e} of the largest "
+        f"magnitude {float(before.abs().max()):.6g} (tolerance "
+        f"{GEO_INVARIANCE_RTOL})")
+    require(inv <= GEO_INVARIANCE_RTOL,
+            f"{what}: outputs not invariant under a rigid motion")
+    del moved, before, after
+
+    opt = adamw_init(model)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(GNN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        opt, loss = step(model, opt, batch)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"{what}: losses {losses} not finite and falling")
+    require(abs(losses[0] - float(loss32)) <= GNN_RTOL * abs(losses[0]),
+            f"{what}: the first step's loss is not the checked loss")
+    wall_ms = float(np.mean(times[1:])) * 1e3
+    p_ms, n_ops, busy_ms, top = device_profile(
+        torch, lambda: step(model, opt, batch), top=8)
+    log("geometric", f"{what}: {GNN_STEPS} AdamW steps, losses {losses}; "
+        f"seconds a step {[round(x, 4) for x in times]} (mean of the last "
+        f"{GNN_STEPS - 1}: {wall_ms / 1e3:.4f} s); peak memory {peak:.2f} "
+        f"GiB; profile of one step: {n_ops} device operations, device busy "
+        f"{busy_ms:.3f} ms, {p_ms:.3f} ms profiled wall (idle share "
+        f"{1 - busy_ms / wall_ms:.3f} of the unprofiled step); top by "
+        f"device ms {json.dumps(top)}")
+    return {"step_s": wall_ms / 1e3, "peak_gib": peak, "losses": losses}
+
+
+def undirected(batch: dict, n_edges: int, sentinel: int) -> dict:
+    """``batch`` with undirected edge lists: of each graph's edge slots
+    (the last dimension), the first ``n_edges // 2`` keep their pairs, the
+    next as many hold the reverses, and any slot past ``n_edges`` is
+    padding (``sentinel``).  Cora's 10,556 slots and a molecule's bonds
+    are such pairs.  A node with out-edges and no in-edges keeps zero
+    l >= 1 irreps through every Equiformer layer, where the irrep norm's
+    slope is its scale over sqrt(1e-8); those rows' adjoints grow 1e4-fold
+    a norm and overflow float32 (NaN gradients, in the JAX reference
+    too)."""
+    out = dict(batch)
+    half = n_edges // 2
+    for k, rev in (("edge_src", "edge_dst"), ("edge_dst", "edge_src")):
+        x = batch[k].clone()
+        x[..., half:2 * half] = batch[rev][..., :half]
+        x[..., 2 * half:] = sentinel
+        out[k] = x
+    return out
+
+
+def wigner_orthogonality(torch, vec, l_max: int) -> list:
+    """max |D Dᵀ - I| per l of the Wigner blocks of the edge vectors
+    ``vec`` (non-zero rows), in their type."""
+    from repro_torch.models.gnn.wigner import rotation_to_z, wigner_d_stack
+    keep = torch.linalg.norm(vec, dim=-1) > 0
+    n = vec[keep] / torch.linalg.norm(vec[keep], dim=-1, keepdim=True)
+    out = []
+    for l, d in enumerate(wigner_d_stack(rotation_to_z(n), l_max)):
+        eye = torch.eye(2 * l + 1, dtype=d.dtype, device=d.device)
+        out.append(float((d @ d.transpose(1, 2) - eye).abs().max()))
+    return out
+
+
+def phase_geometric(torch, ops, args, dev, report):
+    """Phase 11: Equiformer-v2 and DimeNet trained at full width on the
+    molecule and full_graph_sm batches, and the Equiformer halo step on a
+    Louvain partition of a graph of Cora's sizes."""
+    from repro_torch import (DIMENET, EQUIFORMER_V2, ShardGroup, build_csr,
+                             build_halo_inputs)
+    from repro_torch.configs.gnn_common import GNN_SHAPES, pad512
+    from repro_torch.core import gnn_halo
+    from repro_torch.models.gnn.dimenet import build_triplets_host
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "TF32 matmuls are on: the float64 checks assume float32 GEMMs")
+
+    # (a) Equiformer-v2 at full width (12 layers, d_hidden 128, l_max 6,
+    # m_max 2, 8 heads) on the molecule and full_graph_sm batches.
+    results = {}
+    for shape in ("molecule", "full_graph_sm"):
+        sh = GNN_SHAPES[shape]
+        batch = EQUIFORMER_V2.make_batch(shape, args.seed, device=dev)
+        batch = undirected(batch, sh.n_edges, batch["node_feat"].shape[-2])
+        if shape == "molecule":
+            pos = batch["positions"]
+            vec = (pos.gather(1, batch["edge_dst"].long()[..., None]
+                              .expand(-1, -1, 3))
+                   - pos.gather(1, batch["edge_src"].long()[..., None]
+                                .expand(-1, -1, 3))).reshape(-1, 3)
+            orth32 = wigner_orthogonality(torch, vec, 6)
+            orth64 = wigner_orthogonality(torch, vec.double(), 6)
+            log("geometric", f"(a) Wigner-D blocks of the molecule batch's "
+                f"{vec.shape[0]} edges, max |D Dᵀ - I| per l = 0..6: float32 "
+                f"{[f'{x:.2e}' for x in orth32]}, float64 "
+                f"{[f'{x:.2e}' for x in orth64]}")
+            require(max(orth32) <= 1e-5 and max(orth64) <= 1e-12,
+                    "Wigner-D blocks at l_max 6 are not orthogonal")
+        results[("equiformer-v2", shape)] = geo_train(
+            torch, EQUIFORMER_V2, shape, batch, dev,
+            f"(a) equiformer-v2 x {shape}", args.seed + 21)
+        del batch
+        torch.cuda.empty_cache()
+
+    # (b) DimeNet at full width (6 blocks, d 128, n_bilinear 8,
+    # n_spherical 7, n_radial 6), triplets from each graph's edges.
+    for shape in ("molecule", "full_graph_sm"):
+        batch = DIMENET.make_batch(shape, args.seed, device=dev)
+        es, ed = batch["edge_src"].cpu().numpy(), batch["edge_dst"].cpu().numpy()
+        cap = batch["t_kj"].shape[-1]
+        t = time.perf_counter()
+        if es.ndim == 2:
+            tri = [build_triplets_host(es[b], ed[b], es.shape[1], cap)
+                   for b in range(es.shape[0])]
+            tkj = np.stack([x[0] for x in tri])
+            tji = np.stack([x[1] for x in tri])
+            n_edges = es.shape[1]
+        else:
+            tkj, tji = build_triplets_host(es, ed, es.shape[0], cap)
+            n_edges = es.shape[0]
+        tri_s = time.perf_counter() - t
+        live = int((tkj < n_edges).sum())
+        batch["t_kj"] = torch.from_numpy(tkj).to(dev)
+        batch["t_ji"] = torch.from_numpy(tji).to(dev)
+        log("geometric", f"(b) dimenet x {shape}: triplets from the edges "
+            f"by build_triplets_host in {tri_s:.3f} s: {live} live of "
+            f"{tkj.size} slots (cap {cap} a graph)")
+        results[("dimenet", shape)] = geo_train(
+            torch, DIMENET, shape, batch, dev, f"(b) dimenet x {shape}",
+            args.seed + 22)
+        del batch
+        torch.cuda.empty_cache()
+
+    # (c) The Equiformer halo path: a planted-class graph of Cora's sizes
+    # drawn on the card, partitioned by Louvain onto GEO_SHARDS devices
+    # (K3; K1 and K3), laid out for the halo step in Louvain order.
+    n, n_pairs = CORA_NODES, CORA_PAIRS
+    cls, u, v = products_graph(torch, dev, n, n_pairs, args.seed + 11,
+                               CORA_CLASSES)
+    g = build_csr(u, v, torch.ones(n_pairs, device=dev), n, symmetrize=True,
+                  device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 12)
+    means = torch.randn(CORA_CLASSES, CORA_FEAT, generator=gen, device=dev)
+    feat = means[cls] + torch.randn(n, CORA_FEAT, generator=gen, device=dev)
+    pos = torch.randn(n, 3, generator=gen, device=dev)
+    log("geometric", f"(c) planted-class graph at Cora's sizes: {n} "
+        f"vertices, {n_pairs} pairs = {2 * n_pairs} directed slots, "
+        f"{g.e_valid} after dedup, {CORA_CLASSES} classes, {CORA_FEAT} "
+        f"features, normal positions")
+    lp = partition_checked(torch, ops, g, GEO_SHARDS, report, "geometric",
+                           "(c)", "coarsen_groups_halo", "louvain_fused_halo")
+    sh = GNN_SHAPES["full_graph_sm"]
+    n_pad, e_pad = pad512(n), pad512(max(sh.n_edges, g.e_valid))
+    e = g.e_valid
+    src_np = g.src[:e].cpu().numpy()
+    dst_np = g.indices[:e].cpu().numpy()
+    order_np = lp.order
+    spec_p = gnn_halo.make_halo_spec(n_pad, e_pad, GEO_SHARDS, 0.25)
+    counts = gnn_halo.halo_counts(src_np, dst_np, order_np, GEO_SHARDS,
+                                  spec_p.v_per_shard, device=dev)
+    k = 1
+    while gnn_halo.make_halo_spec(n_pad, e_pad, GEO_SHARDS, k
+                                  * HALO_FRAC_STEP).send_cap < counts.max():
+        k += 1
+    frac = round(k * HALO_FRAC_STEP, 2)
+    spec_p = gnn_halo.make_halo_spec(n_pad, e_pad, GEO_SHARDS, frac)
+    # A Louvain shard may own more than e_pad / P edges: the layout's edge
+    # cap is the largest shard's count.
+    new_id = np.empty(n, np.int64)
+    new_id[order_np] = np.arange(n)
+    e_counts = np.bincount(new_id[dst_np] // spec_p.v_per_shard,
+                           minlength=GEO_SHARDS)
+    spec_p = dataclasses.replace(spec_p, e_per_shard=int(e_counts.max()))
+    build_halo_inputs(src_np, dst_np, order_np, GEO_SHARDS, n_pad, e_pad,
+                      spec_p, device=dev)
+    ecfg = EQUIFORMER_V2.make_config(sh, False)
+    row_bytes = ecfg.n_coef * ecfg.d_hidden * 4
+    off = counts[~np.eye(GEO_SHARDS, dtype=bool)]
+    meas = int((counts.sum(0) + counts.sum(1)).max()) * row_bytes
+    cap_bytes = 2 * GEO_SHARDS * spec_p.send_cap * row_bytes
+    allgather = n_pad * row_bytes
+    log("geometric", f"(c) {GEO_SHARDS}-shard halo layout: measured halo a "
+        f"peer min/mean/max {off.min()}/{off.mean():.1f}/{off.max()}; "
+        f"halo_frac {frac} (the smallest multiple of {HALO_FRAC_STEP} that "
+        f"holds it: send cap S {spec_p.send_cap} a peer, V_l "
+        f"{spec_p.v_per_shard}, edge cap E_l {spec_p.e_per_shard}, edges a "
+        f"shard {e_counts.tolist()} against e_pad / P "
+        f"{e_pad // GEO_SHARDS}); irreps bytes a rank and layer: {cap_bytes} "
+        f"at the cap, {meas} measured (the largest rank's sent and received "
+        f"rows), the all-gather's {allgather} ({meas / allgather:.4f}x, at "
+        f"the cap {cap_bytes / allgather:.4f}x)")
+
+    # The plain step on the ordered graph, then the halo step at world
+    # size 1 through NCCL: m_truncate on and off, bf16 edges.
+    order = torch.from_numpy(order_np.astype(np.int64)).to(dev)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(n, device=dev)
+    batch = {"node_feat": torch.zeros(n_pad, CORA_FEAT, device=dev),
+             "positions": torch.zeros(n_pad, 3, device=dev),
+             "edge_src": torch.full((e_pad,), n_pad, dtype=torch.int32,
+                                    device=dev),
+             "edge_dst": torch.full((e_pad,), n_pad, dtype=torch.int32,
+                                    device=dev),
+             "labels": torch.zeros(n_pad, dtype=torch.int32, device=dev)}
+    batch["node_feat"][:n] = feat[order]
+    batch["positions"][:n] = pos[order]
+    batch["labels"][:n] = cls[order].to(torch.int32)
+    batch["edge_src"][:e] = inv[g.src[:e].long()].to(torch.int32)
+    batch["edge_dst"][:e] = inv[g.indices[:e].long()].to(torch.int32)
+    del feat, pos, inv, g
+    model = EQUIFORMER_V2.init_model("full_graph_sm", seed=0, device=dev)
+    plain = EQUIFORMER_V2.build_step("full_graph_sm", ShardGroup.single(dev))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss_p, grads_p = plain.loss_and_grads(model, batch)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    with nccl_world_of_one(dev) as group:
+        spec1 = gnn_halo.make_halo_spec(n_pad, e_pad, 1, frac)
+        halo = build_halo_inputs(src_np, dst_np, order_np, 1, n_pad, e_pad,
+                                 spec1, device=dev)
+        hbatch = {k: batch[k] for k in ("node_feat", "positions", "labels")}
+        hbatch.update({k: torch.from_numpy(halo[k]).to(dev)
+                       for k in ("edge_src", "edge_dst", "send_idx")})
+        for variant in (("halo",), ("halo", "no_mtrunc"),
+                        ("halo", "bf16_msgs")):
+            hstep = EQUIFORMER_V2.build_step("full_graph_sm", group,
+                                             variant=variant, spec=spec1)
+            wire0 = group.wire_bytes
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss_h, grads_h = hstep.loss_and_grads(model, hbatch)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            rel = abs(float(loss_h) - float(loss_p)) / abs(float(loss_p))
+            rel_g = grads_agree(grads_h, grads_p, per_tensor=False)
+            log("geometric", f"(c) halo step {'+'.join(variant)} at world "
+                f"size 1 (NCCL): loss {float(loss_h):.8f} against the plain "
+                f"step's {float(loss_p):.8f} (relative {rel:.3e}), gradients "
+                f"{rel_g:.3e} of the largest entry; {secs:.3f} s (plain "
+                f"{plain_s:.3f} s), peak {peak:.2f} GiB, wire bytes "
+                f"{group.wire_bytes - wire0}")
+            if "bf16_msgs" in variant:
+                require(rel <= GEO_BF16_RTOL,
+                        "the bf16-edge halo loss is not within "
+                        f"{GEO_BF16_RTOL} of the float32 loss")
+            else:
+                require(rel <= GNN_RTOL and rel_g <= GNN_RTOL,
+                        f"the halo step ({'+'.join(variant)}) differs from "
+                        f"the plain step at world size 1")
+            del grads_h
+    del model, batch, hbatch, grads_p
+    torch.cuda.empty_cache()
+    log("geometric", "(d) the Equiformer halo step on 4 gloo ranks ran in "
+        "phase 10 (f)'s launch")
+    return results
 
 
 def main() -> int:
@@ -2928,7 +3393,8 @@ def main() -> int:
     ap.add_argument("--sharded-scale", type=int, default=18,
                     help="R-MAT scale of phase 7's staged gloo ranks")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of phase 10's graph, features and batches")
+                    help="seed of phases 10-11's graphs, features and "
+                         "batches")
     args = ap.parse_args()
 
     import torch
@@ -2969,7 +3435,9 @@ def main() -> int:
                              torch, args, dev, report, state.pop("tenants"),
                              state.pop("staged"))),
                          ("graph", lambda: phase_graph(torch, ops, args, dev,
-                                                       report))):
+                                                       report)),
+                         ("geometric", lambda: phase_geometric(
+                             torch, ops, args, dev, report))):
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize()

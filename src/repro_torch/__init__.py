@@ -5,11 +5,12 @@ over ``torch.distributed`` (``distributed_louvain`` and the streaming
 ``louvain_dynamic_sharded`` on the ranks of a ``ShardGroup``) and the
 multi-tenant sharded serving fleet (``FleetRouter``, ``serve_fleet``), and
 the graph workloads: the Louvain partitioner (``louvain_partition``,
-``random_partition``) and Louvain-partitioned GNN training (the gin-tu and
-gat-cora configs' ``ARCH``, ``build_gnn_step``, and the halo exchange's
-``build_halo_step`` / ``build_halo_inputs``), with the
-ELL move kernels (K1, K2), the aggregation kernel (K3) and the batch-apply
-kernel (K4) hand-written in CUDA for Hopper (``repro_torch/csrc``).
+``random_partition``) and Louvain-partitioned GNN training (the gin-tu,
+gat-cora, equiformer-v2 and dimenet configs' ``ARCH``, ``build_gnn_step``,
+and the halo exchange's ``build_halo_step`` / ``build_halo_inputs``), with
+the ELL move kernels (K1, K2), the aggregation kernel (K3) and the
+batch-apply kernel (K4) hand-written in CUDA for Hopper
+(``repro_torch/csrc``).
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); on a CPU tensor every kernel wrapper runs its plain
@@ -23,6 +24,8 @@ from repro_torch.configs.louvain_arch import (FLEET_E_SLACK,
                                               fleet_envelope,
                                               fleet_v_per_shard,
                                               migrate_envelope, plan_fleet)
+from repro_torch.configs.dimenet_cfg import ARCH as DIMENET
+from repro_torch.configs.equiformer_v2 import ARCH as EQUIFORMER_V2
 from repro_torch.configs.gat_cora import ARCH as GAT_CORA
 from repro_torch.configs.gin_tu import ARCH as GIN_TU
 from repro_torch.configs.gnn_common import build_gnn_step
@@ -51,7 +54,8 @@ from repro_torch.data.graphs import (rmat_graph, sbm_edge_stream, sbm_graph,
                                      sbm_holdout_stream)
 
 __all__ = ["AggregationOverflow", "BatchUpdateStats", "BatchedDynamicResult",
-           "BatchedLouvainResult", "CSRGraph", "DynamicResult", "EdgeBatch",
+           "BatchedLouvainResult", "CSRGraph", "DIMENET", "DynamicResult",
+           "EQUIFORMER_V2", "EdgeBatch",
            "FLEET_E_SLACK", "FLEET_GROW_FACTOR", "FLEET_MIN_E_PER",
            "FLEET_MIN_V_PER", "FleetBatch", "FleetCapacityOverflow",
            "FleetEnvelope", "FleetGraph", "FleetResult", "FleetRouter",

@@ -268,23 +268,29 @@ def merged_graph(batch: dict) -> GraphBatch:
     """The parts of a batched shape ((B, n, d) features, (B, e) edges with
     padding sentinel n) as one graph of B * n nodes: part b's ids offset by
     b * n, every padding id mapped to the merged sentinel B * n;
-    ``graph_id`` is the part of each node."""
+    ``graph_id`` is the part of each node; positions (B, n, 3) become
+    (B * n, 3).  DimeNet's triplets ((B, t) edge ids with padding sentinel
+    e) index the merged edge list the same way: part b's offset by b * e,
+    the sentinel e mapped to B * e."""
     nf = batch["node_feat"]
     b, n = nf.shape[0], nf.shape[1]
     dev = nf.device
-    off = (torch.arange(b, device=dev, dtype=torch.int64) * n)[:, None]
+    parts = torch.arange(b, device=dev, dtype=torch.int64)[:, None]
 
-    def ids(e):
-        e = e.to(torch.int64)
-        return torch.where(e < n, e + off, b * n).reshape(-1)
+    def ids(x, size):
+        x = x.to(torch.int64)
+        return torch.where(x < size, x + parts * size, b * size).reshape(-1)
 
-    labels = batch["labels"]
+    e = batch["edge_src"].shape[1]
+    labels, pos = batch["labels"], batch.get("positions")
+    tri = {k: ids(batch[k], e) for k in ("t_kj", "t_ji") if k in batch}
     return GraphBatch(
-        node_feat=nf.reshape(b * n, -1), edge_src=ids(batch["edge_src"]),
-        edge_dst=ids(batch["edge_dst"]), n_nodes=b * n,
+        node_feat=nf.reshape(b * n, -1), edge_src=ids(batch["edge_src"], n),
+        edge_dst=ids(batch["edge_dst"], n), n_nodes=b * n,
         labels=labels.reshape(-1) if labels.dim() > 1 else labels,
         graph_id=torch.arange(b, device=dev).repeat_interleave(n),
-        n_graphs=b, positions=batch.get("positions"))
+        n_graphs=b, positions=None if pos is None else pos.reshape(b * n, 3),
+        **tri)
 
 
 # ---------------------------------------------------------------------------
@@ -343,6 +349,14 @@ def build_gnn_step(*, shape_name: str, group: ShardGroup,
                      group, opt_cfg)
 
 
+def gnn_archs() -> Dict[str, "GNNArch"]:
+    """Every ported GNN architecture's ``ARCH`` by ``arch_id``."""
+    from repro_torch.configs import (dimenet_cfg, equiformer_v2, gat_cora,
+                                     gin_tu)
+    return {m.ARCH.arch_id: m.ARCH
+            for m in (gin_tu, gat_cora, equiformer_v2, dimenet_cfg)}
+
+
 @dataclasses.dataclass(frozen=True)
 class GNNArch:
     """One GNN architecture: configs + batch semantics per shape."""
@@ -375,15 +389,18 @@ class GNNArch:
                    opt_cfg: AdamWConfig = AdamWConfig(), **halo_kwargs):
         """The ``TrainStep`` of ``build_gnn_step``.  variant ``"halo"``: the
         Louvain-partitioned halo-exchange layout on the full-graph shapes
-        of gin-tu (``core/gnn_halo.build_halo_step``, which takes
-        ``halo_kwargs``), with ``"bf16_msgs"`` for bf16 messages."""
+        of gin-tu and equiformer-v2 (``core/gnn_halo.build_halo_step``,
+        which takes ``halo_kwargs``), with ``"bf16_msgs"`` for bf16
+        messages (Equiformer: bf16 edge tensors) and ``"no_mtrunc"`` for
+        Equiformer's edge tensors over all coefficients."""
         sh = shape_of(shape, smoke)
         cfg = self.make_config(sh, smoke)
         if ("halo" in variant and sh.kind == "full"
-                and self.arch_id == "gin-tu"):
+                and self.arch_id in ("gin-tu", "equiformer-v2")):
             from repro_torch.core.gnn_halo import build_halo_step
             return build_halo_step(
                 self.arch_id, shape, group, smoke=smoke, opt_cfg=opt_cfg,
+                m_truncate="no_mtrunc" not in variant,
                 bf16_msgs="bf16_msgs" in variant,
                 **{"n_valid": sh.n_nodes, **halo_kwargs})
         return build_gnn_step(

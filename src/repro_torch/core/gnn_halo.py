@@ -1,5 +1,6 @@
 """Louvain-partition-aware distributed GNN training: halo exchange
-(``repro.core.gnn_halo``, its GIN half), over the ranks of a ``ShardGroup``.
+(``repro.core.gnn_halo``: gin-tu and equiformer-v2), over the ranks of a
+``ShardGroup``.
 
 The all-gather baseline for full-graph training (``configs/gnn_common``)
 all-gathers the node-feature array to every rank for each layer's
@@ -20,6 +21,10 @@ Layout (host or card, from the partitioner, ``build_halo_inputs``):
     [0, V_l + P·S] where indices >= V_l point into the received halo buffer
     (sentinel = V_l + P·S -> zero row);
   - send_idx[p, q, s]: the s-th local vertex shard p sends to shard q.
+
+Equiformer exchanges the positions once and the normed irreps once a
+layer; its edge tensors may stay in the |m| <= m_max rows the SO(2)
+convolution reads (``m_truncate``) and in bf16 (``bf16_edges``).
 
 Each rank differentiates its share of the loss (its owned vertices' NLL
 over the summed count); the loss and the parameter gradients are the
@@ -133,32 +138,84 @@ def gin_halo_loss_shard(model, x_l, src_l, dst_l, labels_l, send_idx_l,
 
 
 # ---------------------------------------------------------------------------
+# Equiformer halo-distributed loss (per-shard body)
+# ---------------------------------------------------------------------------
+
+def equiformer_halo_loss_shard(model, feat_l, pos_l, src_l, dst_l, labels_l,
+                               send_idx_l, n_valid: int, spec: HaloSpec,
+                               group: ShardGroup, m_truncate: bool = True,
+                               bf16_edges: bool = False) -> torch.Tensor:
+    """This rank's share of the loss: the eSCN forward over its shard
+    (``EquiformerLayer``, the model's own layer) and the summed
+    cross-entropy of its owned valid vertices over the count of all
+    ranks'.  Geometry (positions) is exchanged once, the normed irreps
+    once a layer.  ``m_truncate`` keeps the edge tensors in the |m| <=
+    m_max rows the SO(2) convolution reads (Wigner blocks sliced forward,
+    transposed back); ``bf16_edges`` keeps them (and the exchanged irreps)
+    in bf16, the sums and the node state in the model's type."""
+    from repro_torch.models.gnn.equiformer import edge_frame
+
+    v_l = spec.v_per_shard
+    gidx = group.rank * v_l + torch.arange(v_l, device=feat_l.device)
+
+    # Edge geometry (positions exchanged once).
+    pos_full = _with_halo(pos_l, send_idx_l, group)     # (V_l+H+1, 3)
+    live_e = src_l < spec.sentinel
+    s_ix = torch.clamp(src_l, max=spec.sentinel)
+    d_ix = torch.clamp(dst_l, max=v_l - 1)
+    edge_dtype = torch.bfloat16 if bf16_edges else None
+    frame = edge_frame(model.cfg, pos_l[d_ix] - pos_full[s_ix], m_truncate,
+                       edge_dtype)
+
+    def pair(h):
+        h_full = _with_halo(h.to(edge_dtype or h.dtype), send_idx_l, group)
+        return h_full.index_select(0, s_ix), h_full.index_select(0, d_ix)
+
+    x = model.init_irreps(feat_l)
+    for layer in model.layers:
+        x = layer(x, frame, pair, dst_l, v_l + 1, live_e)
+    logits = model.head(x[:, 0])
+    mask = (gidx < n_valid).to(logits.dtype)
+    count = group.psum(torch.sum(mask).reshape(1))[0]
+    return (torch.sum(node_nll(logits, labels_l) * mask)
+            / torch.clamp(count, min=1.0))
+
+
+# ---------------------------------------------------------------------------
 # Train step
 # ---------------------------------------------------------------------------
 
-#: The halo batch's fields; every one splits dim 0 over the ranks.
-HALO_FIELDS = ("node_feat", "edge_src", "edge_dst", "labels", "send_idx")
+#: The halo batch's fields by architecture; every one splits dim 0 over
+#: the ranks.
+HALO_FIELDS = {
+    "gin-tu": ("node_feat", "edge_src", "edge_dst", "labels", "send_idx"),
+    "equiformer-v2": ("node_feat", "positions", "edge_src", "edge_dst",
+                      "labels", "send_idx"),
+}
 
 
 def build_halo_step(arch_id: str, shape_name: str, group: ShardGroup, *,
                     n_valid: int, spec: Optional[HaloSpec] = None,
                     opt_cfg=None, halo_frac: float = 0.25,
-                    bf16_msgs: bool = False, smoke: bool = False):
-    """The ``TrainStep`` of the halo-distributed full-graph gin-tu over the
-    ranks of ``group``.
+                    m_truncate: bool = True, bf16_msgs: bool = False,
+                    smoke: bool = False):
+    """The ``TrainStep`` of the halo-distributed full-graph gin-tu or
+    equiformer-v2 over the ranks of ``group``.
 
-    ``batch`` is the global halo layout (``HALO_FIELDS``: Louvain-ordered
-    ``node_feat`` (n_pad, d) and ``labels`` (n_pad,), and
-    ``build_halo_inputs``' ``edge_src`` / ``edge_dst`` (P·E_l,) and
-    ``send_idx`` (P·P, S)); each rank takes its dim-0 slice.  ``spec``
-    defaults to ``make_halo_spec`` of the shape's padded sizes at
-    ``halo_frac`` with one shard per rank."""
+    ``batch`` is the global halo layout (``HALO_FIELDS[arch_id]``:
+    Louvain-ordered ``node_feat`` (n_pad, d), ``labels`` (n_pad,) and, for
+    equiformer-v2, ``positions`` (n_pad, 3); ``build_halo_inputs``'
+    ``edge_src`` / ``edge_dst`` (P·E_l,) and ``send_idx`` (P·P, S)); each
+    rank takes its dim-0 slice.  ``spec`` defaults to ``make_halo_spec``
+    of the shape's padded sizes at ``halo_frac`` with one shard per rank.
+    ``bf16_msgs`` is GIN's bf16 messages and Equiformer's bf16 edges;
+    ``m_truncate`` is Equiformer's."""
     from repro_torch.configs.gnn_common import TrainStep, pad512, shape_of
     from repro_torch.optim import AdamWConfig
 
-    if arch_id != "gin-tu":
-        raise ValueError(f"the halo step is ported for gin-tu; got "
-                         f"{arch_id!r}")
+    if arch_id not in HALO_FIELDS:
+        raise ValueError(f"the halo step is ported for "
+                         f"{' and '.join(HALO_FIELDS)}; got {arch_id!r}")
     if spec is None:
         sh = shape_of(shape_name, smoke)
         spec = make_halo_spec(pad512(sh.n_nodes), pad512(sh.n_edges),
@@ -166,15 +223,24 @@ def build_halo_step(arch_id: str, shape_name: str, group: ShardGroup, *,
     if spec.n_shards != group.world_size:
         raise ValueError(f"a halo layout of {spec.n_shards} shards on "
                          f"{group.world_size} ranks")
-    return TrainStep(halo_loss_share(n_valid, spec, bf16_msgs),
-                     dict.fromkeys(HALO_FIELDS, 0), group,
+    return TrainStep(halo_loss_share(n_valid, spec, bf16_msgs, arch_id,
+                                     m_truncate),
+                     dict.fromkeys(HALO_FIELDS[arch_id], 0), group,
                      opt_cfg or AdamWConfig())
 
 
-def halo_loss_share(n_valid: int, spec: HaloSpec, bf16_msgs: bool = False):
-    """``share(model, local_batch, group)``: ``gin_halo_loss_shard`` over a
-    rank's slice of the halo layout (``HALO_FIELDS``)."""
+def halo_loss_share(n_valid: int, spec: HaloSpec, bf16_msgs: bool = False,
+                    arch_id: str = "gin-tu", m_truncate: bool = True):
+    """``share(model, local_batch, group)``: ``gin_halo_loss_shard`` or
+    ``equiformer_halo_loss_shard`` over a rank's slice of the halo layout
+    (``HALO_FIELDS[arch_id]``)."""
     def share(model, local, group):
+        if arch_id == "equiformer-v2":
+            return equiformer_halo_loss_shard(
+                model, local["node_feat"], local["positions"],
+                local["edge_src"], local["edge_dst"], local["labels"],
+                local["send_idx"], n_valid, spec, group,
+                m_truncate=m_truncate, bf16_edges=bf16_msgs)
         return gin_halo_loss_shard(
             model, local["node_feat"], local["edge_src"], local["edge_dst"],
             local["labels"], local["send_idx"], n_valid, spec, group,
@@ -294,19 +360,22 @@ def build_halo_inputs(edge_src, edge_dst, membership_order, n_shards: int,
 
 def gnn_rank_runs(group: ShardGroup, runs: list) -> dict:
     """One rank of a spawned GNN run (``collectives.launch``), for each
-    dict of ``runs``: ``arch`` ("gin-tu" or "gat-cora"), ``cfg`` (its
-    model config), ``state`` (the model's state dict as numpy), ``batch``
-    (the global batch as numpy), and either ``shape`` / ``smoke`` (the
-    arch's ``build_step``) or ``halo`` (``build_halo_step``'s keywords:
-    ``spec``, ``n_valid``, ``bf16_msgs``); ``steps`` AdamW steps (lr 1e-2)
-    follow the first loss.  Each result holds the first loss, the summed
-    gradients (numpy, by parameter name), the steps' losses and the bytes
-    the run handed to the collectives (``wire_bytes``); the rank's totals
-    of ``wire_bytes`` and ``staged_bytes`` come beside them."""
-    from repro_torch.configs import gat_cora, gin_tu
+    dict of ``runs``: ``arch`` (an ``arch_id`` of ``gnn_archs()``), ``cfg``
+    (its model config), ``state`` (the model's state dict as numpy;
+    without it, the weights ``make_model`` draws from seed 0, the same on
+    every rank),
+    ``batch`` (the global batch as numpy), and either ``shape`` /
+    ``smoke`` (the arch's ``build_step``) or ``halo`` (``build_halo_step``'s
+    keywords: ``spec``, ``n_valid``, ``bf16_msgs``, ``m_truncate``);
+    ``steps`` AdamW steps (lr 1e-2) follow the first loss.  Each result
+    holds the first loss, the summed gradients (numpy, by parameter name),
+    the steps' losses and the bytes the run handed to the collectives
+    (``wire_bytes``); the rank's totals of ``wire_bytes`` and
+    ``staged_bytes`` come beside them."""
+    from repro_torch.configs.gnn_common import gnn_archs
     from repro_torch.optim import AdamWConfig, adamw_init
 
-    archs = {"gin-tu": gin_tu.ARCH, "gat-cora": gat_cora.ARCH}
+    archs = gnn_archs()
     dev = group.device
     opt_cfg = AdamWConfig(lr=1e-2)
     out = []
@@ -314,8 +383,9 @@ def gnn_rank_runs(group: ShardGroup, runs: list) -> dict:
         wire0 = group.wire_bytes
         arch = archs[run["arch"]]
         model = arch.make_model(run["cfg"], 0, dev)
-        model.load_state_dict({k: torch.from_numpy(v)
-                               for k, v in run["state"].items()})
+        if "state" in run:
+            model.load_state_dict({k: torch.from_numpy(v)
+                                   for k, v in run["state"].items()})
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in run["batch"].items()}
         if "halo" in run:

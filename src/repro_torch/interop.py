@@ -85,7 +85,7 @@ def _tree_leaves(tree, prefix=""):
 
 
 #: The architectures whose modules take a converted JAX parameter tree.
-GNN_ARCH_IDS = ("gin-tu", "gat-cora")
+GNN_ARCH_IDS = ("gin-tu", "gat-cora", "equiformer-v2", "dimenet")
 
 
 def gnn_params_from_numpy(arch_id: str, tree, device="cuda") -> dict:

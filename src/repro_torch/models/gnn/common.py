@@ -45,6 +45,9 @@ class GraphBatch(NamedTuple):
     graph_id  : (N_pad,) int — graph of each node (merged small graphs).
     n_graphs  : int.
     positions : (N_pad, 3) float or None — 3D coordinates.
+    t_kj/t_ji : (T,) int or None — DimeNet's triplets (edge kj feeds edge
+                ji; pad = E_pad); the reference passes them beside the
+                graph.
     """
 
     node_feat: torch.Tensor
@@ -55,6 +58,8 @@ class GraphBatch(NamedTuple):
     graph_id: torch.Tensor
     n_graphs: int
     positions: Optional[torch.Tensor] = None
+    t_kj: Optional[torch.Tensor] = None
+    t_ji: Optional[torch.Tensor] = None
 
 
 class LocalNodes:

@@ -327,7 +327,7 @@ def test_halo_variant_dispatches_to_the_halo_step():
     from repro_torch.core import gnn_halo
     step = gin_tu.ARCH.build_step("full_graph_sm", ShardGroup.single(CPU),
                                   smoke=True, variant=("halo",))
-    assert tuple(step.split) == gnn_halo.HALO_FIELDS
+    assert tuple(step.split) == gnn_halo.HALO_FIELDS["gin-tu"]
     # gat-cora and the batched shapes keep the plain step.
     for arch, shape in ((gat_cora.ARCH, "full_graph_sm"),
                         (gin_tu.ARCH, "molecule")):
@@ -341,5 +341,7 @@ def test_halo_variant_dispatches_to_the_halo_step():
 
 
 def test_converter_refuses_other_architectures():
-    with pytest.raises(ValueError, match="dimenet"):
-        gnn_params_from_numpy("dimenet", {}, device="cpu")
+    """The four GNN architectures are ported; any other id is refused with
+    the list of the ported ones."""
+    with pytest.raises(ValueError, match="gemma3-12b.*dimenet"):
+        gnn_params_from_numpy("gemma3-12b", {}, device="cpu")

@@ -10,7 +10,10 @@ hybrid state layout and ``louvain_dynamic_sharded`` included), K3 in the
 aggregation, K4 in each rank's batch apply, and staged gloo ranks on the
 one card; and the multi-tenant sharded serving fleet (``serve_fleet``):
 its goldens through NCCL, the whale and fallback paths against the solo
-driver, and K4 over a bucket's flat, lane-keyed slot list.
+driver, and K4 over a bucket's flat, lane-keyed slot list; the graph
+workloads: the partitioner, the GNN steps on the card against the CPU
+(Equiformer-v2 and DimeNet included), the Wigner-D blocks at l_max 6 and
+the GIN and Equiformer halo steps through NCCL.
 
 Every test here is marked ``gpu`` and skips without a card (the decision is
 made inside the ``cuda`` fixture, never at import).  The machine with the
@@ -1138,7 +1141,9 @@ def _gnn_loss_and_grads(arch, shape, dev, state=None):
 @pytest.mark.parametrize("arch_name,shape", [
     ("GIN_TU", "full_graph_sm"), ("GIN_TU", "minibatch_lg"),
     ("GIN_TU", "molecule"), ("GAT_CORA", "full_graph_sm"),
-    ("GAT_CORA", "molecule")])
+    ("GAT_CORA", "molecule"), ("EQUIFORMER_V2", "full_graph_sm"),
+    ("EQUIFORMER_V2", "minibatch_lg"), ("EQUIFORMER_V2", "molecule"),
+    ("DIMENET", "full_graph_sm"), ("DIMENET", "molecule")])
 def test_gnn_step_on_the_card_equals_the_cpu_path(cuda, arch_name, shape):
     """The same weights and batch on the card and on the CPU: float32-close
     loss (rtol 1e-5) and gradients (rtol 1e-4, atol 1e-4 of the largest
@@ -1153,6 +1158,28 @@ def test_gnn_step_on_the_card_equals_the_cpu_path(cuda, arch_name, shape):
     for k, g in grads_c.items():
         torch.testing.assert_close(grads_g[k], g, rtol=1e-4,
                                    atol=1e-4 * scale)
+
+
+def test_wigner_blocks_at_l_max_6_on_the_card(cuda):
+    """The Wigner-D stack at l_max 6 on the card: within 2e-6 of the CPU's
+    entry for entry, each block orthogonal within 1e-5 in float32 and
+    1e-12 in float64; the zero vector gives zero blocks past l = 0."""
+    from repro_torch.models.gnn.wigner import rotation_to_z, wigner_d_stack
+    rng = np.random.default_rng(11)
+    v = rng.standard_normal((4096, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    v[0] = 0.0
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        x = torch.tensor(v, dtype=dtype)
+        got = wigner_d_stack(rotation_to_z(x.to(cuda)), 6)
+        want = wigner_d_stack(rotation_to_z(x), 6)
+        for l, (a, b) in enumerate(zip(got, want)):
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2e-6)
+            d = a[1:].double()
+            eye = torch.eye(2 * l + 1, dtype=d.dtype, device=cuda)
+            assert float((d @ d.transpose(1, 2) - eye).abs().max()) <= tol
+            if l:
+                assert not bool(a[0].any())
 
 
 def test_louvain_partition_on_the_card_gives_the_cpu_assignment(cuda):
@@ -1187,6 +1214,68 @@ def test_halo_exchange_at_world_size_one_on_the_card(cuda, nccl_group):
         (gx,) = torch.autograd.grad((out * w).sum(), x)
         (want,) = torch.autograd.grad((x[idx.reshape(-1)] * w).sum(), x)
         torch.testing.assert_close(gx, want, rtol=1e-6, atol=1e-6)
+
+
+def test_equiformer_halo_step_through_nccl_equals_the_plain_step(
+        cuda, nccl_group):
+    """The Equiformer halo step (l_max 3, m_max 1) on the sbm golden graph
+    in Louvain order, through NCCL at world size 1: its loss and gradients
+    equal the plain model's step on the ordered graph (loss rtol 1e-5,
+    gradients rtol 1e-4 with an atol of 1e-4 of the largest entry), with
+    and without m_truncate; bf16 edges within 1e-2 of the loss."""
+    from repro_torch import (EQUIFORMER_V2, build_halo_inputs,
+                             louvain_partition)
+    from repro_torch.core.gnn_halo import HaloSpec, build_halo_step
+    from repro_torch.models.gnn.common import GraphBatch
+    from repro_torch.models.gnn.equiformer import Equiformer, EquiformerConfig
+    g = sbm_graph(8, 16, 0.4, 0.01, seed=2, device=cuda)[0]
+    n = g.n_valid
+    order = louvain_partition(g, 4).order
+    src = g.src[:g.e_valid].cpu().numpy()
+    dst = g.indices[:g.e_valid].cpu().numpy()
+    inv = np.argsort(order)
+    rng = np.random.default_rng(12)
+    feat = torch.tensor(rng.standard_normal((n, 8))[order],
+                        dtype=torch.float32, device=cuda)
+    pos = torch.tensor(rng.standard_normal((n, 3))[order],
+                       dtype=torch.float32, device=cuda)
+    labels = torch.tensor(rng.integers(0, 4, n)[order], dtype=torch.int32,
+                          device=cuda)
+    cfg = EquiformerConfig(n_layers=2, d_hidden=8, l_max=3, m_max=1,
+                           n_heads=2, d_feat=8, out_dim=4, node_level=True)
+    model = Equiformer(cfg, seed=1, device=cuda)
+    plain = GraphBatch(node_feat=feat,
+                       edge_src=torch.tensor(inv[src], device=cuda),
+                       edge_dst=torch.tensor(inv[dst], device=cuda),
+                       n_nodes=n, labels=labels,
+                       graph_id=torch.zeros(n, dtype=torch.int64,
+                                            device=cuda),
+                       n_graphs=1, positions=pos)
+    loss = model.loss(plain)
+    names, params = zip(*model.named_parameters())
+    want = dict(zip(names, torch.autograd.grad(loss, params)))
+    spec = HaloSpec(1, n, len(src), n)
+    halo = build_halo_inputs(src, dst, order, 1, n, len(src), spec,
+                             device=cuda)
+    batch = {"node_feat": feat, "positions": pos, "labels": labels,
+             **{k: torch.from_numpy(halo[k]).to(cuda)
+                for k in ("edge_src", "edge_dst", "send_idx")}}
+    scale = max(float(w.abs().max()) for w in want.values())
+    for trunc in (True, False):
+        step = build_halo_step("equiformer-v2", "", nccl_group, n_valid=n,
+                               spec=spec, m_truncate=trunc)
+        got_loss, got = step.loss_and_grads(model, batch)
+        assert float(got_loss) == pytest.approx(float(loss), rel=1e-5)
+        for k, w in want.items():
+            torch.testing.assert_close(got[k], w, rtol=1e-4,
+                                       atol=1e-4 * scale)
+    bf16 = build_halo_step("equiformer-v2", "", nccl_group, n_valid=n,
+                           spec=spec, bf16_msgs=True)
+    assert float(bf16.loss_and_grads(model, batch)[0]) == pytest.approx(
+        float(loss), rel=1e-2)
+    assert EQUIFORMER_V2.build_step(
+        "full_graph_sm", nccl_group, smoke=True,
+        variant=("halo",)).split.keys() >= {"positions"}
 
 
 def test_halo_inputs_on_the_card_equal_the_cpu_layout(cuda):

@@ -13,9 +13,17 @@ summed gradients and step losses must equal world size 1 (gradients rtol
 with ``bf16_msgs`` too (bf16 against bf16 at rtol 1e-2 for gradients and
 1e-3 for losses, since on 4 ranks the halo rows' gradients travel and add
 up in bf16; against float32 within 2e-2);
-and ``build_gnn_step``'s all-gather layout on 4 ranks (GIN and GAT on a
-full graph, the molecule batch split over the ranks) must equal world size
-1 the same way.
+and ``build_gnn_step``'s all-gather layout on 4 ranks (GIN, GAT and
+Equiformer on a full graph, the molecule batch split over the ranks, for
+DimeNet too) must equal world size 1 the same way.
+
+The Equiformer halo step (l_max 3, m_max 1, ``tests/test_halo.py``'s
+config) rides the same launch: at world size 1 its loss equals the JAX
+package's ``equiformer_halo_loss_shard`` on a one-device mesh and the JAX
+single-device forward (rtol 1e-5); ``m_truncate`` equals the untruncated
+step (loss rtol 1e-5, gradients rtol 1e-4 with an atol of 1e-4 times the
+largest entry); ``bf16_edges`` is within 1e-3 of the float32 loss and of
+JAX's bf16 loss; and 4 ranks equal world size 1 as the GIN runs do.
 """
 
 import dataclasses
@@ -30,11 +38,11 @@ import torch
 from repro.core import gnn_halo as jhalo
 from repro.core.graph import from_networkx as jfrom_networkx
 from repro.core.partition import louvain_partition as jlouvain_partition
-from repro.models.gnn import gin as jgin
+from repro.models.gnn import equiformer as jequiformer, gin as jgin
 from repro.models.gnn.common import GraphBatch as JGraph, node_ce_loss
 
 from repro_torch import ShardGroup
-from repro_torch.configs import gat_cora, gin_tu
+from repro_torch.configs import dimenet_cfg, equiformer_v2, gat_cora, gin_tu
 from repro_torch.core import collectives, gnn_halo
 from repro_torch.core.partition import louvain_partition
 from repro_torch.interop import gnn_params_from_numpy, graph_from_numpy
@@ -158,6 +166,19 @@ class HaloCase:
         self.state = {k: v.numpy() for k, v in gnn_params_from_numpy(
             "gin-tu", jax.tree.map(np.asarray, self.params),
             device="cpu").items()}
+        # Equiformer: positions, config and weights of tests/test_halo.py.
+        self.pos_p = np.random.default_rng(1).standard_normal(
+            (n, 3)).astype(np.float32)[order]
+        self.ecfg = jequiformer.EquiformerConfig(
+            n_layers=2, d_hidden=8, l_max=3, m_max=1, n_heads=2, d_feat=8,
+            out_dim=4, node_level=True)
+        self.eparams = jequiformer.init_params(self.ecfg,
+                                               jax.random.PRNGKey(1))
+        self.tcfg = equiformer_v2.equiformer.EquiformerConfig(
+            **dataclasses.asdict(self.ecfg))
+        self.estate = {k: v.numpy() for k, v in gnn_params_from_numpy(
+            "equiformer-v2", jax.tree.map(np.asarray, self.eparams),
+            device="cpu").items()}
 
     def jax_loss(self):
         g = JGraph(node_feat=jnp.asarray(self.feat_p),
@@ -171,11 +192,53 @@ class HaloCase:
         return float(node_ce_loss(logits, jnp.asarray(self.labels_p),
                                   jnp.ones((self.n,), jnp.float32)))
 
+    def jax_equiformer_losses(self):
+        """The JAX single-device forward's loss, and the JAX halo step's
+        on a one-device mesh (float32, bf16 edges)."""
+        from jax.experimental.shard_map import shard_map
+        from jax.sharding import PartitionSpec as P
+        from repro.compat import make_mesh
+        n, cfg = self.n, self.ecfg
+        g = JGraph(node_feat=jnp.asarray(self.feat_p),
+                   edge_src=jnp.asarray(self.src_p),
+                   edge_dst=jnp.asarray(self.dst_p), n_nodes=jnp.int32(n),
+                   labels=jnp.asarray(self.labels_p),
+                   graph_id=jnp.zeros((n,), jnp.int32),
+                   n_graphs=jnp.int32(1), positions=jnp.asarray(self.pos_p))
+        ref = float(node_ce_loss(jequiformer.forward(cfg, self.eparams, g),
+                                 jnp.asarray(self.labels_p),
+                                 jnp.ones((n,), jnp.float32)))
+        spec = jhalo.HaloSpec(1, n, len(self.src), n)
+        halo = jhalo.build_halo_inputs(self.src, self.dst, self.order, 1, n,
+                                       len(self.src), spec)
+        mesh = make_mesh((1,), ("i",))
+        out = {}
+        for bf16 in (False, True):
+            fn = shard_map(
+                lambda p, nf, po, es, ed, lab, sidx:
+                jhalo.equiformer_halo_loss_shard(
+                    cfg, p, nf, po, es, ed, lab, sidx, n, spec, ("i",),
+                    m_truncate=True, bf16_edges=bf16),
+                mesh=mesh, in_specs=(jax.tree.map(lambda _: P(),
+                                                  self.eparams),
+                                     P("i", None), P("i", None), P("i"),
+                                     P("i"), P("i"), P("i", None)),
+                out_specs=P(), check_rep=False)
+            with mesh:
+                out[bf16] = float(jax.jit(fn)(
+                    self.eparams, jnp.asarray(self.feat_p),
+                    jnp.asarray(self.pos_p), jnp.asarray(halo["edge_src"]),
+                    jnp.asarray(halo["edge_dst"]),
+                    jnp.asarray(self.labels_p),
+                    jnp.asarray(halo["send_idx"])))
+        return ref, out[False], out[True]
+
     def spec(self, n_shards):
         v_l = self.n // n_shards
         return gnn_halo.HaloSpec(n_shards, v_l, len(self.src), v_l)
 
-    def halo_run(self, n_shards, bf16=False, steps=2):
+    def halo_run(self, n_shards, bf16=False, steps=2, arch="gin-tu",
+                 m_truncate=True):
         spec = self.spec(n_shards)
         halo = gnn_halo.build_halo_inputs(
             self.src, self.dst, self.order, n_shards, self.n,
@@ -183,10 +246,15 @@ class HaloCase:
         batch = {"node_feat": self.feat_p, "labels": self.labels_p,
                  **{k: halo[k] for k in ("edge_src", "edge_dst",
                                          "send_idx")}}
-        return {"arch": "gin-tu", "cfg": self.cfg, "state": self.state,
-                "batch": batch, "steps": steps,
-                "halo": {"spec": spec, "n_valid": self.n,
-                         "bf16_msgs": bf16}}
+        run = {"arch": "gin-tu", "cfg": self.cfg, "state": self.state,
+               "batch": batch, "steps": steps, "bf16": bf16,
+               "halo": {"spec": spec, "n_valid": self.n,
+                        "bf16_msgs": bf16}}
+        if arch == "equiformer-v2":
+            run.update(arch=arch, state=self.estate, cfg=self.tcfg)
+            batch["positions"] = self.pos_p
+            run["halo"]["m_truncate"] = m_truncate
+        return run
 
 
 def _step_run(arch, shape, rng_seed):
@@ -210,16 +278,31 @@ def halo_case():
     return HaloCase()
 
 
+#: The Equiformer halo runs' places in ``_runs``: m_truncate, the full
+#: rotation, bf16 edges.
+EQ_TRUNC, EQ_FULL, EQ_BF16 = 6, 7, 8
+
+
 def _runs(halo_case, n_shards):
     """The halo GIN in float32 and with bf16 messages on ``n_shards``
     shards, then ``build_gnn_step``'s all-gather layout for GIN and GAT on
-    a full graph and the molecule batch split over the ranks."""
+    a full graph and the molecule batch split over the ranks; then the
+    halo Equiformer (m_truncate, the full rotation, bf16 edges), the
+    all-gather Equiformer on a full graph, and the molecule batch of
+    Equiformer and DimeNet split over the ranks."""
+    eq = dict(arch="equiformer-v2")
     return [halo_case.halo_run(n_shards),
             halo_case.halo_run(n_shards, bf16=True),
             _step_run(gin_tu.ARCH, "full_graph_sm", 1),
             _step_run(gat_cora.ARCH, "full_graph_sm", 2),
             _step_run(gin_tu.ARCH, "molecule", 3),
-            _step_run(gat_cora.ARCH, "molecule", 4)]
+            _step_run(gat_cora.ARCH, "molecule", 4),
+            halo_case.halo_run(n_shards, **eq),
+            halo_case.halo_run(n_shards, m_truncate=False, **eq),
+            halo_case.halo_run(n_shards, bf16=True, **eq),
+            _step_run(equiformer_v2.ARCH, "full_graph_sm", 5),
+            _step_run(equiformer_v2.ARCH, "molecule", 6),
+            _step_run(dimenet_cfg.ARCH, "molecule", 7)]
 
 
 @pytest.fixture(scope="module")
@@ -297,11 +380,15 @@ def test_four_gloo_ranks_equal_world_size_one(halo_case, world_of_one,
     assert len(four_ranks) == RANKS
     jax_loss = halo_case.jax_loss()
     for rank_out in four_ranks:
+        runs = _runs(halo_case, 1)
+        assert len(rank_out["results"]) == len(runs)
         for i, (got, want) in enumerate(zip(rank_out["results"],
                                             world_of_one["results"])):
-            # bf16 messages (run 1): the halo rows' gradients travel and
-            # add up in bf16 on 4 ranks, in float32 at world size 1.
-            _same(got, want, rtol=1e-2 if i == 1 else 1e-4, what=f"run {i}")
+            # bf16 messages (runs 1 and EQ_BF16): the halo rows' gradients
+            # travel and add up in bf16 on 4 ranks, in float32 at world
+            # size 1.
+            _same(got, want, rtol=1e-2 if runs[i].get("bf16") else 1e-4,
+                  what=f"run {i}")
         assert rank_out["results"][0]["loss"] == pytest.approx(jax_loss,
                                                                rel=1e-5)
         assert rank_out["results"][0]["losses"][-1] < jax_loss
@@ -327,3 +414,50 @@ def test_halo_wire_bytes_are_the_exchange_and_the_sums(halo_case,
     for rank_out in four_ranks:
         assert rank_out["results"][0]["wire_bytes"] == 3 * (per_call
                                                               + psums)
+
+
+def test_equiformer_halo_loss_at_world_size_one_equals_jax(halo_case,
+                                                           world_of_one):
+    ref, halo, halo_bf16 = halo_case.jax_equiformer_losses()
+    assert halo == pytest.approx(ref, rel=1e-5)
+    res = world_of_one["results"]
+    for i in (EQ_TRUNC, EQ_FULL):
+        assert res[i]["loss"] == pytest.approx(ref, rel=1e-5), i
+        assert res[i]["loss"] == pytest.approx(halo, rel=1e-5), i
+    # bf16 edges: close to the float32 loss and to the reference's bf16.
+    assert res[EQ_BF16]["loss"] == pytest.approx(ref, rel=1e-3)
+    assert res[EQ_BF16]["loss"] == pytest.approx(halo_bf16, rel=1e-3)
+
+
+def test_equiformer_m_truncate_equals_the_full_rotation(world_of_one,
+                                                        four_ranks):
+    """The truncated rows path computes the untruncated step: the same
+    loss, gradients and step losses, at world size 1 and on 4 ranks."""
+    for out in [world_of_one] + four_ranks:
+        _same(out["results"][EQ_TRUNC], out["results"][EQ_FULL],
+              what="m_truncate")
+
+
+def test_equiformer_halo_gradients_equal_the_plain_model(halo_case,
+                                                         world_of_one):
+    """At world size 1 the Equiformer halo step's gradients are the plain
+    model's on the Louvain-ordered graph."""
+    from repro_torch.models.gnn.equiformer import Equiformer
+    model = Equiformer(halo_case.tcfg, device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in halo_case.estate.items()})
+    n = halo_case.n
+    g = GraphBatch(node_feat=torch.from_numpy(halo_case.feat_p),
+                   edge_src=torch.from_numpy(halo_case.src_p),
+                   edge_dst=torch.from_numpy(halo_case.dst_p), n_nodes=n,
+                   labels=torch.from_numpy(halo_case.labels_p),
+                   graph_id=torch.zeros(n, dtype=torch.int32), n_graphs=1,
+                   positions=torch.from_numpy(halo_case.pos_p))
+    loss = model.loss(g)
+    names, params = zip(*model.named_parameters())
+    grads = dict(zip(names, torch.autograd.grad(loss, params)))
+    for i in (EQ_TRUNC, EQ_FULL):
+        got = world_of_one["results"][i]
+        _same({"loss": float(loss.detach()), "losses": [],
+               "grads": {k: v.numpy() for k, v in grads.items()}},
+              {**got, "losses": []}, what=f"run {i}")

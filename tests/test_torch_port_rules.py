@@ -62,7 +62,10 @@ def test_no_forbidden_import_anywhere_in_the_port():
                    "models/gnn/common.py", "models/gnn/gin.py",
                    "models/gnn/gat.py", "models/gnn/sampler.py",
                    "sharding/rules.py", "configs/gnn_common.py",
-                   "configs/gin_tu.py", "configs/gat_cora.py"):
+                   "configs/gin_tu.py", "configs/gat_cora.py",
+                   "models/gnn/wigner.py", "models/gnn/equiformer.py",
+                   "models/gnn/dimenet.py", "configs/equiformer_v2.py",
+                   "configs/dimenet_cfg.py"):
         assert os.path.join(PORT_DIR, module) in files
     files.append(os.path.join(os.path.dirname(SRC_DIR), "chip_smoke.py"))
     for path in files:
@@ -146,6 +149,44 @@ def test_graph_workload_entry_points_need_a_card_unless_asked_for_the_cpu():
     step = GIN_TU.build_step("molecule", ShardGroup.single("cpu"), smoke=True)
     loss, _ = step.loss_and_grads(model, batch)
     assert loss.device.type == "cpu" and bool(torch.isfinite(loss))
+
+
+def test_geometric_model_entry_points_need_a_card_unless_asked_for_the_cpu():
+    """Equiformer-v2 and DimeNet: the modules, configs' models and batches
+    and the Equiformer halo step default to the card and raise without
+    one; asked for the CPU, every step runs there."""
+    from repro_torch import DIMENET, EQUIFORMER_V2, build_halo_step
+    from repro_torch.models.gnn.dimenet import DimeNet, DimeNetConfig
+    from repro_torch.models.gnn.equiformer import (Equiformer,
+                                                   EquiformerConfig)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for call in (lambda: Equiformer(EquiformerConfig()),
+                 lambda: DimeNet(DimeNetConfig()),
+                 lambda: EQUIFORMER_V2.init_model("molecule", smoke=True),
+                 lambda: DIMENET.init_model("molecule", smoke=True),
+                 lambda: EQUIFORMER_V2.make_batch("molecule", 0, smoke=True),
+                 lambda: DIMENET.make_batch("molecule", 0, smoke=True),
+                 lambda: build_halo_step("equiformer-v2", "full_graph_sm",
+                                         ShardGroup.single(), n_valid=8,
+                                         smoke=True)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    cpu = ShardGroup.single("cpu")
+    for arch, shape, variant in ((EQUIFORMER_V2, "molecule", ()),
+                                 (EQUIFORMER_V2, "full_graph_sm", ()),
+                                 (DIMENET, "molecule", ()),
+                                 (DIMENET, "full_graph_sm", ())):
+        model = arch.init_model(shape, smoke=True, device="cpu")
+        batch = arch.make_batch(shape, 0, smoke=True, device="cpu")
+        assert next(model.parameters()).device.type == "cpu"
+        assert all(x.device.type == "cpu" for x in batch.values())
+        step = arch.build_step(shape, cpu, smoke=True, variant=variant)
+        loss, _ = step.loss_and_grads(model, batch)
+        assert loss.device.type == "cpu" and bool(torch.isfinite(loss))
+    step = build_halo_step("equiformer-v2", "full_graph_sm", cpu, n_valid=8,
+                           smoke=True)
+    assert step.group.device.type == "cpu"
 
 
 def test_config_keeps_the_reference_fields_and_defaults():
