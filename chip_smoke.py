@@ -126,7 +126,35 @@ each timed; any failure exits non-zero:
      4-shard halo layout at the smallest halo_frac that holds it, and the
      full-width Equiformer halo step through NCCL at world size 1 equal to
      the plain step (m_truncate on and off) and with bf16 edges within
-     2e-2; (d) the halo Equiformer on 4 gloo ranks rides phase 10 (f).
+     2e-2; (d) the halo Equiformer on 4 gloo ranks rides phase 10 (f);
+ 12. the FM recommender at full Criteo width (39 fields, embed_dim 10,
+     the 29,333,260 rows of ``DEFAULT_VOCABS`` padded to 29,333,504), from
+     ``--seed``: (a) train_batch (B = 65,536) from
+     ``synthetic_click_batches``: the forward on 64 rows against the
+     O(F^2) pairwise oracle in float64, the first step's loss and dense
+     gradients against a float64 copy, two identical first steps (bit
+     for bit: the gathers' backward is a sorted segment sum in a fixed
+     order), 5 AdamW steps at lr 1e-2 (finite, falling
+     loss), seconds a step, peak memory and a ``torch.profiler``
+     breakdown with the idle share; (b) serve_p99 (B = 512) and
+     serve_bulk (B = 262,144) through ``build_step`` equal to
+     ``forward``, seconds a call (median of 30) and examples/s; (c)
+     retrieval over 1,000,448 candidates against the float64 expression,
+     top-100 sets equal, seconds a call; (d) ``train()`` at full width: 6
+     steps, then 3 steps, a checkpoint (3.87 GB of npz, keep_n 1, in a
+     temporary directory removed after) and a fresh ``train()`` resumed to
+     6, equal to the uninterrupted run bit for bit, save / scan / restore seconds, and one step each
+     with ``topk`` (fraction 0.01) and ``int8`` compression holding ``sent
+     + residual == g + r`` exactly; (e) 4 gloo ranks on the one card, the
+     table split by rows, train step, serve_bulk and retrieval equal to
+     world size 1 within 1e-5, and the row-split train step through NCCL
+     at world size 1 (its collectives counted) against the plain step;
+     (f) ``lfr_graph`` and ``powerlaw_cluster(m=10, p=0.3)`` at 100,000
+     vertices (NumPy on the host, CSR on the card), ``louvain()`` on each
+     through K3 and through K1 + K3 (``louvain_checked``: one membership,
+     the first launches held against their plain versions), the LFR
+     mixing fraction against mu 0.1 and the NMI of Louvain's membership
+     against the planted communities.
 
 Cut for time: phase 4's Leiden route through K2 (its ``ell_leiden__sbm``
 golden through K2 stays in phase 3), and phase 6's solo comparison to the
@@ -211,6 +239,16 @@ KERNELS = {
                             "src/repro/kernels/aggregate/coarsen.py:113"),
     "louvain_fused_halo": ("src/repro_torch/csrc/louvain_scan.cu",
                            "src/repro/kernels/louvain_scan/fused.py:111"),
+    # K3 and K1 in louvain() on the NumPy LFR and powerlaw-cluster graphs
+    # (phase 12 (f)).
+    "coarsen_groups_lfr": ("src/repro_torch/csrc/coarsen.cu",
+                           "src/repro/kernels/aggregate/coarsen.py:113"),
+    "louvain_fused_lfr": ("src/repro_torch/csrc/louvain_scan.cu",
+                          "src/repro/kernels/louvain_scan/fused.py:111"),
+    "coarsen_groups_powerlaw": ("src/repro_torch/csrc/coarsen.cu",
+                                "src/repro/kernels/aggregate/coarsen.py:113"),
+    "louvain_fused_powerlaw": ("src/repro_torch/csrc/louvain_scan.cu",
+                               "src/repro/kernels/louvain_scan/fused.py:111"),
 }
 
 #: Phase 5: the batch mix of the DF-Louvain dynamic evaluation (Sahu,
@@ -2568,13 +2606,29 @@ def gnn_run(torch, arch, shape, batch, dev, steps: int, what: str):
 
 def partition_checked(torch, ops, g, n_devices: int, report, phase: str,
                       step: str, k3_name: str, k1_name: str):
-    """``louvain_partition(g, n_devices)`` under the default config (K3)
-    and with ``use_ell_kernel=True`` (K1 and K3), which must give one
-    partition; the first K3 launch of the default run and the first K1
-    launch of each ELL bucket are held against their plain versions bit
-    for bit, timed against their bounds and added to ``report`` as
-    ``k3_name`` / ``k1_name``.  Returns the partition."""
-    from repro_torch import LouvainConfig, louvain_partition
+    """``louvain_partition(g, n_devices)`` through ``louvain_checked``;
+    both configs must give one partition.  Returns the partition."""
+    from repro_torch import louvain_partition
+    return louvain_checked(
+        torch, ops, g, lambda cfg: louvain_partition(g, n_devices, cfg),
+        lambda lp: (f"louvain_partition(g, {n_devices}): cut fraction "
+                    f"{lp.cut_fraction:.6f} ({lp.cut_edges} of "
+                    f"{lp.total_edges} slots), balance {lp.balance:.6f}"),
+        lambda lp: (lp.assignment, lp.order), report, phase, step, k3_name,
+        k1_name)
+
+
+def louvain_checked(torch, ops, g, run, describe, key, report, phase: str,
+                    step: str, k3_name: str, k1_name: str):
+    """``run(cfg)`` (a call of ``louvain()`` on ``g``, or of a partitioner over
+    it) under the default config (K3) and with ``use_ell_kernel=True`` (K1
+    and K3), whose ``key``s must be equal; each kernel of a run is counted
+    from 0 and must have launched; the first K3 launch of the default run
+    and the first K1 launch of each ELL bucket are held against their
+    plain versions bit for bit, timed against their bounds and added to
+    ``report`` as ``k3_name`` / ``k1_name``.  Returns the default run's
+    result."""
+    from repro_torch import LouvainConfig
     from repro_torch.core import aggregate
     from repro_torch.kernels.aggregate import coarsen
 
@@ -2591,26 +2645,23 @@ def partition_checked(torch, ops, g, n_devices: int, report, phase: str,
                                     key=lambda kw: kw["width"]) as k1_first:
             torch.cuda.synchronize()
             t = time.perf_counter()
-            lp = louvain_partition(g, n_devices, cfg)
+            lp = run(cfg)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t
         counts = {"louvain_fused": ops.louvain_fused.launches,
                   "coarsen_groups": coarsen.coarsen_groups.launches}
         for k in needs:
-            require(counts[k] > 0, f"partition ({what}): {k} never launched")
+            require(counts[k] > 0, f"{step} ({what}): {k} never launched")
         parts[what] = (lp, counts, secs, first.get(None), k1_first)
-        log(phase, f"{step} louvain_partition(g, {n_devices}), "
-            f"{what}: {secs:.3f} s, cut fraction {lp.cut_fraction:.6f} "
-            f"({lp.cut_edges} of {lp.total_edges} slots), balance "
-            f"{lp.balance:.6f}, launches {json.dumps(counts)}"
+        log(phase, f"{step} {describe(lp)}, {what}: {secs:.3f} s, "
+            f"launches {json.dumps(counts)}"
             + (f"; K1 through its checked wrapper {sum(k1_s) * 1e3:.3f} ms "
                f"in all over {len(k1_s)} calls (between syncs)"
                if k1_s else ""))
     lp, k3_counts, _, first, _ = parts["default"]
     lp_ell, k1_counts, _, _, k1_first = parts["use_ell_kernel=True"]
-    require(np.array_equal(lp.assignment, lp_ell.assignment)
-            and np.array_equal(lp.order, lp_ell.order),
-            "the default and the ELL partitions differ")
+    require(all(np.array_equal(a, b) for a, b in zip(key(lp), key(lp_ell))),
+            f"{step}: the default and the ELL runs differ")
     # The first K1 launch of each ELL bucket (round 0 of the first pass,
     # one state) against its plain version, bit for bit.
     k1_calls = [k1_first[w] for w in sorted(k1_first)]
@@ -2619,7 +2670,7 @@ def partition_checked(torch, ops, g, n_devices: int, report, phase: str,
         want = ops.louvain_fused_rows_ref(*c["args"], **c["kwargs"])
         for i, (a, b) in enumerate(zip(c["out"], want)):
             require(a.dtype == b.dtype and torch.equal(a, b),
-                    f"K1 differs from its plain version on the partitioner's "
+                    f"{step} K1 differs from its plain version on the "
                     f"width-{c['kwargs']['width']} bucket (output {i})")
         fin = torch.isfinite(c["out"][1]) & torch.isfinite(want[1])
         if bool(fin.any()):
@@ -2638,7 +2689,7 @@ def partition_checked(torch, ops, g, n_devices: int, report, phase: str,
         torch, csr, [(c["kwargs"]["width"], c["args"][0]) for c in k1_calls],
         a0[4], torch.cat([c["out"][0] for c in k1_calls]))
     k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops / FP32_OPS_PER_S) * 1e3
-    log(phase, f"{step} K1, the partitioner's first round over the buckets "
+    log(phase, f"{step} K1, the first round over the buckets "
         f"of widths {sorted(k1_first)}: bit for bit on the rows "
         f"{[c['args'][0].numel() for c in k1_calls]}; {k1_ms:.4f} ms (plain "
         f"{k1_plain:.4f} ms), {k1_ms / k1_bound:.3f}x its bound; "
@@ -2654,7 +2705,7 @@ def partition_checked(torch, ops, g, n_devices: int, report, phase: str,
     torch.cuda.synchronize()
     got = first["out"]
     require(all(torch.equal(a, b) for a, b in zip(got, want)),
-            "K3 differs from its plain version on the partitioner's first "
+            f"{step} K3 differs from its plain version on the first "
             "aggregation")
     total = s_ci.numel()
     k3_ms = time_ms(torch, lambda: coarsen.coarsen_groups(
@@ -2662,7 +2713,7 @@ def partition_checked(torch, ops, g, n_devices: int, report, phase: str,
     k3_plain = time_ms(torch, lambda: coarsen.coarsen_groups_ref(
         s_ci, s_cj, s_w, sent=sent), 3)
     k3_bytes = 12 * total + 17 * (total + 1)
-    log(phase, f"{step} K3, the partitioner's first aggregation: exact on "
+    log(phase, f"{step} K3, the first aggregation: exact on "
         f"{total} slots ({int(got[0].sum())} groups); {k3_ms:.4f} ms "
         f"(plain {k3_plain:.4f} ms), "
         f"{k3_ms / (k3_bytes / HBM_BYTES_PER_S * 1e3):.3f}x its bound")
@@ -3382,6 +3433,508 @@ def phase_geometric(torch, ops, args, dev, report):
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the FM recommender at full Criteo width, the training loop with
+# checkpoints and compression, and the NumPy LFR / powerlaw-cluster graphs.
+# ---------------------------------------------------------------------------
+
+#: Phase 12 (a): the launcher's FM learning rate (no warmup, cosine to 0.1
+#: over the steps taken), the steps, and the rows held to the O(F^2)
+#: pairwise oracle.
+FM_LR = 1e-2
+FM_STEPS = 5
+FM_ORACLE_ROWS = 64
+#: float32 against float64 and the row split (4 gloo ranks, or NCCL at
+#: world size 1) against the plain step: relative error of the loss and of
+#: each tensor's largest entry (the CPU tests' tolerance).
+FM_RTOL = 1e-5
+#: (b)-(c): calls timed after the warm-up; the retrieval's top set.
+FM_CALLS = 30
+FM_TOPK = 100
+#: (d): the loop's uninterrupted steps, the checkpoint's step, and the
+#: top-k fraction of the compressed step.
+LOOP_STEPS = 6
+LOOP_SPLIT = 3
+TOPK_FRACTION = 0.01
+#: (e): gloo ranks on the one card, and whether they run the smoke width.
+FM_RANKS = 4
+FM_RANKS_SMOKE = False
+#: (f): vertices of each generated graph, Holme-Kim's m and p.
+GEN_VERTICES = 100_000
+HK_M, HK_P = 10, 0.3
+
+
+def median_call_s(torch, fn, calls: int = FM_CALLS, warmup: int = 3):
+    """The median of ``calls`` host-clock seconds of ``fn()``, each ending
+    in a sync, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    spent = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+    return float(np.median(spent))
+
+
+def nmi(a, b) -> float:
+    """Normalized mutual information of two labelings (arithmetic mean of
+    the entropies) from their contingency table (NumPy; no code of the
+    port)."""
+    _, a = np.unique(a, return_inverse=True)
+    _, b = np.unique(b, return_inverse=True)
+    cont = np.zeros((a.max() + 1, b.max() + 1))
+    np.add.at(cont, (a, b), 1)
+    p = cont / cont.sum()
+    pa, pb = p.sum(1), p.sum(0)
+    nz = p > 0
+    mi = (p[nz] * np.log(p[nz] / np.outer(pa, pb)[nz])).sum()
+    ent = -(pa[pa > 0] * np.log(pa[pa > 0])).sum() - (
+        pb[pb > 0] * np.log(pb[pb > 0])).sum()
+    return float(2 * mi / ent)
+
+
+def fm_oracle64(torch, cfg, params, field_ids):
+    """The FM's logits in float64 by the O(F^2) pairwise sum (the reference
+    test's oracle), on the card."""
+    rows = (field_ids.long()
+            + torch.as_tensor(cfg.field_offsets, device=field_ids.device))
+    v = params["v"].detach()[rows].double()            # (B, F, k)
+    w = params["w"].detach()[rows].double()
+    gram = torch.einsum("bik,bjk->bij", v, v)
+    pair = torch.triu(gram, diagonal=1).sum((1, 2))
+    return params["w0"].detach().double() + w.sum(1) + pair
+
+
+def fm_train_checks(torch, dev, args, report_fm):
+    """Phase 12 (a): the train step at full width.  Returns the model."""
+    from repro_torch import FM, ShardGroup
+    from repro_torch.data.recsys import synthetic_click_batches
+    from repro_torch.models import recsys
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = FM.full_config()
+    b = FM.input_specs("train_batch")["field_ids"][0][0]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model = FM.init_model("train_batch", seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log("recsys", f"(a) FM at full width: {cfg.n_fields} fields, embed_dim "
+        f"{cfg.embed_dim}, {cfg.total_vocab} rows ({cfg.padded_vocab} "
+        f"padded), {n_params} float32 parameters ({n_params * 4} B), drawn "
+        f"on the card in {time.perf_counter() - t:.3f} s")
+    stream = synthetic_click_batches(cfg.vocab_sizes, b, seed=args.seed,
+                                     device=dev)
+    t = time.perf_counter()
+    batches = [next(stream) for _ in range(FM_STEPS + 1)]
+    log("recsys", f"(a) {len(batches)} click batches of {b} from "
+        f"synthetic_click_batches in {time.perf_counter() - t:.3f} s (host "
+        f"NumPy, then the card)")
+    batch0 = batches[0]
+    ids = batch0["field_ids"]
+    rows = recsys.field_rows(cfg, ids).long()
+    per_field = [int(torch.unique(rows[:, f]).numel())
+                 for f in range(cfg.n_fields)]
+    log("recsys", f"(a) the first batch touches {int(torch.unique(rows).numel())} "
+        f"distinct rows of {b * cfg.n_fields} ids (per field: {per_field})")
+
+    # The forward on FM_ORACLE_ROWS rows against the float64 pairwise oracle.
+    with torch.no_grad():
+        got = recsys.forward(cfg, model.params(), ids[:FM_ORACLE_ROWS])
+    want = fm_oracle64(torch, cfg, model.params(), ids[:FM_ORACLE_ROWS])
+    err = float((got.double() - want).abs().max())
+    scale = float(want.abs().max())
+    log("recsys", f"(a) forward on {FM_ORACLE_ROWS} rows against the O(F^2) "
+        f"pairwise oracle in float64: max error {err:.3e} of the largest "
+        f"|logit| {scale:.3e}")
+    require(err <= FM_RTOL * scale, "the FM forward differs from the "
+            "pairwise oracle")
+
+    # The first step's loss and gradients against a float64 copy.
+    group = ShardGroup.single(dev)
+    opt_cfg = AdamWConfig(lr=FM_LR, warmup_steps=0, total_steps=FM_STEPS)
+    step = FM.build_step("train_batch", group, opt_cfg=opt_cfg)
+    loss32, g32 = step.loss_and_grads(model, batch0)
+    p64 = {k: p.detach().double().requires_grad_(True)
+           for k, p in model.params().items()}
+    loss64 = recsys.loss_fn(cfg, p64, batch0)
+    g64 = dict(zip(p64, torch.autograd.grad(loss64, list(p64.values()))))
+    loss64 = float(loss64.detach())
+    rel = abs(float(loss32) - loss64) / abs(loss64)
+    worst = grads_agree(g32, g64)
+    log("recsys", f"(a) first step against float64: loss {float(loss32):.8f} "
+        f"against {loss64:.8f} (relative {rel:.3e}), gradients "
+        f"{worst:.3e} of each tensor's largest entry; nonzero gradient rows "
+        f"{int((g32['w'] != 0).sum())} of {cfg.padded_vocab} (dense)")
+    require(rel <= FM_RTOL and worst <= FM_RTOL,
+            "the float32 FM step differs from float64")
+    del p64, g64, loss64
+    torch.cuda.empty_cache()
+
+    # Two identical first steps: the gradients' run-to-run stability.
+    loss_b, g_b = step.loss_and_grads(model, batch0)
+    diff = max(float((g_b[k] - g32[k]).abs().max()) for k in g32)
+    stable = torch.equal(loss_b, loss32) and all(
+        torch.equal(g_b[k], g32[k]) for k in g32)
+    log("recsys", f"(a) two identical first steps: "
+        + ("bit for bit equal (loss and every gradient)" if stable else
+           f"NOT bit-stable: max gradient difference {diff:.3e}"))
+    require(stable, "two identical FM steps differ: the gathers' sorted "
+            "segment sum should make the step bit-stable")
+    del g_b, g32
+    torch.cuda.empty_cache()
+
+    # FM_STEPS AdamW steps on fresh batches.
+    opt = adamw_init(model)
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for bt in batches[:FM_STEPS]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        opt, loss = step(model, opt, bt)
+        losses.append(float(loss))
+        secs.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_s = float(np.median(secs[1:]))
+    log("recsys", f"(a) {FM_STEPS} AdamW steps (lr {FM_LR}, dense over every "
+        f"row): losses {losses}; seconds a step {[round(x, 5) for x in secs]} "
+        f"(median after the first {step_s:.5f} s, {b / step_s:.0f} "
+        f"examples/s); peak {peak:.2f} GiB")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"FM losses {losses} not finite and falling")
+    wall_ms, n_ops, busy_ms, top = device_profile(
+        torch, lambda: step(model, opt, batches[FM_STEPS]), top=8)
+    idle_plain = max(0.0, 1 - busy_ms / (step_s * 1e3))
+    log("recsys", f"(a) one train step under torch.profiler: wall "
+        f"{wall_ms:.2f} ms, {n_ops} device operations, busy {busy_ms:.2f} ms, "
+        f"idle share {1 - busy_ms / wall_ms:.3f} (the profiler slows the "
+        f"host; against the unprofiled step {idle_plain:.3f}); top kernels "
+        f"(ms) {top}")
+    report_fm.update(step_s=step_s, peak_gib=peak, stable=stable,
+                     idle=1 - busy_ms / wall_ms, idle_unprofiled=idle_plain)
+    return model
+
+
+def fm_serve_checks(torch, dev, args, model, report_fm):
+    """Phase 12 (b) and (c): online and bulk scoring, and retrieval."""
+    from repro_torch import FM, ShardGroup
+    from repro_torch.models import recsys
+    cfg = FM.full_config()
+    group = ShardGroup.single(dev)
+    params = {k: p.detach() for k, p in model.params().items()}
+    for i, shape in enumerate(("serve_p99", "serve_bulk")):
+        batch = FM.make_batch(shape, args.seed + 1 + i, device=dev)
+        step = FM.build_step(shape, group)
+        got = step(model, batch)
+        with torch.no_grad():
+            want = recsys.forward(cfg, params, batch["field_ids"])
+        require(torch.equal(got, want),
+                f"{shape}: build_step's logits differ from forward")
+        require(bool(torch.isfinite(got).all()), f"{shape}: logits not "
+                "finite")
+        secs = median_call_s(torch, lambda: step(model, batch))
+        b = batch["field_ids"].shape[0]
+        log("recsys", f"(b) {shape} (B = {b}): logits equal forward through "
+            f"build_step; {secs * 1e3:.4f} ms a call (median of {FM_CALLS}), "
+            f"{b / secs:.0f} examples/s")
+        report_fm[shape] = secs
+
+    batch = FM.make_batch("retrieval_cand", args.seed + 3, device=dev)
+    step = FM.build_step("retrieval_cand", group)
+    scores = step(model, batch)
+    rows = recsys.field_rows(cfg, batch["user_fields"])[0].long()
+    cand = batch["cand_rows"].long()
+    v64 = params["v"].double()
+    v_u = v64[rows].sum(0)
+    want = v64[cand] @ v_u + params["w"].double()[cand]
+    err = float((scores.double() - want).abs().max())
+    scale = float(want.abs().max())
+    top_got = set(torch.topk(scores, FM_TOPK).indices.tolist())
+    top_want = set(torch.topk(want, FM_TOPK).indices.tolist())
+    kth = float(torch.topk(want, FM_TOPK).values[-1])
+    swaps = top_got ^ top_want
+    near = all(abs(float(want[i]) - kth) <= FM_RTOL * scale for i in swaps)
+    secs = median_call_s(torch, lambda: step(model, batch))
+    log("recsys", f"(c) retrieval over {cand.numel()} candidates: scores "
+        f"within {err:.3e} of the float64 expression (largest "
+        f"{scale:.3e}); top-{FM_TOPK} sets {'equal' if not swaps else f'differ in {len(swaps)} near-ties'}; "
+        f"{secs * 1e3:.4f} ms a call (median of {FM_CALLS})")
+    require(err <= FM_RTOL * scale and near,
+            "retrieval scores or their top set differ from float64")
+    report_fm["retrieval"] = secs
+
+
+def fm_loop_checks(torch, dev, args, report_fm):
+    """Phase 12 (d): the training loop at full width, its checkpoint and
+    resume, and one compressed step of each scheme."""
+    import shutil
+    import tempfile
+    from repro_torch import FM
+    from repro_torch.data.recsys import synthetic_click_batches
+    from repro_torch.models import recsys
+    from repro_torch.optim import (AdamWConfig, CompressionConfig,
+                                   compress_grads, compression_init)
+    from repro_torch.train import TrainLoopConfig, checkpoint, train
+
+    cfg = FM.full_config()
+    b = FM.input_specs("train_batch")["field_ids"][0][0]
+    opt_cfg = AdamWConfig(lr=FM_LR, warmup_steps=0, total_steps=LOOP_STEPS)
+
+    def loss_fn(p, bt):
+        return recsys.loss_fn(cfg, p, bt)
+
+    def stream():
+        return synthetic_click_batches(cfg.vocab_sizes, b, seed=args.seed + 4,
+                                       device=dev)
+
+    p0 = recsys.init_params(cfg, args.seed + 3, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    p_full, m_full = train(loss_fn, p0, stream(), opt_cfg,
+                           TrainLoopConfig(total_steps=LOOP_STEPS,
+                                           log_every=1))
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t
+    losses = [h["loss"] for h in m_full["history"]]
+    log("recsys", f"(d) train(): {LOOP_STEPS} uninterrupted steps in "
+        f"{full_s:.3f} s (batches drawn on the host inside), losses {losses}")
+    require(all(np.isfinite(losses)), "the loop's losses are not finite")
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        with timed_calls(torch, checkpoint, "save_checkpoint") as save_s:
+            train(loss_fn, p0, stream(), opt_cfg,
+                  TrainLoopConfig(total_steps=LOOP_SPLIT,
+                                  ckpt_every=LOOP_SPLIT, ckpt_dir=tmp,
+                                  keep_n=1))
+        payload = os.path.join(tmp, f"step_{LOOP_SPLIT:010d}", "arrays.npz")
+        size = os.path.getsize(payload)
+        with timed_calls(torch, checkpoint, "latest_step") as scan_s, \
+                timed_calls(torch, checkpoint,
+                            "restore_checkpoint") as restore_s:
+            p_res, m_res = train(loss_fn, p0, stream(), opt_cfg,
+                                 TrainLoopConfig(total_steps=LOOP_STEPS,
+                                                 ckpt_every=100,
+                                                 ckpt_dir=tmp, keep_n=1,
+                                                 log_every=1))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    require(m_res["history"][0]["step"] == LOOP_SPLIT,
+            "the resumed loop did not start at the checkpoint")
+    worst = max(float((p_res[k] - p_full[k]).abs().max()) for k in p_full)
+    exact = all(torch.equal(p_res[k], p_full[k]) for k in p_full)
+    log("recsys", f"(d) {LOOP_SPLIT} steps, a checkpoint ({size} B of npz, "
+        f"keep_n 1), then a fresh train() resumed to {LOOP_STEPS}: "
+        f"parameters {'bit for bit equal to' if exact else f'within {worst:.3e} of'} "
+        f"the uninterrupted run's; save {save_s[0]:.3f} s, latest_step "
+        f"{scan_s[0]:.3f} s, restore {restore_s[0]:.3f} s (each hashes the "
+        f"payload)")
+    require(exact, "the resumed run differs from the uninterrupted one")
+    report_fm.update(save_s=save_s[0], restore_s=restore_s[0],
+                     scan_s=scan_s[0], ckpt_bytes=size)
+    del p_res, p_full, m_res
+    torch.cuda.empty_cache()
+
+    # One compressed step of each scheme: the residual of a first call
+    # carried into a second, the invariant held exactly.
+    bt = next(stream())
+    leaves = {k: v.detach().requires_grad_(True) for k, v in p0.items()}
+    loss = recsys.loss_fn(cfg, leaves, bt)
+    grads = dict(zip(leaves, torch.autograd.grad(loss,
+                                                 list(leaves.values()))))
+    for scheme in ("topk", "int8"):
+        ccfg = CompressionConfig(scheme=scheme, topk_fraction=TOPK_FRACTION)
+        res = compression_init(p0)
+        _, res = compress_grads(ccfg, grads, res)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sent, left = compress_grads(ccfg, grads, res)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        exact = all(torch.equal(sent[k] + left[k], grads[k] + res[k])
+                    for k in grads)
+        kept = {k: int((sent[k] != 0).sum()) for k in sent}
+        require(exact, f"{scheme}: sent + residual != g + r")
+        if scheme == "topk":
+            require(all(kept[k] >= max(int(grads[k].numel() * TOPK_FRACTION),
+                                       1) for k in grads),
+                    "topk kept fewer entries than its fraction")
+        t = time.perf_counter()
+        _, m_c = train(loss_fn, p0, stream(), opt_cfg,
+                       TrainLoopConfig(total_steps=1, log_every=1),
+                       comp_cfg=ccfg)
+        loop_s = time.perf_counter() - t
+        require(np.isfinite(m_c["history"][0]["loss"]),
+                f"{scheme}: the compressed loop step is not finite")
+        log("recsys", f"(d) {scheme} compression at full width: sent + "
+            f"residual == g + r exactly on every tensor; nonzero sent "
+            f"{kept}; compress_grads {secs:.4f} s; one loop step with it "
+            f"{loop_s:.3f} s (loss {m_c['history'][0]['loss']:.8f})")
+        del sent, left, res
+    del grads, leaves, p0
+    torch.cuda.empty_cache()
+
+
+def load_paths(tree):
+    """``tree`` with each ``.npy`` path read into memory."""
+    if isinstance(tree, dict):
+        return {k: load_paths(v) for k, v in tree.items()}
+    if isinstance(tree, str) and tree.endswith(".npy"):
+        return np.load(tree)
+    return tree
+
+
+def fm_ranks_checks(torch, dev, args):
+    """Phase 12 (e): the full-width FM with the table split over FM_RANKS
+    gloo ranks on the one card (each rank saves its share's arrays to a
+    temporary directory), against world size 1; and the row-split train
+    step through NCCL at world size 1 against the plain step."""
+    import shutil
+    import tempfile
+    from repro_torch import FM, ShardGroup
+    from repro_torch.configs.fm import fm_rank_runs
+    from repro_torch.core import collectives
+
+    runs = [{"shape": "train_batch", "seed": args.seed + 5, "steps": 1,
+             "lr": FM_LR, "smoke": FM_RANKS_SMOKE},
+            {"shape": "serve_bulk", "seed": args.seed + 6,
+             "smoke": FM_RANKS_SMOKE},
+            {"shape": "retrieval_cand", "seed": args.seed + 7,
+             "smoke": FM_RANKS_SMOKE}]
+    t = time.perf_counter()
+    solo = fm_rank_runs(ShardGroup.single(dev), runs)
+    solo_s = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-fm-ranks-")
+    try:
+        t, t_wall = time.perf_counter(), time.time()
+        out = collectives.launch(fm_rank_runs, FM_RANKS, runs, tmp,
+                                 backend="gloo",
+                                 devices=[str(dev)] * FM_RANKS, timeout=400)
+        wall = time.perf_counter() - t
+        t_back = time.time()
+        out = [[load_paths(r) for r in o] for o in out]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    runs_s = [sum(r["seconds"] for r in o) for o in out]
+    done = max(o[-1]["finished"] for o in out)
+    log("recsys", f"(e) the ranks' runs took {[round(x, 2) for x in runs_s]} "
+        f"s; the last finished {done - t_wall:.2f} s after the launch (rank "
+        f"starts and runs) and its results reached this process "
+        f"{t_back - done:.2f} s later")
+
+    def worst_of(parts, want):
+        got = np.concatenate(parts)
+        return float(np.abs(got.astype(np.float64) - want).max()
+                     / max(np.abs(want).max(), 1e-30))
+
+    tr = [o[0] for o in out]
+    rel = max(abs(o["loss"] - solo[0]["loss"]) / abs(solo[0]["loss"])
+              for o in tr)
+    errs = {f"grad {k}": worst_of([o["grads"][k] for o in tr],
+                                  solo[0]["grads"][k]) for k in ("w", "v")}
+    errs.update({f"param {k}": worst_of([o["params"][k] for o in tr],
+                                        solo[0]["params"][k])
+                 for k in ("w", "v")})
+    errs["grad w0"] = max(abs(float(o["grads"]["w0"])
+                              - float(solo[0]["grads"]["w0"]))
+                          / abs(float(solo[0]["grads"]["w0"])) for o in tr)
+    errs["serve"] = worst_of([o[1]["out"] for o in out], solo[1]["out"])
+    errs["retrieval"] = worst_of([o[2]["out"] for o in out], solo[2]["out"])
+    log("recsys", f"(e) {FM_RANKS} gloo ranks on one card, the table split "
+        f"by rows ({FM.config(FM_RANKS_SMOKE).padded_vocab // FM_RANKS} a "
+        f"rank{', smoke width' if FM_RANKS_SMOKE else ''}): train "
+        f"step loss within {rel:.3e}, errors against world size 1 (of the "
+        f"largest entry) {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}; "
+        f"{wall:.2f} s with the rank starts, world size 1 {solo_s:.2f} s "
+        f"(no multi-GPU number)")
+    require(rel <= FM_RTOL and max(errs.values()) <= FM_RTOL,
+            f"{FM_RANKS} gloo ranks differ from world size 1")
+    del out, solo, tr
+
+    with nccl_world_of_one(dev) as group:
+        model = FM.init_model("train_batch", seed=args.seed + 8, device=dev)
+        batch = FM.make_batch("train_batch", args.seed + 9, device=dev)
+        loss_1, g_1 = FM.build_step("train_batch", ShardGroup.single(
+            dev)).loss_and_grads(model, batch)
+        step = FM.build_step("train_batch", group)
+        before = group.collectives
+        loss_n, g_n = step.loss_and_grads(model, batch)
+        n_coll = group.collectives - before
+        rel = abs(float(loss_n) - float(loss_1)) / abs(float(loss_1))
+        worst = grads_agree(g_n, g_1)
+        log("recsys", f"(e) the row-split train step through NCCL at world "
+            f"size 1 ({n_coll} NCCL collectives): loss {float(loss_n):.8f} "
+            f"within {rel:.3e} of the plain step's, gradients within "
+            f"{worst:.3e} of each tensor's largest entry")
+        require(n_coll > 0 and rel <= FM_RTOL and worst <= FM_RTOL,
+                "the NCCL world-of-one step differs from the plain step")
+        del model, batch, g_1, g_n
+    torch.cuda.empty_cache()
+
+
+def phase_recsys(torch, ops, args, dev, report):
+    """Phase 12: the FM at full width (train, serve, retrieval, the loop
+    with checkpoints and compression, 4 gloo ranks) and ``louvain()`` on
+    the NumPy LFR and powerlaw-cluster graphs."""
+    from repro_torch import lfr_graph, louvain, powerlaw_cluster
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "TF32 matmuls are on: the float64 checks assume float32 GEMMs")
+    fm_nums = {}
+    model = fm_train_checks(torch, dev, args, fm_nums)
+    fm_serve_checks(torch, dev, args, model, fm_nums)
+    del model
+    torch.cuda.empty_cache()
+    fm_loop_checks(torch, dev, args, fm_nums)
+    fm_ranks_checks(torch, dev, args)
+    log("recsys", "FM summary " + json.dumps(
+        {k: (v if isinstance(v, bool) else float(v))
+         for k, v in fm_nums.items()}))
+
+    # (f) The NumPy generators at GEN_VERTICES vertices, louvain() on each
+    # through K3 (default) and K1 + K3 (ELL).
+    for name, make in (
+            ("lfr", lambda: lfr_graph(GEN_VERTICES, seed=args.seed + 42,
+                                      device=dev)),
+            ("powerlaw", lambda: (powerlaw_cluster(
+                GEN_VERTICES, HK_M, HK_P, seed=args.seed + 7, device=dev),
+                None))):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        g, planted = make()
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t
+        e = g.e_valid
+        deg = torch.bincount(g.src[:e].long(), minlength=g.n_valid)
+        log("recsys", f"(f) {name}: {g.n_valid} vertices, {e} slots, degree "
+            f"min/mean/max {int(deg.min())}/{float(deg.float().mean()):.3f}/"
+            f"{int(deg.max())}, generated in {gen_s:.3f} s (host NumPy, CSR "
+            f"on the card)")
+        res = louvain_checked(
+            torch, ops, g, lambda cfg: louvain(g, cfg),
+            lambda r: (f"louvain() on the {name} graph: {len(r.passes)} "
+                       f"passes, {int(r.passes[-1].n_communities)} "
+                       f"communities, Q {modularity_f64(torch, g, r.membership):.6f}"),
+            lambda r: (np.asarray(r.membership),), report, "recsys",
+            f"(f) {name}", f"coarsen_groups_{name}",
+            f"louvain_fused_{name}")
+        if planted is not None:
+            src = g.src[:e].cpu().numpy()
+            dst = g.indices[:e].cpu().numpy()
+            mixing = float((planted[src] != planted[dst]).mean())
+            score = nmi(np.asarray(res.membership), planted)
+            log("recsys", f"(f) lfr: {int(planted.max()) + 1} planted "
+                f"communities, measured mixing fraction {mixing:.4f} against "
+                f"mu 0.1; NMI of Louvain's membership against them "
+                f"{score:.4f}")
+            require(abs(mixing - 0.1) <= 0.05 and score > 0.5,
+                    "LFR mixing or Louvain's NMI out of range")
+        del g, res
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22,
@@ -3393,7 +3946,7 @@ def main() -> int:
     ap.add_argument("--sharded-scale", type=int, default=18,
                     help="R-MAT scale of phase 7's staged gloo ranks")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of phases 10-11's graphs, features and "
+                    help="seed of phases 10-12's graphs, features and "
                          "batches")
     args = ap.parse_args()
 
@@ -3437,6 +3990,8 @@ def main() -> int:
                          ("graph", lambda: phase_graph(torch, ops, args, dev,
                                                        report)),
                          ("geometric", lambda: phase_geometric(
+                             torch, ops, args, dev, report)),
+                         ("recsys", lambda: phase_recsys(
                              torch, ops, args, dev, report))):
             t = time.perf_counter()
             fn()

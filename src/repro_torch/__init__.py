@@ -7,8 +7,15 @@ multi-tenant sharded serving fleet (``FleetRouter``, ``serve_fleet``), and
 the graph workloads: the Louvain partitioner (``louvain_partition``,
 ``random_partition``) and Louvain-partitioned GNN training (the gin-tu,
 gat-cora, equiformer-v2 and dimenet configs' ``ARCH``, ``build_gnn_step``,
-and the halo exchange's ``build_halo_step`` / ``build_halo_inputs``), with
-the ELL move kernels (K1, K2), the aggregation kernel (K3) and the
+and the halo exchange's ``build_halo_step`` / ``build_halo_inputs``), the
+FM recommender (the fm config's ``ARCH`` as ``FM``: training, online and
+bulk scoring and retrieval, the table split by rows over a
+``ShardGroup``), the fault-tolerant training loop (the ``train``
+subpackage: ``train.train``, ``TrainLoopConfig``; the name stays the
+subpackage's, so ``import repro_torch.train.loop`` works) with its
+checkpoints (``save_checkpoint`` / ``restore_checkpoint``) and gradient
+compression, and the NumPy LFR and powerlaw-cluster generators, with the
+ELL move kernels (K1, K2), the aggregation kernel (K3) and the
 batch-apply kernel (K4) hand-written in CUDA for Hopper
 (``repro_torch/csrc``).
 
@@ -26,6 +33,7 @@ from repro_torch.configs.louvain_arch import (FLEET_E_SLACK,
                                               migrate_envelope, plan_fleet)
 from repro_torch.configs.dimenet_cfg import ARCH as DIMENET
 from repro_torch.configs.equiformer_v2 import ARCH as EQUIFORMER_V2
+from repro_torch.configs.fm import ARCH as FM
 from repro_torch.configs.gat_cora import ARCH as GAT_CORA
 from repro_torch.configs.gin_tu import ARCH as GIN_TU
 from repro_torch.configs.gnn_common import build_gnn_step
@@ -50,12 +58,16 @@ from repro_torch.core.multistream import (BatchedDynamicResult,
                                           stack_batches, stack_graphs)
 from repro_torch.core.partition import (PartitionResult, louvain_partition,
                                         random_partition)
-from repro_torch.data.graphs import (rmat_graph, sbm_edge_stream, sbm_graph,
+from repro_torch.data.graphs import (lfr_graph, powerlaw_cluster, rmat_graph,
+                                     sbm_edge_stream, sbm_graph,
                                      sbm_holdout_stream)
+from repro_torch import train
+from repro_torch.train import (TrainLoopConfig, restore_checkpoint,
+                               save_checkpoint)
 
 __all__ = ["AggregationOverflow", "BatchUpdateStats", "BatchedDynamicResult",
            "BatchedLouvainResult", "CSRGraph", "DIMENET", "DynamicResult",
-           "EQUIFORMER_V2", "EdgeBatch",
+           "EQUIFORMER_V2", "EdgeBatch", "FM",
            "FLEET_E_SLACK", "FLEET_GROW_FACTOR", "FLEET_MIN_E_PER",
            "FLEET_MIN_V_PER", "FleetBatch", "FleetCapacityOverflow",
            "FleetEnvelope", "FleetGraph", "FleetResult", "FleetRouter",
@@ -65,9 +77,11 @@ __all__ = ["AggregationOverflow", "BatchUpdateStats", "BatchedDynamicResult",
            "apply_edge_batch", "build_csr", "build_gnn_step",
            "build_halo_inputs", "build_halo_step", "distributed_louvain",
            "fleet_envelope", "fleet_v_per_shard", "from_networkx", "louvain",
-           "louvain_batched", "louvain_dynamic", "louvain_dynamic_batched",
+           "lfr_graph", "louvain_batched", "louvain_dynamic",
+           "louvain_dynamic_batched",
            "louvain_dynamic_sharded", "louvain_partition", "make_edge_batch",
            "membership_modularity", "migrate_envelope", "plan_fleet",
-           "random_partition", "rmat_graph", "sbm_edge_stream", "sbm_graph",
+           "powerlaw_cluster", "random_partition", "restore_checkpoint",
+           "rmat_graph", "save_checkpoint", "sbm_edge_stream", "sbm_graph",
            "sbm_holdout_stream", "serve_fleet", "stack_batches",
-           "stack_graphs"]
+           "stack_graphs", "train", "TrainLoopConfig"]

@@ -34,7 +34,8 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.collectives import ShardGroup
+from repro_torch.core.collectives import (AllGather, AllSum, ReduceScatter,
+                                          ShardGroup)
 from repro_torch.core.graph import resolve_device
 from repro_torch.models.gnn.common import LOCAL, GraphBatch
 from repro_torch.optim import AdamWConfig, adamw_apply
@@ -183,47 +184,6 @@ def shard_batch(batch: dict, split: Dict[str, Optional[int]],
 # Node exchange of the split full graph (the all-gather baseline)
 # ---------------------------------------------------------------------------
 
-class _AllGather(torch.autograd.Function):
-    """Owned rows -> every row; backward: summed over ranks, owned rows."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return group.all_gather(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        g = ctx.group
-        part = grad.shape[0] // g.world_size
-        return g.psum(grad.contiguous()).narrow(0, g.rank * part, part), None
-
-
-class _ReduceScatter(torch.autograd.Function):
-    """Every row's partial sums -> the owned rows' sums; backward: the
-    owned rows' gradients gathered."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        part = x.shape[0] // group.world_size
-        return group.psum(x.contiguous()).narrow(0, group.rank * part, part)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return ctx.group.all_gather(grad.contiguous()), None
-
-
-class _AllSum(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return group.psum(x.contiguous())
-
-    @staticmethod
-    def backward(ctx, grad):
-        return ctx.group.psum(grad.contiguous()), None
-
-
 class ShardedNodes:
     """A full graph's nodes split over the ranks of ``group`` in rank order
     (the ``LocalNodes`` interface of ``models.gnn.common``); float sums
@@ -233,13 +193,13 @@ class ShardedNodes:
         self.group = group
 
     def gather(self, x):
-        return _AllGather.apply(x, self.group)
+        return AllGather.apply(x, self.group)
 
     def scatter(self, x):
-        return _ReduceScatter.apply(x, self.group)
+        return ReduceScatter.apply(x, self.group)
 
     def all_sum(self, x):
-        return _AllSum.apply(x, self.group)
+        return AllSum.apply(x, self.group)
 
     def all_max(self, x):
         return self.group.pmax(x.detach())

@@ -229,6 +229,54 @@ class ShardGroup:
 
 
 # ---------------------------------------------------------------------------
+# Differentiable collectives: the backward of each is its adjoint.
+# ---------------------------------------------------------------------------
+
+class AllGather(torch.autograd.Function):
+    """Owned rows -> every row (dim 0, rank order); backward: summed over
+    ranks, owned rows.  ``AllGather.apply(x, group)``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.all_gather(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = ctx.group
+        part = grad.shape[0] // g.world_size
+        return g.psum(grad.contiguous()).narrow(0, g.rank * part, part), None
+
+
+class ReduceScatter(torch.autograd.Function):
+    """Every row's partial sums -> the owned rows' sums (dim 0 split in rank
+    order); backward: the owned rows' gradients gathered."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        part = x.shape[0] // group.world_size
+        return group.psum(x.contiguous()).narrow(0, group.rank * part, part)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_gather(grad.contiguous()), None
+
+
+class AllSum(torch.autograd.Function):
+    """The sum over ranks; backward: the gradients summed over ranks."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.psum(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.psum(grad.contiguous()), None
+
+
+# ---------------------------------------------------------------------------
 # Launcher.
 # ---------------------------------------------------------------------------
 

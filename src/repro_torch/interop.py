@@ -101,12 +101,28 @@ def gnn_params_from_numpy(arch_id: str, tree, device="cuda") -> dict:
             for name, x in _tree_leaves(tree)}
 
 
+def fm_params_from_numpy(tree, device="cuda") -> dict:
+    """The FM's parameters ``{"w0", "w", "v"}`` as float32 tensors on
+    ``device`` from the JAX package's FM parameter dict as numpy (the
+    keys of ``repro.models.recsys.init_params``); the same names key a
+    converted gradient tree."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.array(tree[k], np.float32)).to(dev)
+            for k in ("w0", "w", "v")}
+
+
 def adamw_state_from_numpy(arch_id: str, step, mu, nu, device="cuda"):
     """The port's ``AdamWState`` from the JAX ``AdamWState``'s fields as
-    numpy (``mu`` / ``nu`` trees like the parameters)."""
+    numpy (``mu`` / ``nu`` trees like the parameters of ``arch_id``: a GNN
+    of ``GNN_ARCH_IDS`` or ``"fm"``)."""
     from repro_torch.optim import AdamWState
     dev = resolve_device(device)
+
+    def convert(tree):
+        if arch_id == "fm":
+            return fm_params_from_numpy(tree, dev)
+        return gnn_params_from_numpy(arch_id, tree, dev)
+
     return AdamWState(
         step=torch.tensor(int(step), dtype=torch.int32, device=dev),
-        mu=gnn_params_from_numpy(arch_id, mu, dev),
-        nu=gnn_params_from_numpy(arch_id, nu, dev))
+        mu=convert(mu), nu=convert(nu))

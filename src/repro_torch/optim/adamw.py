@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Mapping, NamedTuple, Union
+from typing import Dict, Mapping, NamedTuple, Optional, Union
 
 import torch
 
@@ -72,13 +72,17 @@ def global_norm(tensors) -> torch.Tensor:
                           for x in values))
 
 
-def adamw_update(cfg: AdamWConfig, params: Params, grads, state: AdamWState):
+def adamw_update(cfg: AdamWConfig, params: Params, grads, state: AdamWState,
+                 grad_norm: Optional[torch.Tensor] = None):
     """One step.  ``grads`` is keyed like the parameters.  Returns
     ``(new_params, new_state, metrics)``: new tensors in the parameters'
     types (the inputs are not written), the new state, and ``grad_norm``
-    and ``lr`` as 0-d float32 tensors."""
+    and ``lr`` as 0-d float32 tensors.  ``grad_norm`` is the global norm
+    that the clip reads, by default ``global_norm(grads)``; a rank that
+    holds a share of split parameters passes the norm over all ranks."""
     named = _named(params)
-    gnorm = global_norm([grads[k] for k in named])
+    gnorm = (global_norm([grads[k] for k in named]) if grad_norm is None
+             else grad_norm)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     step = state.step + 1
@@ -104,10 +108,11 @@ def adamw_update(cfg: AdamWConfig, params: Params, grads, state: AdamWState):
 
 
 def adamw_apply(cfg: AdamWConfig, module: torch.nn.Module, grads,
-                state: AdamWState):
+                state: AdamWState, grad_norm: Optional[torch.Tensor] = None):
     """``adamw_update`` written into ``module``'s parameters in place.
     Returns ``(new_state, metrics)``."""
-    new_p, state, metrics = adamw_update(cfg, module, grads, state)
+    new_p, state, metrics = adamw_update(cfg, module, grads, state,
+                                         grad_norm)
     with torch.no_grad():
         for k, p in module.named_parameters():
             p.copy_(new_p[k])

@@ -8,7 +8,7 @@ value is replicated on every rank.  The reference's data-parallel axes
 (``dp_axes``: every mesh axis but ``model``) are all of a group's ranks,
 since the GNN configs replicate their parameters.  Splits are even, in
 rank order: rank r holds rows ``[r * n / W, (r + 1) * n / W)`` of the
-split dimension.  The LM and FM rules come with their models.
+split dimension.  The LM rules come with their models.
 """
 
 from __future__ import annotations
@@ -27,3 +27,23 @@ def graph_batch_split(specs: dict, *, node_sharded: bool
         return {k: None if (k == "labels" and s == (1,)) else 0
                 for k, (s, _) in specs.items()}
     return dict.fromkeys(specs, 0)
+
+
+def fm_param_split() -> Dict[str, Optional[int]]:
+    """The reference's ``fm_param_pspecs``: ``w0`` replicated, the rows of
+    ``w`` and ``v`` split over the ranks (the reference's ``model``
+    axis)."""
+    return {"w0": None, "w": 0, "v": 0}
+
+
+def fm_batch_split(kind: str) -> Dict[str, Optional[int]]:
+    """The FM's inputs (``configs/fm.py``): a train or serve batch splits
+    dim 0 over every rank (the reference's dp axes); a retrieval query is
+    replicated and its candidates split over every rank."""
+    if kind == "train":
+        return {"field_ids": 0, "labels": 0}
+    if kind == "serve":
+        return {"field_ids": 0}
+    if kind == "retrieval":
+        return {"user_fields": None, "cand_rows": 0}
+    raise ValueError(kind)

@@ -1294,3 +1294,135 @@ def test_halo_inputs_on_the_card_equal_the_cpu_layout(cuda):
                                 spec, device=cuda)
         for k in ("edge_src", "edge_dst", "send_idx"):
             np.testing.assert_array_equal(got[k], want[k])
+
+
+# ---------------------------------------------------------------------------
+# The FM recommender, compression, checkpoints and generators on the card.
+# ---------------------------------------------------------------------------
+
+def _fm_step_outputs(shape, dev, seed=3):
+    """(loss, grads) of a train shape, or the step's output, at the smoke
+    width on ``dev`` from the same weights and batch."""
+    from repro_torch import FM
+    model = FM.init_model(shape, seed=1, smoke=True, device="cpu")
+    model = type(model)(model.cfg, device=dev, params={
+        k: p.detach() for k, p in model.params().items()})
+    batch = FM.make_batch(shape, seed, smoke=True, device=dev)
+    step = FM.build_step(shape, ShardGroup.single(dev), smoke=True)
+    if "labels" in batch:
+        loss, grads = step.loss_and_grads(model, batch)
+        return float(loss), {k: g.cpu() for k, g in grads.items()}
+    return step(model, batch).cpu()
+
+
+@pytest.mark.parametrize("shape", ["train_batch", "serve_p99", "serve_bulk",
+                                   "retrieval_cand"])
+def test_fm_step_on_the_card_equals_the_cpu_path(cuda, shape):
+    """The FM's steps on the card and on the CPU from the same weights and
+    batch: loss within 1e-5 relative, gradients and outputs within 1e-5 of
+    their largest entry."""
+    got = _fm_step_outputs(shape, cuda)
+    want = _fm_step_outputs(shape, "cpu")
+    if isinstance(want, tuple):
+        assert got[0] == pytest.approx(want[0], rel=1e-5)
+        for k, w in want[1].items():
+            scale = float(w.abs().max())
+            torch.testing.assert_close(got[1][k], w, rtol=0,
+                                       atol=1e-5 * scale)
+        return
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_fm_gradients_are_bit_stable_on_the_card(cuda):
+    """Pareto-skewed ids put many examples on one row; the gathers'
+    backward (``recsys.sorted_segment_sum``: a stable sort and a fixed
+    pairwise tree, no atomics) gives the same bits on every call."""
+    from repro_torch import FM
+    model = FM.init_model("train_batch", seed=0, smoke=True, device=cuda)
+    batch = FM.make_batch("train_batch", 0, device=cuda)   # 65,536 clicks
+    batch = {k: v % 4 if k == "field_ids" else v for k, v in batch.items()}
+    step = FM.build_step("train_batch", ShardGroup.single(cuda), smoke=True)
+    loss0, g0 = step.loss_and_grads(model, batch)
+    for _ in range(3):
+        loss, g = step.loss_and_grads(model, batch)
+        assert torch.equal(loss, loss0)
+        assert all(torch.equal(g[k], g0[k]) for k in g0)
+
+
+def test_fm_step_through_nccl_at_world_size_one(nccl_group, cuda):
+    """World size 1 through an NCCL group runs the row-split step, its
+    all-gathers and reduce-scatters through NCCL, and equals the plain step
+    (no process group): loss within 1e-5 relative, gradients and the
+    updated parameters within 1e-5 of their largest entry."""
+    from repro_torch import FM
+    from repro_torch.optim import adamw_init
+    model = FM.init_model("train_batch", seed=2, smoke=True, device=cuda)
+    twin = type(model)(model.cfg, device=cuda, params={
+        k: p.detach().clone() for k, p in model.params().items()})
+    batch = FM.make_batch("train_batch", 4, smoke=True, device=cuda)
+    a = FM.build_step("train_batch", nccl_group, smoke=True)
+    b = FM.build_step("train_batch", ShardGroup.single(cuda), smoke=True)
+    before = nccl_group.collectives
+    la, ga = a.loss_and_grads(model, batch)
+    assert nccl_group.collectives > before
+    lb, gb = b.loss_and_grads(twin, batch)
+    assert float(la) == pytest.approx(float(lb), rel=1e-5)
+    for k, w in gb.items():
+        torch.testing.assert_close(ga[k], w, rtol=0,
+                                   atol=1e-5 * float(w.abs().max()))
+    _, la = a(model, adamw_init(model), batch)
+    _, lb = b(twin, adamw_init(twin), batch)
+    assert float(la) == pytest.approx(float(lb), rel=1e-5)
+    for p, q in zip(model.parameters(), twin.parameters()):
+        torch.testing.assert_close(p, q, rtol=0,
+                                   atol=1e-5 * float(q.abs().max()))
+
+
+@pytest.mark.parametrize("scheme", ["topk", "int8"])
+def test_compression_on_the_card_equals_the_cpu(cuda, scheme):
+    from repro_torch.optim import (CompressionConfig, compress_grads,
+                                   compression_init)
+    rng = np.random.default_rng(1)
+    g = {"v": rng.standard_normal((4096, 10)).astype(np.float32),
+         "w": rng.standard_normal(4096).astype(np.float32)}
+    cfg = CompressionConfig(scheme=scheme, topk_fraction=0.01)
+    out = {}
+    for dev in ("cpu", cuda):
+        tg = {k: torch.from_numpy(v).to(dev) for k, v in g.items()}
+        res = compression_init(tg)
+        res = {k: r + 0.25 * tg[k] for k, r in res.items()}
+        sent, left = compress_grads(cfg, tg, res)
+        for k in tg:
+            assert torch.equal(sent[k] + left[k], tg[k] + res[k])
+        out[str(dev)] = (sent, left)
+    for k in g:
+        assert torch.equal(out[str(cuda)][0][k].cpu(), out["cpu"][0][k])
+        assert torch.equal(out[str(cuda)][1][k].cpu(), out["cpu"][1][k])
+
+
+def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    from repro_torch import restore_checkpoint, save_checkpoint
+    from repro_torch.optim import adamw_init
+    params = {"w": torch.randn(7, device=cuda), "v": torch.randn(7, 3,
+                                                                device=cuda)}
+    tree = {"params": params, "opt": adamw_init(params), "step": 4}
+    save_checkpoint(str(tmp_path), 4, tree)
+    back = restore_checkpoint(str(tmp_path), 4, tree)
+    for k in params:
+        assert back["params"][k].device == params[k].device
+        assert torch.equal(back["params"][k], params[k])
+    assert back["opt"].step.device.type == "cuda"
+
+
+def test_louvain_on_the_generated_graphs_on_the_card(cuda):
+    """LFR and powerlaw-cluster graphs on the card give the CPU's
+    membership through K1 and K3."""
+    from repro_torch import lfr_graph, powerlaw_cluster
+    for make in (lambda dev: lfr_graph(2000, seed=42, device=dev)[0],
+                 lambda dev: powerlaw_cluster(1000, 10, 0.3, seed=7,
+                                              device=dev)):
+        for cfg in (LouvainConfig(), LouvainConfig(use_ell_kernel=True)):
+            got = louvain(make(cuda), cfg).membership
+            want = louvain(make("cpu"), cfg).membership
+            np.testing.assert_array_equal(got, want)

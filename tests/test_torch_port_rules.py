@@ -65,7 +65,10 @@ def test_no_forbidden_import_anywhere_in_the_port():
                    "configs/gin_tu.py", "configs/gat_cora.py",
                    "models/gnn/wigner.py", "models/gnn/equiformer.py",
                    "models/gnn/dimenet.py", "configs/equiformer_v2.py",
-                   "configs/dimenet_cfg.py"):
+                   "configs/dimenet_cfg.py", "data/recsys.py",
+                   "models/recsys.py", "configs/fm.py",
+                   "optim/compression.py", "train/checkpoint.py",
+                   "train/loop.py", "data/graphs.py", "interop.py"):
         assert os.path.join(PORT_DIR, module) in files
     files.append(os.path.join(os.path.dirname(SRC_DIR), "chip_smoke.py"))
     for path in files:
@@ -187,6 +190,52 @@ def test_geometric_model_entry_points_need_a_card_unless_asked_for_the_cpu():
     step = build_halo_step("equiformer-v2", "full_graph_sm", cpu, n_valid=8,
                            smoke=True)
     assert step.group.device.type == "cpu"
+
+
+def test_recsys_and_training_entry_points_need_a_card_unless_asked_for_the_cpu(
+        tmp_path):
+    """The FM, its batches, configs and converter, the generators and the
+    loop's elastic controller default to the card and raise without one;
+    asked for the CPU, the FM trains through the loop and a checkpoint
+    restores onto its leaves' device."""
+    from repro_torch import FM, save_checkpoint, restore_checkpoint
+    from repro_torch.train import train
+    from repro_torch.data import (lfr_graph, powerlaw_cluster,
+                                  synthetic_click_batches)
+    from repro_torch.interop import fm_params_from_numpy
+    from repro_torch.models import recsys
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import ElasticController, TrainLoopConfig
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = FM.smoke_config()
+    for call in (lambda: recsys.init_params(cfg),
+                 lambda: recsys.FM(cfg),
+                 lambda: FM.init_model("train_batch", smoke=True),
+                 lambda: FM.make_batch("serve_p99", 0, smoke=True),
+                 lambda: synthetic_click_batches(cfg.vocab_sizes, 4),
+                 lambda: fm_params_from_numpy({"w0": 0.0, "w": np.zeros(2),
+                                               "v": np.zeros((2, 1))}),
+                 lambda: lfr_graph(200),
+                 lambda: powerlaw_cluster(50, 2, 0.3),
+                 lambda: ElasticController()):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    params = recsys.init_params(cfg, device="cpu")
+    batches = synthetic_click_batches(cfg.vocab_sizes, 8, device="cpu")
+    out, metrics = train(lambda p, b: recsys.loss_fn(cfg, p, b), params,
+                         batches, AdamWConfig(), TrainLoopConfig(
+                             total_steps=2),
+                         elastic=ElasticController("cpu"))
+    assert all(v.device.type == "cpu" for v in out.values())
+    assert len(metrics["history"]) == 2
+    save_checkpoint(str(tmp_path), 2, {"params": out})
+    back = restore_checkpoint(str(tmp_path), 2, {"params": params})
+    assert all(v.device.type == "cpu" and torch.equal(v, out[k])
+               for k, v in back["params"].items())
+    g, comm = lfr_graph(200, device="cpu")
+    assert g.device.type == "cpu" and comm.shape == (200,)
+    assert powerlaw_cluster(50, 2, 0.3, device="cpu").device.type == "cpu"
 
 
 def test_config_keeps_the_reference_fields_and_defaults():
