@@ -154,7 +154,31 @@ each timed; any failure exits non-zero:
      through K3 and through K1 + K3 (``louvain_checked``: one membership,
      the first launches held against their plain versions), the LFR
      mixing fraction against mu 0.1 and the NMI of Louvain's membership
-     against the planted communities.
+     against the planted communities;
+ 13. the LM stack, weights from ``init_params(--seed)`` and tokens from
+     ``synthetic_token_batches``: qwen2-1.5b at its published full width
+     (28 layers, d_model 1,536, vocab 151,936; 1,543,714,304 parameter
+     elements): (a) train_4k at B 4 (published 256): the first step's loss
+     and gradients in float32 against a float64 copy at B 1, S 512, two
+     identical bf16 first steps bit for bit, 5 AdamW steps (finite,
+     falling loss), seconds a step, tokens/s, peak memory, a
+     ``torch.profiler`` breakdown, and the model FLOPs' bound at the bf16
+     peak; (b) prefill_32k at B 1 (published 32): seconds (median of 3),
+     peak, and the last logits of a 4,096-token prefill against that
+     position of the 32,768-token forward; (c) decode: 64 tokens through
+     ``decode_step`` against ``forward`` in float32, the int8 cache against
+     the bf16 one, and 16 timed steps at B 32 (published 128) against a
+     32,768-position cache filled from the seed, each cache beside its
+     bytes-once bound; (e) gemma3-12b (one 5:1 pattern, 6 layers),
+     internlm2-20b, mixtral-8x22b and deepseek-v2-236b (2 layers each) at
+     published widths: float32 decode against forward (MoE with no token
+     dropped), bf16 prefill at S 8,192, one decode step at decode_32k (B
+     16) and, for the three with long_500k, at a 524,288-position cache,
+     and one bf16 train step at S 4,096 (mixtral and deepseek at 1 layer);
+     (f) ``python -m repro_torch.launch.train`` in subprocesses: qwen2-1.5b
+     and fm for 20 steps (falling loss) and ``--arch louvain`` on R-MAT
+     scale 12, equal to an in-process ``louvain()`` whose K1/K3 launches
+     are held against their plain versions (``louvain_checked``).
 
 Cut for time: phase 4's Leiden route through K2 (its ``ell_leiden__sbm``
 golden through K2 stays in phase 3), and phase 6's solo comparison to the
@@ -249,6 +273,10 @@ KERNELS = {
                                 "src/repro/kernels/aggregate/coarsen.py:113"),
     "louvain_fused_powerlaw": ("src/repro_torch/csrc/louvain_scan.cu",
                                "src/repro/kernels/louvain_scan/fused.py:111"),
+    # K3 in the training CLI's louvain run on its R-MAT graph (phase 13
+    # (f)); the CLI's LouvainConfig() does not take K1.
+    "coarsen_groups_cli": ("src/repro_torch/csrc/coarsen.cu",
+                           "src/repro/kernels/aggregate/coarsen.py:113"),
 }
 
 #: Phase 5: the batch mix of the DF-Louvain dynamic evaluation (Sahu,
@@ -2698,7 +2726,18 @@ def louvain_checked(torch, ops, g, run, describe, key, report, phase: str,
                                k1_counts["louvain_fused"], k1_err, k1_ms,
                                k1_plain, k1_bytes, k1_ops))
     del k1_calls, k1_first, a0, csr, c, want, fin
-    # The first K3 launch of the default run against its plain version.
+    k3_held(torch, first, k3_counts["coarsen_groups"], report, phase, step,
+            k3_name)
+    return lp
+
+
+def k3_held(torch, first, launches: int, report, phase: str, step: str,
+            k3_name: str) -> None:
+    """The first K3 launch of a run (``first``, as ``first_call_recorded``
+    keeps it) against its plain version, exactly, timed against its bound
+    and added to ``report`` as ``k3_name`` with the run's ``launches``."""
+    from repro_torch.kernels.aggregate import coarsen
+
     s_ci, s_cj, s_w = first["args"]
     sent = first["kwargs"]["sent"]
     want = coarsen.coarsen_groups_ref(s_ci, s_cj, s_w, sent=sent)
@@ -2717,11 +2756,9 @@ def louvain_checked(torch, ops, g, run, describe, key, report, phase: str,
         f"{total} slots ({int(got[0].sum())} groups); {k3_ms:.4f} ms "
         f"(plain {k3_plain:.4f} ms), "
         f"{k3_ms / (k3_bytes / HBM_BYTES_PER_S * 1e3):.3f}x its bound")
-    report.append(kernel_entry(k3_name,
-                               k3_counts["coarsen_groups"],
+    report.append(kernel_entry(k3_name, launches,
                                float((got[4] - want[4]).abs().max()),
                                k3_ms, k3_plain, k3_bytes, total))
-    return lp
 
 
 def phase_graph(torch, ops, args, dev, report):
@@ -3935,6 +3972,571 @@ def phase_recsys(torch, ops, args, dev, report):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the LM stack at full width.
+# ---------------------------------------------------------------------------
+
+#: H100 SXM data-sheet bf16 dense peak (tensor cores).
+BF16_OPS_PER_S = 989e12
+#: qwen2-1.5b's ``param_count()`` (the reference's: no biases, no norms).
+QWEN_PARAM_COUNT = 1_543_569_408
+#: (a) qwen2-1.5b train_4k: the batch (published 256, cut to one card),
+#: the float64 check's batch and length, AdamW steps and learning rate.
+LM_TRAIN_B = 4
+LM_CHECK_B, LM_CHECK_S = 1, 512
+LM_STEPS = 5
+LM_LR = 3e-4
+#: float32 against float64: the loss (relative) and each gradient tensor
+#: (of its largest entry).
+LM_LOSS_RTOL = 1e-5
+LM_GRAD_RTOL = 1e-4
+#: (b) prefill_32k at B 1 (published 32); the prefix whose last logits must
+#: equal the long run's at that position bit for bit: the two runs cut the
+#: queries into blocks of 512 and 4,096 rows, but both cut the keys into
+#: 512-wide blocks, so each query row meets the same KV blocks in the same
+#: order, and a masked future block adds exactly 0.
+LM_PREFILL_B = 1
+LM_PREFIX = 4096
+LM_PREFILL_CALLS = 3
+#: (c) decode: the prompt fed token by token and its float32 tolerance
+#: against ``forward``; int8 against bf16 (the reference's test's
+#: criteria); the timed batch (published 128) and steps.
+LM_PROMPT = 64
+LM_DECODE_TOL = 1e-4
+INT8_AGREE, INT8_DRIFT = 0.9, 0.08
+LM_DECODE_B = 32
+LM_DECODE_STEPS = 16
+#: (e) the other four LMs at published widths: (arch, pattern repeats,
+#: repeats of the train step).  gemma3 runs one 5:1 pattern (6 layers),
+#: the others 2 layers; mixtral and deepseek train at 1 layer, since 2 do
+#: not fit beside AdamW's float32 moments (mixtral's 2 layers: 5.3e9
+#: parameters, 63.6 GB of bf16 weights and gradients and float32 moments).
+LM_OTHERS = (("gemma3-12b", 1, 1), ("internlm2-20b", 2, 2),
+             ("mixtral-8x22b", 2, 1), ("deepseek-v2-236b", 2, 1))
+LM_OTHER_PROMPT = 32
+LM_OTHER_PREFILL = 8192
+LM_OTHER_DECODE_B = 16
+#: (f) the CLI's runs: (name, arguments); and the R-MAT scale of its
+#: louvain run.
+CLI_SCALE = 12
+CLI_RUNS = (("qwen2-1.5b", ["--arch", "qwen2-1.5b", "--steps", "20"]),
+            ("fm", ["--arch", "fm", "--steps", "20"]),
+            ("louvain", ["--arch", "louvain", "--graph", "rmat", "--scale",
+                         str(CLI_SCALE)]))
+
+
+def attention_flops(cfg, b: int, s: int) -> float:
+    """Forward FLOPs of causal attention over ``s`` positions (QK^T and PV,
+    2 per multiply-add), each layer's keys per query counted exactly: all
+    earlier positions, or at most its window."""
+    if cfg.mla is not None:
+        d_qk = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+        d_v = cfg.mla.v_head_dim
+    else:
+        d_qk = d_v = cfg.d_head
+    total = 0
+    for w in cfg.layer_windows:
+        if w is None or w >= s:
+            pairs = s * (s + 1) // 2
+        else:
+            pairs = w * (w + 1) // 2 + (s - w) * w
+        total += cfg.n_repeats * pairs
+    return 2.0 * b * total * cfg.n_heads * (d_qk + d_v)
+
+
+def lm_step_flops(cfg, b: int, s: int, kind: str) -> float:
+    """Model FLOPs: 2 N T a forward (N the active parameters) plus causal
+    attention; a train step is a forward, the rematerialised forward and a
+    backward of twice the forward."""
+    fwd = 2.0 * cfg.active_param_count() * b * s + attention_flops(cfg, b, s)
+    return 4 * fwd if kind == "train" else fwd
+
+
+def nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(nbytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def fill_cache(torch, cache, seed: int) -> None:
+    """A decode cache's positions drawn on the card from ``seed``: normal
+    keys and values, or int8 values in [-127, 127] with scales in [0,
+    0.05)."""
+    gen = None
+    for slot in cache["slots"]:
+        for name, x in slot.items():
+            if gen is None:
+                gen = torch.Generator(device=x.device).manual_seed(seed)
+            if x.dtype == torch.int8:
+                x.random_(-127, 128, generator=gen)
+            elif name in ("k_s", "v_s"):
+                x.uniform_(0.0, 0.05, generator=gen)
+            else:
+                x.normal_(generator=gen)
+
+
+def decode_plain_bytes(cfg, cache) -> int:
+    """A model, from the shapes alone, of the bytes the plain decode ops
+    move in its attention (no profiler or counter reads them): each layer reads its cache (every position, masked) and writes
+    a float32 copy; the einsum copies that into its (B, H, S, D) product
+    order (a read and a write) and the product reads it: the cache's bytes
+    plus 16 B an element."""
+    total = 0
+    for slot in cache["slots"]:
+        for x in slot.values():
+            total += x.numel() * (x.element_size() + 16)
+    return total
+
+
+def timed_s(torch, fn):
+    """(result, host seconds) of one call ending in a sync."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def peak_gib(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def lm_token_batch(torch, vocab: int, b: int, s: int, seed: int, dev):
+    from repro_torch.data.tokens import synthetic_token_batches
+    return next(synthetic_token_batches(vocab, b, s, seed=seed, device=dev))
+
+
+def decode_prompt(torch, cfg, params, tokens, dev):
+    """``forward``'s teacher-forced logits of ``tokens`` and the logits of
+    feeding them one at a time through ``decode_step`` from an empty
+    cache."""
+    from repro_torch.models import transformer as tf
+    b, s = tokens.shape
+    with torch.no_grad():
+        full = tf.forward(cfg, params, tokens)
+        cache = tf.init_cache(cfg, b, s, dev)
+        steps = [tf.decode_step(cfg, params, cache, tokens[:, i:i + 1],
+                                i)[0][:, 0] for i in range(s)]
+    return full, torch.stack(steps, 1)
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max())
+
+
+def lm_train_checks(torch, dev, args, nums):
+    """Phase 13 (a): qwen2-1.5b's train step at full width.  Returns the
+    float32 parameters (for (c)) and the bf16 ones."""
+    from repro_torch import ShardGroup
+    from repro_torch.configs.lm_common import LMTrainStep, build_lm_step
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.tokens import synthetic_token_batches
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = get_arch("qwen2-1.5b").full_config()
+    n_elems = sum(int(np.prod(s)) for s in
+                  tf.flat_params(tf.param_shapes(cfg)).values())
+    log("lm", f"qwen2-1.5b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, KV {cfg.n_kv_heads}, d_head {cfg.d_head}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied embeddings, QKV bias; "
+        f"{n_elems} parameter elements, param_count() {cfg.param_count()}")
+    require(cfg.param_count() == QWEN_PARAM_COUNT,
+            "qwen2-1.5b's param_count() is not the reference's")
+    nums["qwen_param_elements"] = n_elems
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    (p32, init_s) = timed_s(torch, lambda: tf.init_params(cfg32, args.seed,
+                                                          dev))
+    log("lm", f"(a) float32 weights drawn on the card in {init_s:.3f} s")
+
+    # 1. float32 against a float64 copy on the card.
+    check = lm_token_batch(torch, cfg.vocab, LM_CHECK_B, LM_CHECK_S,
+                           args.seed + 1, dev)
+    loss32, g32 = LMTrainStep(cfg32).loss_and_grads(p32, check)
+    cfg64 = dataclasses.replace(cfg, dtype="float64")
+    p64 = tf.nest_params({k: x.double() for k, x in
+                          tf.flat_params(p32).items()})
+    loss64, g64 = LMTrainStep(cfg64).loss_and_grads(p64, check)
+    loss_rel = abs(float(loss32) - float(loss64)) / abs(float(loss64))
+    grad_rel = grads_agree(g32, g64)
+    log("lm", f"(a) B {LM_CHECK_B}, S {LM_CHECK_S}: float32 loss "
+        f"{float(loss32):.6f} against float64 {float(loss64):.6f} (relative "
+        f"{loss_rel:.3e}); gradients within {grad_rel:.3e} of each tensor's "
+        f"largest entry")
+    require(loss_rel <= LM_LOSS_RTOL and grad_rel <= LM_GRAD_RTOL,
+            "qwen2-1.5b: float32 and float64 disagree")
+    nums.update(f64_loss_rel=loss_rel, f64_grad_rel=grad_rel)
+    del p64, g64, g32
+    torch.cuda.empty_cache()
+
+    # 2-4. bf16: two first steps bit for bit, 5 AdamW steps, time.
+    params = tf.nest_params({k: x.to(torch.bfloat16) for k, x in
+                             tf.flat_params(p32).items()})
+    seq = lm_seq("train_4k")
+    batches = synthetic_token_batches(cfg.vocab, LM_TRAIN_B, seq,
+                                      seed=args.seed + 2, device=dev)
+    b0 = next(batches)
+    step = build_lm_step(cfg, "train_4k", ShardGroup.single(dev),
+                         opt_cfg=AdamWConfig(lr=LM_LR, warmup_steps=1,
+                                             total_steps=LM_STEPS))
+    torch.cuda.reset_peak_memory_stats()
+    l1, g1 = step.loss_and_grads(params, b0)
+    l2, g2 = step.loss_and_grads(params, b0)
+    same = torch.equal(l1, l2) and all(torch.equal(g1[k], g2[k]) for k in g1)
+    log("lm", f"(a) two bf16 first steps at B {LM_TRAIN_B}, S {seq}: loss "
+        f"{float(l1):.6f}, bit for bit: {same}")
+    require(same, "two identical bf16 first steps differ")
+    del g1, g2
+    opt = adamw_init(tf.flat_params(params))
+    losses, secs = [], []
+    for i in range(LM_STEPS):
+        batch = b0 if i == 0 else next(batches)
+        (params, opt, loss), s = timed_s(torch, lambda: step(params, opt,
+                                                             batch))
+        losses.append(float(loss))
+        secs.append(s)
+    step_s = float(np.median(secs[1:]))
+    peak = peak_gib(torch)
+    flops = lm_step_flops(cfg, LM_TRAIN_B, seq, "train")
+    bound_s = flops / BF16_OPS_PER_S
+    log("lm", f"(a) {LM_STEPS} AdamW steps at lr {LM_LR}: losses {losses}; "
+        f"seconds {secs}: {step_s:.4f} s a step (median after the first), "
+        f"{LM_TRAIN_B * seq / step_s:.1f} tokens/s; peak {peak:.2f} GiB; "
+        f"{flops:.4e} model FLOPs, bound {bound_s:.4f} s at the bf16 peak "
+        f"({step_s / bound_s:.2f}x)")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"qwen2-1.5b: losses {losses} not finite and falling")
+    batch = next(batches)
+    wall, n_ops, busy, top = device_profile(
+        torch, lambda: step(params, opt, batch))
+    log("lm", f"(a) one profiled step: {n_ops} device operations, busy "
+        f"{busy:.2f} ms of {wall:.2f} ms (idle {1 - busy / wall:.3f}); top "
+        f"{top}")
+    nums.update(train_step_s=step_s, train_tokens_per_s=LM_TRAIN_B * seq
+                / step_s, train_peak_gib=peak, train_flops=flops,
+                train_bound_s=bound_s, train_busy_ms=busy,
+                train_idle=1 - busy / wall)
+    del opt, batch, batches
+    torch.cuda.empty_cache()
+    return cfg, p32, params
+
+
+def lm_seq(shape: str) -> int:
+    """The sequence length of an LM shape (``lm_common.LM_SHAPES``)."""
+    from repro_torch.configs.lm_common import LM_SHAPES
+    return LM_SHAPES[shape][0]
+
+
+def lm_prefill_checks(torch, dev, args, cfg, params, nums):
+    """Phase 13 (b): prefill_32k, and the causal prefix."""
+    from repro_torch import ShardGroup
+    from repro_torch.configs.lm_common import build_lm_step
+    from repro_torch.models import transformer as tf
+
+    seq = lm_seq("prefill_32k")
+    tokens = lm_token_batch(torch, cfg.vocab, LM_PREFILL_B, seq,
+                            args.seed + 3, dev)["tokens"]
+    pre = build_lm_step(cfg, "prefill_32k", ShardGroup.single(dev))
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(LM_PREFILL_CALLS):
+        last, s = timed_s(torch, lambda: pre(params, {"tokens": tokens}))
+        secs.append(s)
+    peak = peak_gib(torch)
+    pre_s = float(np.median(secs))
+    flops = lm_step_flops(cfg, LM_PREFILL_B, seq, "prefill")
+    bound_s = flops / BF16_OPS_PER_S
+    require(bool(torch.isfinite(last).all()), "prefill logits not finite")
+    log("lm", f"(b) prefill at B {LM_PREFILL_B}, S {seq}: seconds {secs}, "
+        f"median {pre_s:.4f} s ({LM_PREFILL_B * seq / pre_s:.1f} tokens/s); "
+        f"peak {peak:.2f} GiB; {flops:.4e} model FLOPs, bound "
+        f"{bound_s:.4f} s ({pre_s / bound_s:.2f}x)")
+    with torch.no_grad():
+        at = tf.forward(cfg, params, tokens)[:, LM_PREFIX - 1]
+    prefix = pre(params, {"tokens": tokens[:, :LM_PREFIX]})
+    err = rel_err(prefix, at)
+    log("lm", f"(b) the last logits of a {LM_PREFIX}-token prefill against "
+        f"position {LM_PREFIX - 1} of the {seq}-token forward: within "
+        f"{err:.3e} of the largest logit; argmax equal "
+        f"{bool((prefix.argmax(-1) == at.argmax(-1)).all())}")
+    require(torch.equal(prefix, at), "the prefill is not causal")
+    nums.update(prefill_s=pre_s, prefill_peak_gib=peak,
+                prefill_flops=flops, prefill_bound_s=bound_s,
+                prefix_err=err)
+    del at, prefix, last
+    torch.cuda.empty_cache()
+
+
+def lm_decode_timed(torch, dev, args, cfg, params, b: int, max_len: int,
+                    steps: int, variant=(), profile=False):
+    """``steps`` decode steps of ``cfg`` through ``build_lm_step`` at batch
+    ``b`` against a ``max_len`` cache filled from the seed, from position
+    ``max_len - 64``: (median seconds a step, peak GiB, cache bytes,
+    modelled plain-op bytes, profile or None)."""
+    from repro_torch import ShardGroup
+    from repro_torch.configs.lm_common import build_lm_step
+    from repro_torch.models import transformer as tf
+
+    if "int8_kv" in variant:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    torch.cuda.reset_peak_memory_stats()
+    cache = tf.init_cache(cfg, b, max_len, dev)
+    fill_cache(torch, cache, args.seed + 5)
+    step = build_lm_step(cfg, "decode_32k", ShardGroup.single(dev),
+                         variant=variant)
+    toks = lm_token_batch(torch, cfg.vocab, b, steps, args.seed + 6,
+                          dev)["tokens"]
+    start = max_len - 64
+    secs = []
+    for i in range(steps):
+        (logits, _), s = timed_s(torch, lambda: step(
+            params, cache, {"tokens": toks[:, i:i + 1],
+                            "cache_len": torch.tensor(start + i,
+                                                      dtype=torch.int32,
+                                                      device=dev)}))
+        secs.append(s)
+    require(bool(torch.isfinite(logits).all()),
+            f"{cfg.name}: decode logits not finite")
+    peak = peak_gib(torch)
+    prof = None
+    if profile:
+        prof = device_profile(torch, lambda: step(
+            params, cache, {"tokens": toks[:, :1], "cache_len": start}))
+    out = (float(np.median(secs[1:] if steps > 1 else secs)), peak,
+           nbytes(cache), decode_plain_bytes(cfg, cache), prof)
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_decode_checks(torch, dev, args, cfg, p32, params, nums):
+    """Phase 13 (c): decode against forward in float32, the int8 cache
+    against bf16, and timed steps at B 32 against a 32,768-position cache,
+    beside the bytes-once bound."""
+    toks = lm_token_batch(torch, cfg.vocab, 2, LM_PROMPT, args.seed + 4,
+                          dev)["tokens"]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    full, got = decode_prompt(torch, cfg32, p32, toks, dev)
+    err = rel_err(got, full)
+    log("lm", f"(c) float32: {LM_PROMPT} tokens through decode_step from an "
+        f"empty cache against forward's teacher-forced logits: within "
+        f"{err:.3e} of the largest")
+    require(err <= LM_DECODE_TOL, "qwen2-1.5b: decode differs from forward")
+    nums["decode_f32_err"] = err
+    del full, got
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    full, bf = decode_prompt(torch, cfg, params, toks, dev)
+    _, q8 = decode_prompt(torch, cfg8, params, toks, dev)
+    agree = float((bf.argmax(-1) == q8.argmax(-1)).float().mean())
+    drift = float((bf - q8).abs().max() / max(float(bf.abs().max()), 1.0))
+    log("lm", f"(c) bf16 model, int8 cache against bf16 cache on the same "
+        f"{LM_PROMPT} tokens: argmax agreement {agree:.4f}, drift "
+        f"{drift:.4e} of the largest logit; bf16 decode against forward "
+        f"within {rel_err(bf, full):.3e}")
+    require(agree >= INT8_AGREE and drift < INT8_DRIFT,
+            "the int8 cache strays from the bf16 cache")
+    nums.update(int8_agree=agree, int8_drift=drift)
+    del full, bf, q8
+    seq = lm_seq("decode_32k")
+    param_bytes = nbytes(params)
+    for variant in ((), ("int8_kv",)):
+        step_s, peak, cache_b, plain_b, prof = lm_decode_timed(
+            torch, dev, args, cfg, params, LM_DECODE_B, seq,
+            LM_DECODE_STEPS, variant, profile=True)
+        bound_ms = (cache_b + param_bytes) / HBM_BYTES_PER_S * 1e3
+        wall, n_ops, busy, top = prof
+        tag = "int8" if variant else "bf16"
+        log("lm", f"(c) {tag} cache: B {LM_DECODE_B}, {seq} positions from "
+            f"cache_len {seq - 64}: {step_s * 1e3:.3f} ms a step (median "
+            f"of {LM_DECODE_STEPS - 1} after the first), "
+            f"{LM_DECODE_B / step_s:.1f} tokens/s, peak {peak:.2f} GiB; "
+            f"bytes once {cache_b + param_bytes} (cache {cache_b}, weights "
+            f"{param_bytes}): bound {bound_ms:.3f} ms "
+            f"({step_s * 1e3 / bound_ms:.2f}x); the plain ops' bytes by "
+            f"a model from the shapes (not measured) ~"
+            f"{plain_b + param_bytes}; profiled step: {n_ops} device "
+            f"operations, busy {busy:.2f} of {wall:.2f} ms (idle "
+            f"{1 - busy / wall:.3f}); top {top}")
+        nums.update({f"decode_{tag}_ms": step_s * 1e3,
+                     f"decode_{tag}_peak_gib": peak,
+                     f"decode_{tag}_bound_ms": bound_ms,
+                     f"decode_{tag}_plain_bytes_model":
+                     plain_b + param_bytes,
+                     f"decode_{tag}_idle": 1 - busy / wall})
+
+
+def lm_other_checks(torch, dev, args, nums):
+    """Phase 13 (e): gemma3, internlm2, mixtral and deepseek at published
+    widths and reduced depth."""
+    from repro_torch import ShardGroup
+    from repro_torch.configs.lm_common import build_lm_step
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update_
+
+    group = ShardGroup.single(dev)
+    for aid, n_rep, n_train in LM_OTHERS:
+        arch = get_arch(aid)
+        cfg = arch.config(n_repeats=n_rep)
+        # (i) float32 decode against forward, no MoE token dropped:
+        # capacity = tokens x top_k.
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        if cfg.moe is not None:
+            cfg32 = dataclasses.replace(cfg32, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+        p32 = tf.init_params(cfg32, args.seed, dev)
+        toks = lm_token_batch(torch, cfg.vocab, 1, LM_OTHER_PROMPT,
+                              args.seed + 7, dev)["tokens"]
+        full, got = decode_prompt(torch, cfg32, p32, toks, dev)
+        err = rel_err(got, full)
+        log("lm", f"(e) {aid}: {cfg.n_layers} layers (published "
+            f"{arch.full_config().n_layers}), d_model {cfg.d_model}, vocab "
+            f"{cfg.vocab}, {cfg.param_count()} parameters; float32 decode of "
+            f"{LM_OTHER_PROMPT} tokens against forward within {err:.3e}"
+            + (f" (capacity_factor {cfg32.moe.capacity_factor}: no drops)"
+               if cfg.moe is not None else ""))
+        require(err <= LM_DECODE_TOL, f"{aid}: decode differs from forward")
+        params = tf.nest_params({k: x.to(torch.bfloat16) for k, x in
+                                 tf.flat_params(p32).items()})
+        del p32, full, got
+        torch.cuda.empty_cache()
+        # (iii) prefill at S 8192, then one decode step at decode_32k and
+        # at long_500k.
+        ptoks = lm_token_batch(torch, cfg.vocab, 1, LM_OTHER_PREFILL,
+                               args.seed + 8, dev)["tokens"]
+        pre = build_lm_step(cfg, "prefill_32k", group)
+        torch.cuda.reset_peak_memory_stats()
+        secs = [timed_s(torch, lambda: pre(params, {"tokens": ptoks}))[1]
+                for _ in range(2)]
+        pre_peak = peak_gib(torch)
+        rec = {"prefill_s": secs[-1], "prefill_peak_gib": pre_peak}
+        msg = (f"(e) {aid}: bf16 prefill at S {LM_OTHER_PREFILL}, B 1: "
+               f"{secs} s, peak {pre_peak:.2f} GiB")
+        shapes = [("decode_32k", LM_OTHER_DECODE_B)]
+        if "long_500k" in arch.shapes:
+            shapes.append(("long_500k", 1))
+        for shape, b in shapes:
+            seq = lm_seq(shape)
+            step_s, peak, cache_b, _, _ = lm_decode_timed(
+                torch, dev, args, cfg, params, b, seq, 2)
+            bound_ms = (cache_b + nbytes(params)) / HBM_BYTES_PER_S * 1e3
+            msg += (f"; {shape} at B {b}: {step_s * 1e3:.3f} ms a step, "
+                    f"peak {peak:.2f} GiB, bytes-once bound {bound_ms:.3f} "
+                    f"ms")
+            rec[f"{shape}_ms"] = step_s * 1e3
+            rec[f"{shape}_peak_gib"] = peak
+        log("lm", msg)
+        # (ii) one bf16 train step at S 4096, B 1: the step's loss and
+        # gradients, then its AdamW update in place.  A first step's
+        # moments are zeros; they are allocated after the backward, beside
+        # the gradients, so the backward's activations do not meet them.
+        cfg_t = arch.config(n_repeats=n_train)
+        p_t = tf.nest_params({k: x[:n_train].clone() if k.startswith(
+            "layers.") else x for k, x in tf.flat_params(params).items()})
+        del params
+        torch.cuda.empty_cache()
+        seq = lm_seq("train_4k")
+        batch = lm_token_batch(torch, cfg.vocab, 1, seq, args.seed + 9, dev)
+        step = build_lm_step(cfg_t, "train_4k", group,
+                             opt_cfg=AdamWConfig(lr=LM_LR, warmup_steps=1))
+        torch.cuda.reset_peak_memory_stats()
+        (loss, grads), s_grad = timed_s(
+            torch, lambda: step.loss_and_grads(p_t, batch))
+        finite = bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in grads.values())
+        flat = tf.flat_params(p_t)
+        opt = adamw_init(flat)
+        _, s_opt = timed_s(torch, lambda: adamw_update_(step.opt_cfg, flat,
+                                                        grads, opt))
+        s = s_grad + s_opt
+        peak = peak_gib(torch)
+        finite = finite and all(bool(torch.isfinite(x).all())
+                                for x in flat.values())
+        log("lm", f"(e) {aid}: one bf16 train step at {cfg_t.n_layers} "
+            f"layer(s), S {seq}, B 1: loss {float(loss):.6f}, {s:.4f} s "
+            f"(first call: loss and gradients {s_grad:.4f} s, AdamW "
+            f"{s_opt:.4f} s), peak {peak:.2f} GiB; loss, gradients and "
+            f"updated weights finite: {finite}")
+        require(finite, f"{aid}: the train step is not finite")
+        rec.update(train_s=s, train_peak_gib=peak, train_layers=n_train,
+                   f32_decode_err=err)
+        nums[aid] = rec
+        del p_t, flat, grads, opt, step
+        torch.cuda.empty_cache()
+
+
+def lm_cli_checks(torch, dev, report, nums):
+    """Phase 13 (f): ``python -m repro_torch.launch.train`` on the card in
+    subprocesses (started together), and its louvain run against the CLI's
+    own ``run_louvain`` in process, whose K3 launches are counted from 0
+    and whose first K3 launch is held against the plain version."""
+    from repro_torch.core import aggregate
+    from repro_torch.kernels.aggregate import coarsen
+    from repro_torch.launch.train import run_louvain
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    procs = {}
+    try:
+        for name, argv in CLI_RUNS:
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.train", *argv],
+                cwd=HERE, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        outs = {}
+        for name, p in procs.items():
+            out, err = p.communicate(timeout=600)
+            require(p.returncode == 0,
+                    f"the CLI's {name} run failed: {err[-2000:]}")
+            outs[name] = json.loads(out)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name in ("qwen2-1.5b", "fm"):
+        o = outs[name]
+        log("lm", f"(f) CLI --arch {name}: {json.dumps(o)}")
+        require(np.isfinite(o["loss_last"]) and o["loss_last"]
+                < o["loss_first"], f"the CLI's {name} loss did not fall")
+    o = outs["louvain"]
+    log("lm", f"(f) CLI --arch louvain: {json.dumps(o)}")
+    coarsen.coarsen_groups.launches = 0
+    with first_call_recorded(aggregate, "coarsen_groups") as first:
+        mine = run_louvain("rmat", CLI_SCALE, dev)
+    torch.cuda.synchronize()
+    launches = coarsen.coarsen_groups.launches
+    log("lm", f"(f) run_louvain('rmat', {CLI_SCALE}) in process: "
+        f"{json.dumps(mine)}; K3 launches {launches}")
+    require(launches > 0, "(f) the CLI's louvain run never launched K3")
+    require(all(o[k] == mine[k] for k in ("n", "e", "n_communities",
+                                          "passes"))
+            and abs(o["modularity"] - mine["modularity"]) <= 1e-6,
+            "the CLI's louvain run differs from run_louvain in process")
+    k3_held(torch, first[None], launches, report, "lm", "(f) cli",
+            "coarsen_groups_cli")
+    nums["cli"] = {k: outs[k]["seconds"] for k in outs}
+
+
+def phase_lm(torch, args, dev, report):
+    """Phase 13: the LM stack at full width (qwen2-1.5b train, prefill and
+    decode; the four other LMs at reduced depth) and the training CLI."""
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "TF32 matmuls are on: the float64 checks assume float32 GEMMs")
+    nums = {}
+    cfg, p32, params = lm_train_checks(torch, dev, args, nums)
+    lm_prefill_checks(torch, dev, args, cfg, params, nums)
+    lm_decode_checks(torch, dev, args, cfg, p32, params, nums)
+    del p32, params
+    torch.cuda.empty_cache()
+    lm_other_checks(torch, dev, args, nums)
+    lm_cli_checks(torch, dev, report, nums)
+    log("lm", "LM summary " + json.dumps(nums))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22,
@@ -3946,8 +4548,8 @@ def main() -> int:
     ap.add_argument("--sharded-scale", type=int, default=18,
                     help="R-MAT scale of phase 7's staged gloo ranks")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of phases 10-12's graphs, features and "
-                         "batches")
+                    help="seed of phases 10-13's graphs, features, "
+                         "weights, tokens and batches")
     args = ap.parse_args()
 
     import torch
@@ -3992,7 +4594,8 @@ def main() -> int:
                          ("geometric", lambda: phase_geometric(
                              torch, ops, args, dev, report)),
                          ("recsys", lambda: phase_recsys(
-                             torch, ops, args, dev, report))):
+                             torch, ops, args, dev, report)),
+                         ("lm", lambda: phase_lm(torch, args, dev, report))):
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize()

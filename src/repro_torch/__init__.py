@@ -14,10 +14,12 @@ bulk scoring and retrieval, the table split by rows over a
 subpackage: ``train.train``, ``TrainLoopConfig``; the name stays the
 subpackage's, so ``import repro_torch.train.loop`` works) with its
 checkpoints (``save_checkpoint`` / ``restore_checkpoint``) and gradient
-compression, and the NumPy LFR and powerlaw-cluster generators, with the
-ELL move kernels (K1, K2), the aggregation kernel (K3) and the
-batch-apply kernel (K4) hand-written in CUDA for Hopper
-(``repro_torch/csrc``).
+compression, the NumPy LFR and powerlaw-cluster generators, and the
+five decoder LMs (``configs.registry``, ``models.transformer``: train,
+prefill and decode on one rank) with the training launcher
+``python -m repro_torch.launch.train``, with the ELL move kernels (K1,
+K2), the aggregation kernel (K3) and the batch-apply kernel (K4)
+hand-written in CUDA for Hopper (``repro_torch/csrc``).
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); on a CPU tensor every kernel wrapper runs its plain

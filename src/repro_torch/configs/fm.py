@@ -218,7 +218,9 @@ def build_fm_step(cfg: recsys.FMConfig, shape: str, group: ShardGroup,
 @dataclasses.dataclass(frozen=True)
 class FMArch:
     arch_id: str = "fm"
+    family: str = "recsys"
     shapes: Tuple[str, ...] = tuple(FM_SHAPES)
+    skip_notes: Dict[str, str] = dataclasses.field(default_factory=dict)
 
     def full_config(self) -> recsys.FMConfig:
         return full_config()

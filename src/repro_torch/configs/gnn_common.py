@@ -330,6 +330,9 @@ class GNNArch:
     make_loss: Callable[[object, GNNShape, str], Callable]
     #: (cfg, seed, device) -> the model.
     make_model: Callable[[object, int, object], torch.nn.Module]
+    shapes: Tuple[str, ...] = tuple(GNN_SHAPES)
+    family: str = "gnn"
+    skip_notes: Dict[str, str] = dataclasses.field(default_factory=dict)
     # Per-shape-kind override, e.g. GIN classifies graphs on `molecule`.
     label_kind_overrides: Dict[str, str] = dataclasses.field(
         default_factory=dict)

@@ -126,3 +126,36 @@ def adamw_state_from_numpy(arch_id: str, step, mu, nu, device="cuda"):
     return AdamWState(
         step=torch.tensor(int(step), dtype=torch.int32, device=dev),
         mu=convert(mu), nu=convert(nu))
+
+
+
+def lm_params_from_numpy(tree, device="cuda", dtype=torch.float32) -> dict:
+    """An LM parameter tree of the port (``models.transformer``) from the
+    reference's ``{"embed", "final_ln", "layers": [{name: (n_repeats, ...)}
+    ...], "lm_head"?}`` as numpy, cast to ``dtype`` (the config's
+    activation type).  bfloat16 travels as float32 numpy
+    (``np.asarray(x.astype(jnp.float32))``) and is cast back exactly.  The
+    same call converts a gradient tree."""
+    dev = resolve_device(device)
+
+    def put(x):
+        return torch.from_numpy(np.array(x, np.float32)).to(dev, dtype)
+
+    out = {k: put(x) for k, x in tree.items() if k != "layers"}
+    out["layers"] = [{k: put(x) for k, x in slot.items()}
+                     for slot in tree["layers"]]
+    return out
+
+
+def lm_cache_from_numpy(tree, device="cuda", dtype=torch.float32) -> dict:
+    """An LM cache tree ``{"slots": [{name: (n_repeats, B, S, ...)}]}`` of
+    the port from the reference's as numpy: the int8 values (``k_q``,
+    ``v_q``) stay int8 and their scales (``k_s``, ``v_s``) float32; ``k``,
+    ``v``, ``c_kv`` and ``k_rope`` take ``dtype`` (as float32 numpy, like
+    the parameters)."""
+    from repro_torch.models.transformer import cache_leaf_dtype
+    dev = resolve_device(device)
+    return {"slots": [
+        {name: torch.from_numpy(np.array(x)).to(
+            dev, cache_leaf_dtype(name, dtype)) for name, x in slot.items()}
+        for slot in tree["slots"]]}

@@ -83,28 +83,77 @@ def adamw_update(cfg: AdamWConfig, params: Params, grads, state: AdamWState,
     named = _named(params)
     gnorm = (global_norm([grads[k] for k in named]) if grad_norm is None
              else grad_norm)
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
-                        max=1.0)
-    step = state.step + 1
-    lr = _schedule(cfg, step)
-    b1, b2 = cfg.beta1, cfg.beta2
-    sf = step.to(torch.float32)
-    one = torch.ones((), dtype=torch.float32, device=sf.device)
-    bc1 = 1 - torch.pow(one * b1, sf)
-    bc2 = 1 - torch.pow(one * b2, sf)
-
+    scale = _clip_scale(cfg, gnorm)
+    step, lr, bc1, bc2 = _step_scalars(cfg, state)
     new_p, new_mu, new_nu = {}, {}, {}
     for k, p in named.items():
-        p = p.detach()
-        g = grads[k].to(torch.float32) * scale
-        mu = b1 * state.mu[k] + (1 - b1) * g
-        nu = b2 * state.nu[k] + (1 - b2) * g * g
-        step_v = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
-        pf = p.to(torch.float32)
-        new_p[k] = (pf - lr * (step_v + cfg.weight_decay * pf)).to(p.dtype)
-        new_mu[k], new_nu[k] = mu, nu
+        new_p[k], new_mu[k], new_nu[k] = _leaf_update(
+            cfg, p.detach(), grads[k], state.mu[k], state.nu[k], scale, lr,
+            bc1, bc2)
     return new_p, AdamWState(step, new_mu, new_nu), {"grad_norm": gnorm,
                                                      "lr": lr}
+
+
+def _clip_scale(cfg: AdamWConfig, gnorm: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+
+
+def _step_scalars(cfg: AdamWConfig, state: AdamWState):
+    """(step, lr, bias corrections 1 and 2) of the step after ``state``,
+    as 0-d tensors."""
+    step = state.step + 1
+    lr = _schedule(cfg, step)
+    sf = step.to(torch.float32)
+    one = torch.ones((), dtype=torch.float32, device=sf.device)
+    bc1 = 1 - torch.pow(one * cfg.beta1, sf)
+    bc2 = 1 - torch.pow(one * cfg.beta2, sf)
+    return step, lr, bc1, bc2
+
+
+def _leaf_update(cfg: AdamWConfig, p, g, mu, nu, scale, lr, bc1, bc2):
+    """One tensor's (or one chunk's) step, elementwise in float32: the new
+    parameter in ``p``'s type and the new moments."""
+    b1, b2 = cfg.beta1, cfg.beta2
+    g = g.to(torch.float32) * scale
+    mu = b1 * mu + (1 - b1) * g
+    nu = b2 * nu + (1 - b2) * g * g
+    step_v = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
+    pf = p.to(torch.float32)
+    return (pf - lr * (step_v + cfg.weight_decay * pf)).to(p.dtype), mu, nu
+
+
+#: Elements a chunk of ``adamw_update_``: its float32 temporaries stay near
+#: 256 MB each whatever the tensor's size.
+CHUNK = 1 << 26
+
+
+@torch.no_grad()
+def adamw_update_(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
+                  grads, state: AdamWState,
+                  grad_norm: Optional[torch.Tensor] = None):
+    """``adamw_update`` written in place into ``params`` (a dict of
+    tensors) and into ``state``'s moments, ``CHUNK`` elements at a time, so
+    the step needs no second copy of the parameters or the moments.  The
+    arithmetic is ``adamw_update``'s, elementwise, so the bits are its.
+    Returns ``(new_state, metrics)``; the new state holds the same moment
+    tensors."""
+    gnorm = (global_norm([grads[k] for k in params]) if grad_norm is None
+             else grad_norm)
+    scale = _clip_scale(cfg, gnorm)
+    step, lr, bc1, bc2 = _step_scalars(cfg, state)
+    for k, p in params.items():
+        # view(-1) refuses a non-contiguous tensor, whose reshape would be
+        # a copy that the writes below never reach.
+        flat = [p.view(-1), grads[k].reshape(-1), state.mu[k].view(-1),
+                state.nu[k].view(-1)]
+        for lo in range(0, p.numel(), CHUNK):
+            p_c, g_c, mu_c, nu_c = (x[lo:lo + CHUNK] for x in flat)
+            new = _leaf_update(cfg, p_c, g_c, mu_c, nu_c, scale, lr, bc1,
+                               bc2)
+            for dst, src in zip((p_c, mu_c, nu_c), new):
+                dst.copy_(src)
+    return AdamWState(step, state.mu, state.nu), {"grad_norm": gnorm,
+                                                  "lr": lr}
 
 
 def adamw_apply(cfg: AdamWConfig, module: torch.nn.Module, grads,

@@ -13,7 +13,9 @@ its goldens through NCCL, the whale and fallback paths against the solo
 driver, and K4 over a bucket's flat, lane-keyed slot list; the graph
 workloads: the partitioner, the GNN steps on the card against the CPU
 (Equiformer-v2 and DimeNet included), the Wigner-D blocks at l_max 6 and
-the GIN and Equiformer halo steps through NCCL.
+the GIN and Equiformer halo steps through NCCL; and the LM stack: each
+smoke LM's decode against its teacher-forced forward, and a train step
+against the CPU's.
 
 Every test here is marked ``gpu`` and skips without a card (the decision is
 made inside the ``cuda`` fixture, never at import).  The machine with the
@@ -1426,3 +1428,69 @@ def test_louvain_on_the_generated_graphs_on_the_card(cuda):
             got = louvain(make(cuda), cfg).membership
             want = louvain(make("cpu"), cfg).membership
             np.testing.assert_array_equal(got, want)
+
+
+LM_ARCH_IDS = ["gemma3-12b", "qwen2-1.5b", "internlm2-20b", "mixtral-8x22b",
+               "deepseek-v2-236b"]
+
+
+def _lm_no_drop(cfg):
+    """``cfg`` with a capacity factor at which no MoE token drops (capacity
+    = tokens x top_k), so the prefill and the decode routers agree."""
+    import dataclasses
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+
+
+@pytest.mark.parametrize("arch_id", LM_ARCH_IDS)
+def test_lm_decode_on_the_card_equals_forward(cuda, arch_id):
+    """Each smoke LM in float32 on the card: 12 tokens fed one at a time by
+    ``decode_step`` from an empty cache give ``forward``'s teacher-forced
+    logits within 1e-4 of their largest entry."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as tf
+    cfg = _lm_no_drop(get_arch(arch_id).smoke_config())
+    params = tf.init_params(cfg, seed=1, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 12), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(2))
+    full = tf.forward(cfg, params, toks)
+    cache = tf.init_cache(cfg, 2, 12, cuda)
+    steps = [tf.decode_step(cfg, params, cache, toks[:, i:i + 1], i)[0][:, 0]
+             for i in range(12)]
+    got = torch.stack(steps, 1)
+    torch.testing.assert_close(got, full, rtol=0,
+                               atol=1e-4 * float(full.abs().max()))
+
+
+@pytest.mark.parametrize("arch_id", ["qwen2-1.5b", "deepseek-v2-236b"])
+def test_lm_train_step_on_the_card_equals_the_cpu(cuda, arch_id):
+    """One train step of the smoke LM on the card and on the CPU from the
+    same weights: loss within 1e-5 relative, every gradient within 1e-5 of
+    its largest entry, and the same bits on a second call on the card."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.models import transformer as tf
+    arch = get_arch(arch_id)
+    cfg = arch.smoke_config()
+    params = tf.init_params(cfg, seed=0, device="cpu")
+    batch = next(synthetic_token_batches(cfg.vocab, 2, 64, device="cpu"))
+    out = {}
+    for dev in ("cpu", cuda, cuda):
+        step = arch.build_step("train_4k", ShardGroup.single(dev), smoke=True)
+        p = tf.nest_params({k: x.to(dev) for k, x in
+                            tf.flat_params(params).items()})
+        loss, grads = step.loss_and_grads(
+            p, {k: v.to(dev) for k, v in batch.items()})
+        if str(dev) in out:
+            assert torch.equal(loss, out[str(dev)][0])
+            assert all(torch.equal(g, out[str(dev)][1][k])
+                       for k, g in grads.items())
+        out[str(dev)] = (loss, grads)
+    loss, grads = out[str(cuda)]
+    want_loss, want = out["cpu"]
+    assert float(loss) == pytest.approx(float(want_loss), rel=1e-5)
+    for k, w in want.items():
+        torch.testing.assert_close(grads[k].cpu(), w, rtol=0,
+                                   atol=1e-5 * float(w.abs().max()))

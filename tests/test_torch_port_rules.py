@@ -68,7 +68,14 @@ def test_no_forbidden_import_anywhere_in_the_port():
                    "configs/dimenet_cfg.py", "data/recsys.py",
                    "models/recsys.py", "configs/fm.py",
                    "optim/compression.py", "train/checkpoint.py",
-                   "train/loop.py", "data/graphs.py", "interop.py"):
+                   "train/loop.py", "data/graphs.py", "interop.py",
+                   "models/layers.py", "models/moe.py", "models/mla.py",
+                   "models/transformer.py", "data/tokens.py",
+                   "configs/lm_common.py", "configs/qwen2_1p5b.py",
+                   "configs/internlm2_20b.py", "configs/gemma3_12b.py",
+                   "configs/mixtral_8x22b.py",
+                   "configs/deepseek_v2_236b.py", "configs/registry.py",
+                   "launch/__init__.py", "launch/train.py"):
         assert os.path.join(PORT_DIR, module) in files
     files.append(os.path.join(os.path.dirname(SRC_DIR), "chip_smoke.py"))
     for path in files:
@@ -236,6 +243,36 @@ def test_recsys_and_training_entry_points_need_a_card_unless_asked_for_the_cpu(
     g, comm = lfr_graph(200, device="cpu")
     assert g.device.type == "cpu" and comm.shape == (200,)
     assert powerlaw_cluster(50, 2, 0.3, device="cpu").device.type == "cpu"
+
+
+def test_lm_entry_points_need_a_card_unless_asked_for_the_cpu():
+    """The LM's weights, caches, token batches and converters
+    default to the card and raise without one; asked for the CPU, the
+    registry's train step runs there."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.interop import lm_cache_from_numpy, lm_params_from_numpy
+    from repro_torch.models import mla, transformer as tf
+    from repro_torch.optim import adamw_init
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    arch = get_arch("deepseek-v2-236b")
+    cfg = arch.smoke_config()
+    for call in (lambda: tf.init_params(cfg),
+                 lambda: tf.init_cache(cfg, 1, 4),
+                 lambda: mla.mla_init(cfg.mla, 8, 2),
+                 lambda: synthetic_token_batches(16, 2, 4),
+                 lambda: lm_params_from_numpy({"layers": []}),
+                 lambda: lm_cache_from_numpy({"slots": []})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    params = tf.init_params(cfg, device="cpu")
+    batch = next(synthetic_token_batches(cfg.vocab, 2, 16, device="cpu"))
+    step = arch.build_step("train_4k", ShardGroup.single("cpu"), smoke=True)
+    params, opt, loss = step(params, adamw_init(tf.flat_params(params)),
+                             batch)
+    assert loss.device.type == "cpu" and bool(torch.isfinite(loss))
+    assert all(x.device.type == "cpu" for x in tf.flat_params(params).values())
 
 
 def test_config_keeps_the_reference_fields_and_defaults():
