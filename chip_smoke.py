@@ -178,7 +178,26 @@ each timed; any failure exits non-zero:
      (f) ``python -m repro_torch.launch.train`` in subprocesses: qwen2-1.5b
      and fm for 20 steps (falling loss) and ``--arch louvain`` on R-MAT
      scale 12, equal to an in-process ``louvain()`` whose K1/K3 launches
-     are held against their plain versions (``louvain_checked``).
+     are held against their plain versions (``louvain_checked``);
+ 14. LM sharding over a (data, model) grid of ranks (no kernel on this
+     path): (a) a 1 x 1 grid over one NCCL rank equal to
+     ``ShardGroup.single`` bit for bit (qwen2-1.5b bf16 at full width, 2
+     layers: a train step with one AdamW step, a prefill, a decode
+     step); (b) 4 gloo ranks on the one card as a (2, 2) grid, qwen2-1.5b
+     at full width and 2 layers in float32 against one rank: a train
+     step (loss within 1e-5, gradients within 1e-4 of each tensor's
+     largest entry), ``sharded_ce`` on labels 30% ignored (and its
+     identity with the dense loss), the prefill's last logits (B 4, S
+     1,024), decode at B 4 against a 32,768-position cache split over
+     ``model`` and at B 1 against a 524,288-position cache split over all
+     4 ranks, each from the cache's last two positions (logits within
+     1e-4), then a bf16 train step timed (seconds, tokens/s, peak memory
+     and staged bytes per rank); (c) mixtral-8x22b and deepseek-v2-236b
+     at full width and 1 layer in float32, experts split over ``model``
+     (4 and 80 a rank): prefill at B 2, S 4,096 and decode (the
+     ``tp_only_params`` layout) against one rank, a bf16 mixtral train
+     step timed, and the mixtral smoke config's train step against one
+     rank.
 
 Cut for time: phase 4's Leiden route through K2 (its ``ell_leiden__sbm``
 golden through K2 stays in phase 3), and phase 6's solo comparison to the
@@ -195,6 +214,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -4016,6 +4036,13 @@ LM_OTHERS = (("gemma3-12b", 1, 1), ("internlm2-20b", 2, 2),
 LM_OTHER_PROMPT = 32
 LM_OTHER_PREFILL = 8192
 LM_OTHER_DECODE_B = 16
+#: (d) the one-rank step without a grid against the same step over a 1 x 1
+#: grid: the train and decode calls of each path, taken in the order
+#: plain, grid, grid, plain (decode: that order over each two positions),
+#: and the grid's prefill calls beside (b)'s.
+LM_PAIR_TRAIN = 2
+LM_PAIR_DECODE = 8
+LM_PAIR_PREFILL = 2
 #: (f) the CLI's runs: (name, arguments); and the R-MAT scale of its
 #: louvain run.
 CLI_SCALE = 12
@@ -4267,8 +4294,9 @@ def lm_prefill_checks(torch, dev, args, cfg, params, nums):
     nums.update(prefill_s=pre_s, prefill_peak_gib=peak,
                 prefill_flops=flops, prefill_bound_s=bound_s,
                 prefix_err=err)
-    del at, prefix, last
+    del at, prefix
     torch.cuda.empty_cache()
+    return tokens, last
 
 
 def lm_decode_timed(torch, dev, args, cfg, params, b: int, max_len: int,
@@ -4308,7 +4336,7 @@ def lm_decode_timed(torch, dev, args, cfg, params, b: int, max_len: int,
             params, cache, {"tokens": toks[:, :1], "cache_len": start}))
     out = (float(np.median(secs[1:] if steps > 1 else secs)), peak,
            nbytes(cache), decode_plain_bytes(cfg, cache), prof)
-    del cache
+    del cache, _
     torch.cuda.empty_cache()
     return out
 
@@ -4367,6 +4395,91 @@ def lm_decode_checks(torch, dev, args, cfg, p32, params, nums):
                      f"decode_{tag}_plain_bytes_model":
                      plain_b + param_bytes,
                      f"decode_{tag}_idle": 1 - busy / wall})
+
+
+def lm_grid_vs_plain(torch, dev, args, cfg, params, prefill, nums):
+    """Phase 13 (d): ``build_lm_step`` on one rank (a ``ShardGroup``: the
+    model without a grid) against the same step over a 1 x 1 ``RankGrid``
+    (the grid path: per-layer FSDP gathers of one rank, the vocab-parallel
+    CE, the decode's partials and merge), in bf16 at (a)-(c)'s shapes:
+    the train step's loss and gradients, the prefill (``prefill``: (b)'s
+    tokens and last logits) and decode against a 32,768-position cache.
+    The grid's numbers say why one rank takes the plain path."""
+    from repro_torch import ShardGroup
+    from repro_torch.configs.lm_common import build_lm_step
+    from repro_torch.core.collectives import RankGrid
+    from repro_torch.models import transformer as tf
+
+    groups = {"plain": ShardGroup.single(dev), "grid": RankGrid.single(dev)}
+    order = ("plain", "grid", "grid", "plain")
+    seq = lm_seq("train_4k")
+    batch = lm_token_batch(torch, cfg.vocab, LM_TRAIN_B, seq, args.seed + 2,
+                           dev)
+    steps = {k: build_lm_step(cfg, "train_4k", g) for k, g in groups.items()}
+    secs, loss, peak = {k: [] for k in groups}, {}, {}
+    for _ in range(LM_PAIR_TRAIN // 2):
+        for k in order:
+            torch.cuda.reset_peak_memory_stats()
+            (l, g), t = timed_s(torch, lambda: steps[k].loss_and_grads(
+                params, batch))
+            secs[k].append(t)
+            loss[k], peak[k] = float(l), peak_gib(torch)
+            del g
+    train = {k: float(np.median(v)) for k, v in secs.items()}
+    log("lm", f"(d) train loss and gradients at B {LM_TRAIN_B}, S {seq}, "
+        f"plain against a 1 x 1 grid: seconds {secs}; median plain "
+        f"{train['plain']:.4f} s, grid {train['grid']:.4f} s "
+        f"({train['grid'] / train['plain']:.3f}x); losses {loss}; peak GiB "
+        f"{ {k: round(v, 2) for k, v in peak.items()} }")
+    require(abs(loss["grid"] - loss["plain"]) <= 1e-2 * abs(loss["plain"]),
+            "(d) the grid's bf16 loss strays from the plain one")
+    del steps, batch
+    torch.cuda.empty_cache()
+
+    tokens, plain_last = prefill
+    pre = build_lm_step(cfg, "prefill_32k", groups["grid"])
+    pre_secs = []
+    for _ in range(LM_PAIR_PREFILL):
+        last, t = timed_s(torch, lambda: pre(params, {"tokens": tokens}))
+        pre_secs.append(t)
+    log("lm", f"(d) prefill at S {tokens.shape[1]} over the grid: seconds "
+        f"{pre_secs} (plain in (b): median {nums['prefill_s']:.4f} s); last "
+        f"logits equal the plain ones bit for bit: "
+        f"{torch.equal(last, plain_last)}")
+    del last, pre
+    torch.cuda.empty_cache()
+
+    seq = lm_seq("decode_32k")
+    cache = tf.init_cache(cfg, LM_DECODE_B, seq, dev)
+    fill_cache(torch, cache, args.seed + 5)
+    dsteps = {k: build_lm_step(cfg, "decode_32k", g)
+              for k, g in groups.items()}
+    toks = lm_token_batch(torch, cfg.vocab, LM_DECODE_B, LM_PAIR_DECODE,
+                          args.seed + 6, dev)["tokens"]
+    start = seq - 64
+    dsecs, logits = {k: [] for k in groups}, {}
+    for i in range(LM_PAIR_DECODE):
+        at = torch.tensor(start + i, dtype=torch.int32, device=dev)
+        for k in order[(i % 2) * 2:(i % 2) * 2 + 2]:
+            out, t = timed_s(torch, lambda: dsteps[k](
+                params, cache, {"tokens": toks[:, i:i + 1], "cache_len": at}))
+            logits[k] = out[0]
+            del out
+            dsecs[k].append(t)
+    decode = {k: float(np.median(v[1:])) * 1e3 for k, v in dsecs.items()}
+    err = rel_err(logits["grid"], logits["plain"])
+    log("lm", f"(d) decode at B {LM_DECODE_B} against {seq} positions, "
+        f"plain and grid in turn: seconds {dsecs}; median after the first "
+        f"plain {decode['plain']:.3f} ms, grid {decode['grid']:.3f} ms "
+        f"({decode['grid'] / decode['plain']:.3f}x); the last step's grid "
+        f"logits within {err:.3e} of the plain ones")
+    require(err <= 1e-2, "(d) the grid's decode strays from the plain one")
+    nums["grid_vs_plain"] = {
+        "train_s": train, "train_peak_gib": peak,
+        "prefill_grid_s": float(np.median(pre_secs)),
+        "decode_ms": decode, "decode_err": err}
+    del cache, dsteps, logits
+    torch.cuda.empty_cache()
 
 
 def lm_other_checks(torch, dev, args, nums):
@@ -4528,13 +4641,370 @@ def phase_lm(torch, args, dev, report):
             "TF32 matmuls are on: the float64 checks assume float32 GEMMs")
     nums = {}
     cfg, p32, params = lm_train_checks(torch, dev, args, nums)
-    lm_prefill_checks(torch, dev, args, cfg, params, nums)
+    prefill = lm_prefill_checks(torch, dev, args, cfg, params, nums)
     lm_decode_checks(torch, dev, args, cfg, p32, params, nums)
-    del p32, params
+    del p32
+    torch.cuda.empty_cache()
+    lm_grid_vs_plain(torch, dev, args, cfg, params, prefill, nums)
+    del params, prefill
     torch.cuda.empty_cache()
     lm_other_checks(torch, dev, args, nums)
     lm_cli_checks(torch, dev, report, nums)
     log("lm", "LM summary " + json.dumps(nums))
+
+
+#: Phase 14: LM sharding on a (data, model) grid of gloo ranks on the card.
+SHARD_GRID = (2, 2)
+SHARD_RANKS = 4
+#: qwen2-1.5b's depth in phase 14 (published 28; cut for time).
+SHARD_QWEN_LAYERS = 2
+SHARD_B, SHARD_S = 4, 1024
+SHARD_DECODE_B, SHARD_DECODE_LEN = 4, 32768
+SHARD_LONG_LEN = 524288
+#: Decode steps from the last two positions of each cache (the last one
+#: is the last rank's).
+SHARD_DECODE_STEPS = 2
+SHARD_MOE_PREFILL = (2, 4096)
+SHARD_MOE_TRAIN = (2, 1024)
+SHARD_IGNORED = 0.3
+SHARD_LOSS_RTOL = 1e-5
+SHARD_GRAD_RTOL = 1e-4
+SHARD_LOGIT_RTOL = 1e-4
+#: Grid runs are held to one rank; a rank has this long in all.
+SHARD_TIMEOUT = 600
+
+
+def shard_batch_np(torch, vocab: int, b: int, s: int, seed: int,
+                   ignored: float = 0.0) -> dict:
+    """A global token batch as numpy (``synthetic_token_batches`` on the
+    host), a share ``ignored`` of its labels set to -1."""
+    batch = {k: v.numpy() for k, v in lm_token_batch(
+        torch, vocab, b, s, seed, "cpu").items()}
+    if ignored:
+        rng = np.random.default_rng(seed)
+        batch["labels"] = np.where(rng.random(batch["labels"].shape)
+                                   < ignored, -1, batch["labels"]).astype(
+                                       batch["labels"].dtype)
+    return batch
+
+
+def shard_decode_steps(torch, vocab: int, b: int, max_len: int, seed: int):
+    toks = lm_token_batch(torch, vocab, b, SHARD_DECODE_STEPS, seed,
+                          "cpu")["tokens"].numpy()
+    first = max_len - SHARD_DECODE_STEPS
+    return [(toks[:, j:j + 1], first + j) for j in range(SHARD_DECODE_STEPS)]
+
+
+def lm_sharded_runs(torch, args):
+    """Phase 14's runs for ``lm_common.lm_rank_runs``, each tagged:
+    ``checked`` runs are held against the same run on one rank, ``timed``
+    ones are only timed."""
+    from repro_torch.configs.registry import get_arch
+    qwen = dataclasses.replace(get_arch("qwen2-1.5b").full_config(),
+                               n_layers=SHARD_QWEN_LAYERS)
+    q32 = dataclasses.replace(qwen, dtype="float32")
+    mix = get_arch("mixtral-8x22b").config(n_repeats=1)
+    ds = get_arch("deepseek-v2-236b").config(n_repeats=1)
+    mix32 = dataclasses.replace(mix, dtype="float32")
+    ds32 = dataclasses.replace(ds, dtype="float32")
+    smoke = get_arch("mixtral-8x22b").smoke_config()
+    seed = args.seed + 40
+    v = qwen.vocab
+    runs = [
+        ("qwen f32 train", True, dict(
+            cfg=q32, shape="train_4k", seed=seed, adam=False,
+            batches=[shard_batch_np(torch, v, SHARD_B, SHARD_S, seed + 1)])),
+        ("qwen f32 sharded_ce", True, dict(
+            cfg=q32, shape="train_4k", seed=seed, adam=False,
+            keep_grads=False, variant=("sharded_ce",),
+            batches=[shard_batch_np(torch, v, SHARD_B, SHARD_S, seed + 2,
+                                    SHARD_IGNORED)])),
+        ("qwen f32 prefill", True, dict(
+            cfg=q32, shape="prefill_32k", seed=seed,
+            batch={"tokens": shard_batch_np(torch, v, SHARD_B, SHARD_S,
+                                            seed + 3)["tokens"]})),
+        ("qwen f32 decode_32k", True, dict(
+            cfg=q32, shape="decode_32k", seed=seed, cache_seed=seed + 4,
+            batch_size=SHARD_DECODE_B, max_len=SHARD_DECODE_LEN,
+            keep_cache=False,
+            steps=shard_decode_steps(torch, v, SHARD_DECODE_B,
+                                     SHARD_DECODE_LEN, seed + 5))),
+        ("qwen f32 long_500k", True, dict(
+            cfg=q32, shape="long_500k", seed=seed, cache_seed=seed + 6,
+            variant=("tp_only_params",),
+            batch_size=1, max_len=SHARD_LONG_LEN, keep_cache=False,
+            steps=shard_decode_steps(torch, v, 1, SHARD_LONG_LEN,
+                                     seed + 7))),
+        ("qwen bf16 train", False, dict(
+            cfg=qwen, shape="train_4k", seed=seed, keep_grads=False,
+            keep_params=False, opt=dict(lr=LM_LR),
+            batches=[shard_batch_np(torch, v, SHARD_B, SHARD_S, seed + k)
+                     for k in (8, 9)])),
+        ("mixtral f32 prefill", True, dict(
+            cfg=mix32, shape="prefill_32k", seed=seed + 10,
+            variant=("tp_only_params",),
+            batch={"tokens": shard_batch_np(
+                torch, mix.vocab, *SHARD_MOE_PREFILL, seed + 11)["tokens"]})),
+        ("mixtral f32 decode_32k", True, dict(
+            cfg=mix32, shape="decode_32k", seed=seed + 10,
+            variant=("tp_only_params",),
+            cache_seed=seed + 12, batch_size=SHARD_DECODE_B,
+            max_len=SHARD_DECODE_LEN, keep_cache=False,
+            steps=shard_decode_steps(torch, mix.vocab, SHARD_DECODE_B,
+                                     SHARD_DECODE_LEN, seed + 13))),
+        ("deepseek f32 prefill", True, dict(
+            cfg=ds32, shape="prefill_32k", seed=seed + 14,
+            variant=("tp_only_params",),
+            batch={"tokens": shard_batch_np(
+                torch, ds.vocab, *SHARD_MOE_PREFILL, seed + 15)["tokens"]})),
+        ("deepseek f32 decode_32k", True, dict(
+            cfg=ds32, shape="decode_32k", seed=seed + 14,
+            variant=("tp_only_params",),
+            cache_seed=seed + 16, batch_size=SHARD_DECODE_B,
+            max_len=SHARD_DECODE_LEN, keep_cache=False,
+            steps=shard_decode_steps(torch, ds.vocab, SHARD_DECODE_B,
+                                     SHARD_DECODE_LEN, seed + 17))),
+        ("mixtral bf16 train", False, dict(
+            cfg=mix, shape="train_4k", seed=seed + 10, keep_grads=False,
+            keep_params=False, opt=dict(lr=LM_LR),
+            batches=[shard_batch_np(torch, mix.vocab, *SHARD_MOE_TRAIN,
+                                    seed + 18)])),
+        ("mixtral smoke train", True, dict(
+            cfg=smoke, shape="train_4k", seed=seed + 20, adam=False,
+            batches=[shard_batch_np(torch, smoke.vocab, SHARD_B, 64,
+                                    seed + 21)])),
+    ]
+    return runs
+
+
+def load_result(tree):
+    """A rank's result with each ``.npy`` path read back."""
+    if isinstance(tree, dict):
+        return {k: load_result(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [load_result(v) for v in tree]
+    if isinstance(tree, str) and tree.endswith(".npy"):
+        return np.load(tree)
+    return tree
+
+
+def nccl_grid_checks(torch, args, dev, nums):
+    """Phase 14 (a): a 1 x 1 grid over one NCCL rank (every collective runs
+    through the process group) against the 1 x 1 grid over
+    ``ShardGroup.single`` (``lm_rank_runs`` lays either out), bit for bit:
+    qwen2-1.5b at full width and SHARD_QWEN_LAYERS layers in bf16, a train
+    step with one AdamW step, a prefill and a decode step."""
+    from repro_torch import ShardGroup
+    from repro_torch.configs.lm_common import lm_rank_runs
+    from repro_torch.configs.registry import get_arch
+    cfg = dataclasses.replace(get_arch("qwen2-1.5b").full_config(),
+                              n_layers=SHARD_QWEN_LAYERS)
+    seed = args.seed + 60
+    runs = [dict(cfg=cfg, shape="train_4k", seed=seed, grid=(1, 1),
+                 opt=dict(lr=LM_LR),
+                 batches=[shard_batch_np(torch, cfg.vocab, 2, SHARD_S,
+                                         seed + 1)]),
+            dict(cfg=cfg, shape="prefill_32k", seed=seed, grid=(1, 1),
+                 batch={"tokens": shard_batch_np(torch, cfg.vocab, 1,
+                                                 SHARD_S, seed + 2)[
+                                                     "tokens"]}),
+            dict(cfg=cfg, shape="decode_32k", seed=seed, grid=(1, 1),
+                 cache_seed=seed + 3, batch_size=2, max_len=4096,
+                 steps=shard_decode_steps(torch, cfg.vocab, 2, 4096,
+                                          seed + 4))]
+    single = lm_rank_runs(ShardGroup.single(dev), runs)
+    with nccl_world_of_one(dev) as group:
+        nccl = lm_rank_runs(group, runs)
+
+    def same(a, b) -> bool:
+        if isinstance(a, dict):
+            return set(a) == set(b) and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, list):
+            return len(a) == len(b) and all(map(same, a, b))
+        if isinstance(a, np.ndarray):
+            return a.dtype == b.dtype and np.array_equal(a, b)
+        return a == b
+
+    keys = ("loss", "grads", "params", "losses", "logits", "cache")
+    equal = [all(same(n.get(k), o.get(k)) for k in keys)
+             for n, o in zip(nccl, single)]
+    colls = [n["stats"]["collectives"] for n in nccl]
+    log("lm_sharded", f"(a) a 1 x 1 grid over one NCCL rank against one "
+        f"over ShardGroup.single, qwen2-1.5b bf16 at {SHARD_QWEN_LAYERS} layers: "
+        f"train step (loss {nccl[0]['loss']:.6f}, gradients, one AdamW "
+        f"step), prefill, decode: bit for bit {equal}; NCCL collectives "
+        f"{colls}")
+    require(all(equal), "the NCCL grid of one differs from one rank")
+    require(all(c > 0 for c in colls), "the NCCL grid ran no collective")
+    nums["nccl_bit_equal"] = all(equal)
+
+
+def phase_lm_sharded(torch, args, dev, report):
+    """Phase 14: LM sharding.  (a) ``nccl_grid_checks``; (b)-(c) every run
+    of ``lm_sharded_runs`` on SHARD_RANKS gloo ranks on the one card as a
+    SHARD_GRID grid (FSDP over data, tensor and expert parallelism over
+    model, the decode caches' sequence over model, or over every rank at
+    batch 1), each checked run against the same run on one rank in this
+    process; the timed bf16 train steps' seconds, tokens/s, peak memory
+    per rank and staged bytes."""
+    import shutil
+    import tempfile
+    from repro_torch import ShardGroup
+    from repro_torch.configs.lm_common import flat_split, lm_rank_runs
+    from repro_torch.core import collectives
+    from repro_torch.interop import lm_tree_assemble
+    from repro_torch.sharding.rules import assemble, lm_batch_split
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "TF32 matmuls are on: the float32 checks assume float32 GEMMs")
+    nums = {}
+    t0 = time.perf_counter()
+    nccl_grid_checks(torch, args, dev, nums)
+    nums["a_s"] = time.perf_counter() - t0
+    log("lm_sharded", f"(a) {nums['a_s']:.2f} s")
+    torch.cuda.empty_cache()
+
+    tagged = lm_sharded_runs(torch, args)
+    t0 = time.perf_counter()
+    one = {}
+    for tag, checked, run in tagged:
+        if checked:
+            one[tag] = lm_rank_runs(ShardGroup.single(dev),
+                                    [dict(run, grid=(1, 1))])[0]
+            torch.cuda.empty_cache()
+    nums["one_rank_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("lm_sharded", f"one-rank references of {len(one)} runs: "
+        f"{nums['one_rank_s']:.2f} s; this process then holds "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved, beside "
+        f"the ranks")
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-lm-ranks-")
+    try:
+        runs = [dict(run, grid=SHARD_GRID) for _, _, run in tagged]
+        t0, t_wall = time.perf_counter(), time.time()
+        out = collectives.launch(lm_rank_runs, SHARD_RANKS, runs, tmp,
+                                 backend="gloo",
+                                 devices=[str(dev)] * SHARD_RANKS,
+                                 timeout=SHARD_TIMEOUT)
+        nums["launch_s"] = time.perf_counter() - t0
+        t_back = time.time()
+        out = [load_result(o) for o in out]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("lm_sharded", f"{SHARD_RANKS} gloo ranks on one card as a "
+        f"{SHARD_GRID} grid, {len(runs)} runs: {nums['launch_s']:.2f} s with "
+        f"the rank starts; the ranks' step seconds "
+        f"{[round(sum(sum(r['step_seconds']) for r in o), 2) for o in out]}; "
+        f"rank 0's step seconds a run "
+        f"{[round(sum(r['step_seconds']), 2) for r in out[0]]} of its run "
+        f"seconds {[round(r['seconds'], 2) for r in out[0]]}; the first "
+        f"run started {min(o[0]['started'] for o in out) - t_wall:.2f} s "
+        f"after the launch, the last ended "
+        f"{max(o[-1]['finished'] for o in out) - t_wall:.2f} s after it, "
+        f"and the launch returned {t_back - t_wall:.2f} s after it")
+
+    class Grid:
+        shape = dict(zip(("data", "model"), SHARD_GRID))
+        axis_names = ("data", "model")
+
+    def rel(got, want) -> float:
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        return float(np.abs(got - want).max()
+                     / max(np.abs(want).max(), 1e-30))
+
+    errs = {}
+    for j, (tag, checked, run) in enumerate(tagged):
+        ranks = [o[j] for o in out]
+        cfg = run["cfg"]
+        if not checked:
+            secs = [r["step_seconds"] for r in ranks]
+            step_s = max(s[-1] for s in secs)
+            toks = int(np.prod(run["batches"][0]["tokens"].shape))
+            peak = [round(r["peak_bytes"] / 2**30, 2) for r in ranks]
+            staged = [r["stats"]["staged_bytes"] for r in ranks]
+            losses = ranks[0]["losses"]
+            log("lm_sharded", f"{tag} on the grid, B x S "
+                f"{run['batches'][0]['tokens'].shape}: losses {losses}; "
+                f"step seconds per rank {secs}; {step_s:.4f} s a step "
+                f"(slowest rank, last step), {toks / step_s:.1f} tokens/s; "
+                f"peak GiB per rank {peak}; staged bytes per rank {staged}")
+            require(all(np.isfinite(losses)), f"{tag}: losses not finite")
+            key = tag.split()[0]
+            nums.update({f"{key}_bf16_step_s": step_s,
+                         f"{key}_bf16_tokens_per_s": toks / step_s,
+                         f"{key}_bf16_peak_gib": max(peak),
+                         f"{key}_bf16_staged_bytes": max(staged)})
+            continue
+        want = one[tag]
+        kind = run["shape"]
+        if kind == "train_4k":
+            err = {"loss": max(abs(r["loss"] - want["loss"])
+                               / abs(want["loss"]) for r in ranks)}
+            tol = {"loss": SHARD_LOSS_RTOL}
+            if "grads" in want:
+                split = flat_split(cfg, Grid)
+                err["grads"] = max(rel(lm_tree_assemble(
+                    [r["grads"][k] for r in ranks], split[k], Grid),
+                    g) for k, g in want["grads"].items())
+                tol["grads"] = SHARD_GRAD_RTOL
+            if "sharded_ce" in run.get("variant", ()):
+                err.update(sharded_ce_identity(torch, dev, run, want))
+                tol["identity"] = SHARD_LOSS_RTOL
+        elif kind == "prefill_32k":
+            got = assemble([r["logits"] for r in ranks],
+                           lm_batch_split(Grid)["tokens"], Grid)
+            err = {"logits": rel(got, want["logits"])}
+            tol = {"logits": SHARD_LOGIT_RTOL}
+        else:
+            long = run["batch_size"] == 1
+            split = (None, None, None) if long else (
+                lm_batch_split(Grid)["tokens"] + (None,))
+            # The last step writes the cache's last position, which only
+            # the last rank of the sequence holds, and attends it.
+            err = {"logits": max(rel(assemble(
+                [r["logits"][s] for r in ranks], split, Grid),
+                want["logits"][s]) for s in range(SHARD_DECODE_STEPS))}
+            tol = {"logits": SHARD_LOGIT_RTOL}
+        secs = max(sum(r["step_seconds"]) for r in ranks)
+        log("lm_sharded", f"{tag}: errors against one rank "
+            f"{ {k: float(f'{v:.3e}') for k, v in err.items()} } (limits "
+            f"{tol}); slowest rank {secs:.3f} s, one rank "
+            f"{sum(want['step_seconds']):.3f} s; peak GiB per rank "
+            f"{[round(r['peak_bytes'] / 2**30, 2) for r in ranks]}")
+        require(all(err[k] <= tol[k] for k in tol),
+                f"{tag}: the grid differs from one rank")
+        errs[tag] = max(err[k] / tol[k] for k in tol)
+    nums["worst_err_over_limit"] = max(errs.values())
+    log("lm_sharded", "LM sharding summary " + json.dumps(
+        {k: (v if isinstance(v, bool) else float(v))
+         for k, v in nums.items()}))
+
+
+def sharded_ce_identity(torch, dev, run, want) -> dict:
+    """The sharded CE counts an ignored label's ``lse``: on one rank,
+    ``sharded * n_all`` must equal ``dense * n_kept + sum(lse over the
+    ignored)``, with the dense loss and ``lse`` from full float32 logits."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.configs.lm_common import init_param_shares
+    from repro_torch.core.collectives import RankGrid
+    cfg = run["cfg"]
+    grid = RankGrid.single(dev)
+    params = init_param_shares(cfg, grid, run["seed"], dev)
+    batch = run["batches"][0]
+    tokens = torch.from_numpy(batch["tokens"]).to(dev)
+    labels = torch.from_numpy(batch["labels"]).to(dev)
+    with torch.no_grad():
+        logits = tf.forward(cfg, params, tokens)
+        lse = torch.logsumexp(logits, dim=-1)
+        dense = float(tf.cross_entropy_loss(logits, labels))
+    ignored = labels == -1
+    n_all, n_kept = labels.numel(), int((~ignored).sum())
+    want_sum = dense * n_kept + float(lse[ignored].double().sum())
+    del params, logits
+    torch.cuda.empty_cache()
+    return {"identity": abs(want["loss"] * n_all - want_sum)
+            / abs(want_sum)}
 
 
 def main() -> int:
@@ -4595,7 +5065,9 @@ def main() -> int:
                              torch, ops, args, dev, report)),
                          ("recsys", lambda: phase_recsys(
                              torch, ops, args, dev, report)),
-                         ("lm", lambda: phase_lm(torch, args, dev, report))):
+                         ("lm", lambda: phase_lm(torch, args, dev, report)),
+                         ("lm_sharded", lambda: phase_lm_sharded(
+                             torch, args, dev, report))):
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize()

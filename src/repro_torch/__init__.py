@@ -16,7 +16,8 @@ subpackage's, so ``import repro_torch.train.loop`` works) with its
 checkpoints (``save_checkpoint`` / ``restore_checkpoint``) and gradient
 compression, the NumPy LFR and powerlaw-cluster generators, and the
 five decoder LMs (``configs.registry``, ``models.transformer``: train,
-prefill and decode on one rank) with the training launcher
+prefill and decode on one rank or over a (data, model) grid of ranks,
+``collectives.RankGrid``) with the training launcher
 ``python -m repro_torch.launch.train``, with the ELL move kernels (K1,
 K2), the aggregation kernel (K3) and the batch-apply kernel (K4)
 hand-written in CUDA for Hopper (``repro_torch/csrc``).

@@ -25,6 +25,13 @@ and add them in rank order in float64, rounding once, so every rank gets
 the same bits whatever order the backend reduces in.  Integer sums and
 maxima go through ``all_reduce``, which is exact in any order.
 
+A ``RankGrid`` lays a group's ranks out as a mesh over named axes
+(``("data", "model")`` for the LM layouts) and hands out a ``ShardGroup``
+per axis, over the dp axes and over the whole grid.  Beside the
+differentiable ``AllGather`` / ``ReduceScatter`` / ``AllSum`` are
+Megatron's two conjugate operators, ``CopyToRanks`` (identity forward,
+sum backward) and ``SumFromRanks`` (sum forward, identity backward).
+
 ``launch`` runs a function on ``world`` spawned ranks, initialised through
 a ``file://`` store in a temporary directory (no network), each under a
 hard timeout; any rank's failure is an error, never a partial result.
@@ -34,7 +41,10 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
+import math
 import os
+import pickle
 import queue
 import shutil
 import tempfile
@@ -164,8 +174,9 @@ class ShardGroup:
             y = y.to(like.device)
         return y.view(torch.bool) if like.dtype == torch.bool else y
 
-    def all_gather(self, x: torch.Tensor, tiled: bool = True) -> torch.Tensor:
-        """Every rank's ``x`` in rank order: concatenated along dim 0
+    def all_gather(self, x: torch.Tensor, tiled: bool = True,
+                   dim: int = 0) -> torch.Tensor:
+        """Every rank's ``x`` in rank order: concatenated along ``dim``
         (``tiled``) or stacked on a new leading axis."""
         self.wire_bytes += x.numel() * x.element_size()
         if self.group is None:
@@ -174,7 +185,8 @@ class ShardGroup:
         wire = self._to_wire(x)
         parts = [torch.empty_like(wire) for _ in range(self.world_size)]
         dist.all_gather(parts, wire, group=self.group)
-        out = torch.cat(parts) if tiled else torch.stack(parts)
+        out = torch.cat(parts, dim) if tiled else torch.stack(parts)
+        del parts
         return self._from_wire(out, x)
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
@@ -223,6 +235,24 @@ class ShardGroup:
             acc = acc + parts[r].to(torch.float64)
         return acc.to(x.dtype)
 
+    def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's part of the sum over ranks: ``x`` cut along ``dim``
+        into ``world_size`` equal parts, part r of every rank sent to rank
+        r (one ``all_to_all``) and added there in rank order in float64,
+        rounding once (integers in int64, exact).  The bits are
+        ``psum(x)``'s part r, for a ``1 / world_size`` of its traffic."""
+        if self.group is None:
+            self.wire_bytes += x.numel() * x.element_size()
+            return x
+        moved = x.movedim(dim, 0).contiguous()
+        parts = self.all_to_all(moved).unflatten(
+            0, (self.world_size, moved.shape[0] // self.world_size))
+        wide = torch.float64 if x.is_floating_point() else torch.int64
+        acc = parts[0].to(wide)
+        for r in range(1, self.world_size):
+            acc = acc + parts[r].to(wide)
+        return acc.to(x.dtype).movedim(0, dim).contiguous()
+
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         """The maximum over ranks."""
         return self._all_reduce(x, dist.ReduceOp.MAX)
@@ -233,30 +263,28 @@ class ShardGroup:
 # ---------------------------------------------------------------------------
 
 class AllGather(torch.autograd.Function):
-    """Owned rows -> every row (dim 0, rank order); backward: summed over
-    ranks, owned rows.  ``AllGather.apply(x, group)``."""
+    """Owned rows -> every row (dim 0, or ``dim``, rank order); backward:
+    summed over ranks, owned rows.  ``AllGather.apply(x, group[, dim])``."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return group.all_gather(x)
+    def forward(ctx, x, group, dim=0):
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather(x, dim=dim)
 
     @staticmethod
     def backward(ctx, grad):
-        g = ctx.group
-        part = grad.shape[0] // g.world_size
-        return g.psum(grad.contiguous()).narrow(0, g.rank * part, part), None
+        return ctx.group.reduce_scatter(grad, ctx.dim), None, None
 
 
 class ReduceScatter(torch.autograd.Function):
     """Every row's partial sums -> the owned rows' sums (dim 0 split in rank
-    order); backward: the owned rows' gradients gathered."""
+    order, ``ShardGroup.reduce_scatter``); backward: the owned rows'
+    gradients gathered."""
 
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        part = x.shape[0] // group.world_size
-        return group.psum(x.contiguous()).narrow(0, group.rank * part, part)
+        return group.reduce_scatter(x)
 
     @staticmethod
     def backward(ctx, grad):
@@ -276,14 +304,191 @@ class AllSum(torch.autograd.Function):
         return ctx.group.psum(grad.contiguous()), None
 
 
+class CopyToRanks(torch.autograd.Function):
+    """Megatron's ``f``, placed before a column-parallel product: the
+    identity; backward: the gradients summed over ranks.  Each rank's
+    product reads the same (replicated) input, and the input's gradient is
+    the sum of the ranks' partials."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.psum(grad.contiguous()), None
+
+
+class SumFromRanks(torch.autograd.Function):
+    """Megatron's ``g``, placed after a row-parallel product: the sum over
+    ranks; backward: the identity.  The sum is replicated, so each rank's
+    gradient of it is already the whole gradient of its partial."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.psum(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class AllGatherReplicated(torch.autograd.Function):
+    """Owned rows -> every row (``dim``, rank order), for a consumer that
+    computes the same thing on every rank; backward: the owned rows of the
+    (replicated) gradient, not summed."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim=0):
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather(x, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g, dim = ctx.group, ctx.dim
+        part = grad.shape[dim] // g.world_size
+        return grad.narrow(dim, g.rank * part, part).contiguous(), None, None
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group: ShardGroup,
+                   backward: str = "sum") -> torch.Tensor:
+    """Every rank's ``x`` concatenated in rank order along ``dim``, laid
+    out contiguously (a product reading it then takes the path it takes on
+    one rank).  Its gradient is ``AllGather``'s (``backward="sum"``: the
+    ranks consume the gathered tensor differently) or
+    ``AllGatherReplicated``'s (``"own"``)."""
+    if group.world_size == 1 and group.group is None:
+        return x
+    op = {"sum": AllGather, "own": AllGatherReplicated}[backward]
+    return op.apply(x.contiguous(), group, dim % x.dim())
+
+
+# ---------------------------------------------------------------------------
+# A grid of ranks.
+# ---------------------------------------------------------------------------
+
+class RankGrid:
+    """The ranks of a ``ShardGroup`` laid out as a mesh over named axes,
+    ``("data", "model")`` or ``("pod", "data", "model")`` (the reference's
+    ``launch/mesh.py``): rank ``mesh_rank(coords, shape)``.
+
+    ``shape`` maps each axis name to its size and ``axis_names`` orders
+    them, as a JAX ``Mesh`` does, so the split rules read a grid or a mesh
+    alike.  ``coords`` is this rank's coordinate on each axis.  ``sub(axes)``
+    is the ``ShardGroup`` of the ranks that share this rank's coordinates on
+    every other axis, ranked row-major over ``axes``: one for each axis,
+    ``dp`` over the data-parallel axes (all but ``model``), ``model``, and
+    the whole grid.  The process groups are made with ``dist.new_group`` in
+    the same order on every rank; a subgroup of one rank has no process
+    group (its collectives are the identity) and one that spans the world
+    reuses the parent's.  At ``ShardGroup.single`` every subgroup is
+    single.
+    """
+
+    def __init__(self, group: ShardGroup, shape: Sequence[int],
+                 axis_names: Sequence[str] = ("data", "model")):
+        axis_names = tuple(axis_names)
+        if len(axis_names) != len(shape) or "model" not in axis_names:
+            raise ValueError(f"a grid needs one size per axis and a 'model' "
+                             f"axis; got {tuple(shape)} over {axis_names}")
+        if math.prod(shape) != group.world_size:
+            raise ValueError(
+                f"a grid {tuple(shape)} over {axis_names} holds "
+                f"{math.prod(shape)} ranks; the group has {group.world_size}")
+        self.group = group
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, (int(n) for n in shape)))
+        coords, r = [], group.rank
+        for n in reversed(tuple(shape)):
+            coords.append(r % n)
+            r //= n
+        self.coords = dict(zip(axis_names, reversed(coords)))
+        self._subs = {}
+        wanted = [(a,) for a in axis_names] + [self.dp_axes, axis_names]
+        for axes in wanted:
+            if axes not in self._subs:
+                self._subs[axes] = self._make_sub(axes)
+
+    @classmethod
+    def single(cls, device="cuda") -> "RankGrid":
+        """A 1 x 1 ``("data", "model")`` grid over ``ShardGroup.single``."""
+        return cls(ShardGroup.single(device), (1, 1))
+
+    @property
+    def dp_axes(self) -> tuple:
+        return tuple(a for a in self.axis_names if a != "model")
+
+    @property
+    def device(self) -> torch.device:
+        return self.group.device
+
+    def _make_sub(self, axes: tuple) -> ShardGroup:
+        g = self.group
+        sizes = [self.shape[a] for a in axes]
+        size = math.prod(sizes)
+        sub_rank = mesh_rank([self.coords[a] for a in axes], sizes)
+        if size == g.world_size:
+            return ShardGroup(sub_rank, size, g.device, g.backend, g.group)
+        others = [a for a in self.axis_names if a not in axes]
+        mine = None
+        if size > 1:
+            # Every rank makes every group, in one order.
+            full = [self.shape[a] for a in self.axis_names]
+            for fixed in itertools.product(
+                    *(range(self.shape[a]) for a in others)):
+                at = dict(zip(others, fixed))
+                ranks = []
+                for pt in itertools.product(*map(range, sizes)):
+                    at.update(zip(axes, pt))
+                    ranks.append(mesh_rank(
+                        [at[a] for a in self.axis_names], full))
+                pg = dist.new_group(ranks)
+                if g.rank in ranks:
+                    mine = pg
+        backend = g.backend if mine is not None else "single"
+        return ShardGroup(sub_rank, size, g.device, backend, mine)
+
+    def sub(self, axes: Sequence[str]) -> ShardGroup:
+        """The subgroup over ``axes`` (in grid order)."""
+        key = tuple(a for a in self.axis_names if a in tuple(axes))
+        if key not in self._subs:
+            raise KeyError(f"no subgroup over {tuple(axes)}; have "
+                           f"{sorted(self._subs)}")
+        return self._subs[key]
+
+    @property
+    def model(self) -> ShardGroup:
+        return self.sub(("model",))
+
+    @property
+    def dp(self) -> ShardGroup:
+        return self.sub(self.dp_axes)
+
+    @property
+    def everyone(self) -> ShardGroup:
+        return self.sub(self.axis_names)
+
+    def stats(self) -> dict:
+        """``staged_bytes``, ``collectives`` and ``wire_bytes`` summed over
+        the parent group and every subgroup (each counts its own)."""
+        groups = [self.group] + [s for s in self._subs.values()
+                                 if s is not self.group]
+        return {k: sum(getattr(s, k) for s in groups)
+                for k in ("staged_bytes", "collectives", "wire_bytes")}
+
+
+
 # ---------------------------------------------------------------------------
 # Launcher.
 # ---------------------------------------------------------------------------
 
-def _rank_main(fn, rank, world_size, backend, init_method, device, args,
+def _rank_main(payload, rank, world_size, backend, init_method, device,
                timeout, results):
     group = None
     try:
+        with open(payload, "rb") as f:
+            fn, args = pickle.load(f)
         if device is not None and torch.device(device).type == "cpu":
             torch.set_num_threads(1)
         group = ShardGroup.init(backend, rank, world_size, init_method,
@@ -319,14 +524,20 @@ def launch(fn: Callable, world_size: int, *args, backend: str = "gloo",
     ctx = mp.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="shard-group-")
     init_method = "file://" + os.path.join(tmp, "store")
+    # ``fn`` and ``args`` go through a file, not the spawn pipe: a child
+    # reads the pipe only after importing the parent's main module, so a
+    # pipe over its buffer's size would start the ranks one at a time.
+    payload = os.path.join(tmp, "payload.pkl")
+    with open(payload, "wb") as f:
+        pickle.dump((fn, args), f, protocol=pickle.HIGHEST_PROTOCOL)
     results = ctx.Queue()
     procs = []
     try:
         for r in range(world_size):
             dev = None if devices is None else devices[r]
             p = ctx.Process(target=_rank_main,
-                            args=(fn, r, world_size, backend, init_method,
-                                  dev, args, timeout, results),
+                            args=(payload, r, world_size, backend,
+                                  init_method, dev, timeout, results),
                             daemon=True)
             p.start()
             procs.append(p)

@@ -129,14 +129,25 @@ def adamw_state_from_numpy(arch_id: str, step, mu, nu, device="cuda"):
 
 
 
-def lm_params_from_numpy(tree, device="cuda", dtype=torch.float32) -> dict:
+def lm_params_from_numpy(tree, device="cuda", dtype=torch.float32, *,
+                         cfg=None, grid=None, coords=None,
+                         fsdp: bool = True) -> dict:
     """An LM parameter tree of the port (``models.transformer``) from the
     reference's ``{"embed", "final_ln", "layers": [{name: (n_repeats, ...)}
     ...], "lm_head"?}`` as numpy, cast to ``dtype`` (the config's
     activation type).  bfloat16 travels as float32 numpy
     (``np.asarray(x.astype(jnp.float32))``) and is cast back exactly.  The
-    same call converts a gradient tree."""
+    same call converts a gradient tree.
+
+    With ``grid`` (a ``RankGrid`` or any object with its ``shape`` and
+    ``axis_names``) it returns the share of ``cfg``'s parameters at grid
+    coordinate ``coords`` (default ``grid.coords``) by
+    ``sharding.lm_param_split(cfg, grid, fsdp)``."""
+    from repro_torch.sharding.rules import lm_param_split, map_split, share
     dev = resolve_device(device)
+    if grid is not None:
+        tree = map_split(lambda x, sp: share(np.asarray(x), sp, grid, coords),
+                         tree, lm_param_split(cfg, grid, fsdp))
 
     def put(x):
         return torch.from_numpy(np.array(x, np.float32)).to(dev, dtype)
@@ -147,15 +158,38 @@ def lm_params_from_numpy(tree, device="cuda", dtype=torch.float32) -> dict:
     return out
 
 
-def lm_cache_from_numpy(tree, device="cuda", dtype=torch.float32) -> dict:
+def lm_cache_from_numpy(tree, device="cuda", dtype=torch.float32, *,
+                        cfg=None, grid=None, coords=None,
+                        seq_shard: bool = False,
+                        model_seq_shard: bool = True) -> dict:
     """An LM cache tree ``{"slots": [{name: (n_repeats, B, S, ...)}]}`` of
     the port from the reference's as numpy: the int8 values (``k_q``,
     ``v_q``) stay int8 and their scales (``k_s``, ``v_s``) float32; ``k``,
     ``v``, ``c_kv`` and ``k_rope`` take ``dtype`` (as float32 numpy, like
-    the parameters)."""
+    the parameters).  With ``grid``: the share at ``coords`` by
+    ``sharding.lm_cache_split(cfg, grid, seq_shard, model_seq_shard)``."""
     from repro_torch.models.transformer import cache_leaf_dtype
+    from repro_torch.sharding.rules import lm_cache_split, map_split, share
     dev = resolve_device(device)
+    if grid is not None:
+        tree = map_split(lambda x, sp: share(np.asarray(x), sp, grid, coords),
+                         tree, lm_cache_split(cfg, grid, seq_shard,
+                                              model_seq_shard))
     return {"slots": [
         {name: torch.from_numpy(np.array(x)).to(
             dev, cache_leaf_dtype(name, dtype)) for name, x in slot.items()}
         for slot in tree["slots"]]}
+
+
+def lm_tree_assemble(shares, split_tree, grid):
+    """The full LM tree (numpy) from every rank's share of it (trees of
+    numpy arrays or tensors, in rank order) under ``split_tree``: the
+    inverse of the sharing above, for the tests."""
+    from repro_torch.sharding.rules import assemble
+    if isinstance(split_tree, dict):
+        return {k: lm_tree_assemble([t[k] for t in shares], split_tree[k],
+                                    grid) for k in split_tree}
+    if isinstance(split_tree, list):
+        return [lm_tree_assemble([t[i] for t in shares], sp, grid)
+                for i, sp in enumerate(split_tree)]
+    return assemble(shares, split_tree, grid)

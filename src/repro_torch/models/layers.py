@@ -18,6 +18,11 @@ reference's ``preferred_element_type=float32``.  Softmax statistics, the
 running ``(m, l, o)`` merge, RoPE and the cross-entropy are float32.  A
 float64 model (the card's checks) keeps float64 throughout: every
 "float32" above is ``promote_types(dtype, float32)``.
+
+``TensorParallel`` is a rank's view of a ``collectives.RankGrid`` for the
+LM's tensor-parallel blocks, and ``decode_attention_partial`` /
+``merge_partials`` split single-token attention over slices of the cache
+held by different ranks (flash decoding).
 """
 
 from __future__ import annotations
@@ -26,6 +31,9 @@ import math
 from typing import Optional
 
 import torch
+
+from repro_torch.core.collectives import (CopyToRanks, SumFromRanks,
+                                         all_gather_dim)
 
 F32 = torch.float32
 #: The reference's mask value and softmax-denominator floor.
@@ -224,6 +232,105 @@ def decode_attention(
         p = p * v_scale.permute(0, 2, 1)[:, :, None, :]
     out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.to(acc))
     return out.reshape(b, 1, hq, dh).to(q.dtype)
+
+
+def decode_attention_partial(
+    q: torch.Tensor,              # (B, 1, Hq, Dh)
+    k_cache: torch.Tensor,        # (B, S, Hkv, Dh): a slice of the cache
+    v_cache: torch.Tensor,
+    cache_len,                    # 0-d tensor or int: the global prefix
+    *,
+    start=0,                      # global position of the slice's first
+    window: Optional[int] = None,
+    softmax_scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+):
+    """``decode_attention`` over one slice of the cache, unnormalised: the
+    running-softmax pieces ``(m, l, o)`` with m, l: (B, Hkv, G, 1, 1) and
+    o: (B, 1, Hkv, G, Dh) in the accumulation type, which ``_merge``
+    combines across slices.  A slice with no visible position has m =
+    -1e30 and weighs nothing in the merge."""
+    b, s, hkv, dh = k_cache.shape
+    hq = q.shape[2]
+    g = hq // hkv
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(dh)
+    acc = acc_dtype(q.dtype)
+    qf = q[:, 0].to(acc).reshape(b, hkv, g, dh)
+    logits = torch.einsum("bhgd,bshd->bhgs", qf, k_cache.to(acc))
+    if k_scale is not None:
+        logits = logits * k_scale.permute(0, 2, 1)[:, :, None, :]
+    logits = logits * scale
+    pos = (torch.arange(s, device=q.device) + start)[None, None, None, :]
+    clen = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1, 1, 1)
+    mask = pos < clen
+    if window is not None:
+        mask = mask & (pos >= clen - window)
+    logits = torch.where(mask, logits, torch.full((), NEG, dtype=acc,
+                                                  device=q.device))
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    if v_scale is not None:
+        p = p * v_scale.permute(0, 2, 1)[:, :, None, :]
+    o = torch.einsum("bhgs,bshd->bhgd", p, v_cache.to(acc))
+    return m[..., None], l[..., None], o[:, None]
+
+
+def merge_partials(parts, dtype: torch.dtype) -> torch.Tensor:
+    """The attention output (B, 1, Hq, Dh) in ``dtype`` from the ``(m, l,
+    o)`` partials of every slice, merged in order by ``_merge``."""
+    carry = parts[0]
+    for part in parts[1:]:
+        carry = _merge(carry, *part)
+    _, l_f, o_f = carry
+    out = o_f / torch.clamp(_tr(l_f), min=L_FLOOR)
+    b, _, hkv, g, dv = out.shape
+    return out.reshape(b, 1, hkv * g, dv).to(dtype)
+
+
+class TensorParallel:
+    """A rank's view of a ``collectives.RankGrid`` for the LM's blocks:
+    ``rank`` of ``size`` on the ``model`` axis, ``copy`` (Megatron's ``f``:
+    before a column-parallel product) and ``sum`` (``g``: after a
+    row-parallel product) over ``model``, ``gather`` over ``model`` along a
+    dimension.  ``tokens_split``: the rank's tokens are its dp rows of the
+    global batch (else every dp rank holds the same tokens, as at decode
+    batch 1), which the MoE's capacity counts."""
+
+    def __init__(self, grid, tokens_split: bool = True):
+        self.grid = grid
+        self.model = grid.model
+        self.dp = grid.dp
+        self.rank = grid.coords["model"]
+        self.size = grid.shape["model"]
+        self.tokens_split = tokens_split
+        self.token_ranks = self.dp.world_size if tokens_split else 1
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        return CopyToRanks.apply(x, self.model)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return SumFromRanks.apply(x, self.model)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return all_gather_dim(x, dim, self.model)
+
+    def expert_offsets(self, flat_e: torch.Tensor,
+                       n_experts: int) -> torch.Tensor:
+        """(E,) the assignments to each expert on the lower dp ranks: the
+        global token-major order puts them first."""
+        counts = torch.bincount(flat_e, minlength=n_experts)
+        if not self.tokens_split or self.dp.world_size == 1:
+            return torch.zeros_like(counts)
+        every = self.dp.all_gather(counts, tiled=False)
+        return torch.sum(every[:self.dp.rank], dim=0)
+
+    def local_heads(self, n_heads: int) -> int:
+        if n_heads % self.size:
+            raise ValueError(f"{n_heads} heads do not split over a model "
+                             f"axis of {self.size}")
+        return n_heads // self.size
 
 
 def swiglu_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -15,9 +15,19 @@ every run:
     expert order, one after another, into a tensor of the expert outputs'
     type, which is the order the reference's sorted scatter-add takes.
 
-``torch.topk`` breaks ties between equal router scores in its own order,
-not ``lax.top_k``'s (lowest index first); random float logits make ties
-rare.
+The top-k is a stable descending sort, so equal router scores go to the
+lowest expert index first, as ``lax.top_k`` breaks ties.
+
+Over a grid of ranks (``tp``, a ``layers.TensorParallel``) every model rank
+holds the same tokens and computes the same routing.  Under expert
+parallelism (``n_experts`` at least the model axis) each rank runs its
+``E / model`` experts on full weights; otherwise every rank runs every
+expert on its slice of ``d_ff``.  Either way a rank adds its tokens'
+contributions in ascending expert order and the partials are summed over
+``model`` in rank order.  Capacity drops are decided on the global token
+set: a token's rank within its expert counts the assignments of the lower
+dp ranks first, which is the reference's token-major order over the
+global batch.
 """
 
 from __future__ import annotations
@@ -40,6 +50,13 @@ class MoEParams(NamedTuple):
     shared_w_down: Optional[torch.Tensor] = None
 
 
+def _top_k(scores: torch.Tensor, k: int):
+    """The ``k`` largest scores of each row and their indices, ties to the
+    lowest index (``lax.top_k``'s order)."""
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
 def moe_ffn(
     x: torch.Tensor,                # (T, d): flattened tokens
     p: MoEParams,
@@ -47,8 +64,11 @@ def moe_ffn(
     top_k: int,
     capacity_factor: float = 1.25,
     router_softmax_after_topk: bool = False,
+    tp=None,
 ) -> torch.Tensor:
-    """Top-k routed expert FFN; returns (T, d)."""
+    """Top-k routed expert FFN; returns (T, d).  ``tp`` runs it over a grid
+    of ranks (the module docstring): ``p``'s expert and shared weights are
+    then the rank's (FSDP-gathered) shares and the router is whole."""
     t, d = x.shape
     e = p.router.shape[1]
     acc = acc_dtype(x.dtype)
@@ -56,16 +76,20 @@ def moe_ffn(
     logits = x.to(acc) @ p.router.to(acc)                      # (T, E)
     if router_softmax_after_topk:
         # Mixtral: softmax over the selected top-k logits only.
-        top_logits, top_idx = torch.topk(logits, top_k, dim=-1)
+        top_logits, top_idx = _top_k(logits, top_k)
         top_w = torch.softmax(top_logits, dim=-1)
     else:
         probs = torch.softmax(logits, dim=-1)
-        top_w, top_idx = torch.topk(probs, top_k, dim=-1)
+        top_w, top_idx = _top_k(probs, top_k)
         top_w = top_w / torch.clamp(torch.sum(top_w, -1, keepdim=True),
                                     min=1e-9)
 
-    capacity = max(int(capacity_factor * t * top_k / e), 4)
-    n_slots = e * capacity
+    t_global = t if tp is None else t * tp.token_ranks
+    capacity = max(int(capacity_factor * t_global * top_k / e), 4)
+    # The experts this rank runs: [e_lo, e_lo + e_loc).
+    e_loc = p.w_gate.shape[0]
+    e_lo = 0 if tp is None or e_loc == e else tp.rank * e_loc
+    n_slots = e_loc * capacity
 
     # Flatten (token, slot) assignments (token-major) and rank them within
     # each expert.
@@ -75,12 +99,18 @@ def moe_ffn(
     sorted_e = flat_e[order]
     ranks = (torch.arange(t * top_k, device=dev)
              - torch.searchsorted(sorted_e, sorted_e, side="left"))
-    keep = ranks < capacity
-    slot = torch.where(keep, sorted_e * capacity + ranks,
+    if tp is not None:
+        ranks = ranks + tp.expert_offsets(flat_e, e)[sorted_e]
+        x = tp.copy(x)
+        top_w = tp.copy(top_w)
+    local = (sorted_e >= e_lo) & (sorted_e < e_lo + e_loc)
+    keep = (ranks < capacity) & local
+    slot = torch.where(keep, (sorted_e - e_lo) * capacity + ranks,
                        torch.full_like(ranks, n_slots))
 
     # The dispatch buffer gathers its tokens: each kept slot names its
-    # token, every dropped assignment writes the one dummy row.
+    # token, every dropped (or another rank's) assignment writes the one
+    # dummy row.
     src_tok = flat_tok[order]
     slot_tok = torch.zeros(n_slots + 1, dtype=torch.long,
                            device=dev).index_copy_(0, slot, src_tok)
@@ -89,7 +119,7 @@ def moe_ffn(
     buf = torch.where(filled[:n_slots, None],
                       gather_rows(x, slot_tok[:n_slots]),
                       torch.zeros((), dtype=x.dtype, device=dev))
-    buf = buf.reshape(e, capacity, d)
+    buf = buf.reshape(e_loc, capacity, d)
 
     # Batched expert FFN: (E, cap, d) x (E, d, f) -> (E, cap, d).
     h = torch.nn.functional.silu(torch.einsum("ecd,edf->ecf", buf, p.w_gate))
@@ -115,4 +145,6 @@ def moe_ffn(
     if p.shared_w_gate is not None:
         out = out + swiglu_ffn(x, p.shared_w_gate, p.shared_w_up,
                                p.shared_w_down)
+    if tp is not None:
+        out = tp.sum(out)
     return out.to(x.dtype)

@@ -35,6 +35,7 @@ from repro.optim import adamw_init as jadamw_init
 
 from repro_torch import ShardGroup
 from repro_torch.configs import lm_common
+from repro_torch.core.collectives import RankGrid
 from repro_torch.configs.registry import (ALL_ARCHS, EXTRA_ARCHS, all_cells,
                                           get_arch, skipped_cells)
 from repro_torch.interop import lm_cache_from_numpy, lm_params_from_numpy
@@ -238,13 +239,28 @@ def test_decode_step_equals_the_reference(qwen, mesh, variant):
 
 
 def test_a_group_of_two_ranks_is_refused(qwen):
+    """A bare group of two ranks says nothing of their layout and is
+    refused, as is a grid that does not hold the group; a (1, 2) grid over
+    it builds all three step kinds (the steps run in
+    ``test_torch_lm_sharding.py``)."""
     pair = ShardGroup(0, 2, torch.device(CPU), "gloo")
     for shape in ("train_4k", "prefill_32k", "decode_32k"):
-        with pytest.raises(ValueError, match="item 13b"):
+        with pytest.raises(ValueError, match="needs a RankGrid"):
             lm_common.build_lm_step(qwen["cfg"], shape, pair,
                                     smoke_shapes=True)
-    with pytest.raises(ValueError, match="item 13b"):
+    with pytest.raises(ValueError, match="needs a RankGrid"):
         get_arch("gemma3-12b").build_step("train_4k", pair, smoke=True)
+    with pytest.raises(ValueError, match="holds 4 ranks; the group has 2"):
+        RankGrid(pair, (2, 2))
+    grid = RankGrid(pair, (1, 2))
+    train = lm_common.build_lm_step(qwen["cfg"], "train_4k", grid,
+                                    smoke_shapes=True)
+    assert isinstance(train, lm_common.LMTrainStep) and train.grid is grid
+    for shape in ("prefill_32k", "decode_32k", "long_500k"):
+        assert callable(lm_common.build_lm_step(qwen["cfg"], shape, grid,
+                                                smoke_shapes=True))
+    assert callable(get_arch("gemma3-12b").build_step("decode_32k", grid,
+                                                      smoke=True))
 
 
 def test_arch_build_step_cuts_depth(qwen):
