@@ -197,7 +197,24 @@ each timed; any failure exits non-zero:
      (4 and 80 a rank): prefill at B 2, S 4,096 and decode (the
      ``tp_only_params`` layout) against one rank, a bf16 mixtral train
      step timed, and the mixtral smoke config's train step against one
-     rank.
+     rank;
+ 15. the dry run and the Louvain arch's distributed phases: (a) on a
+     road-like graph drawn on the card from ``--seed`` at road_108M's size
+     (50,912,018 vertices, 108,109,320 unit-weight slots: a path and
+     short shortcuts, average degree ~2.1 as europe_osm's), through NCCL
+     at world size 1, ``LouvainArch``'s move step against its
+     ``"delta_c"`` variant (membership exact, Sigma and dQ within 1e-4)
+     and its aggregate step against ``"a2a"`` (records equal, exact), all
+     four K3 launches held against the plain version bit for bit, each
+     step's ms (CUDA events) and peak memory; (b) the smoke Louvain shapes
+     on 4 gloo ranks on the card (a2a equal to gather, delta-C equal to
+     the gather round) and (d) DimeNet's full_graph_sm at full width on
+     the same 4 ranks against one rank (loss within 1e-5, gradients
+     within 1e-4 of the largest entry), seconds a step; (c) qwen2-1.5b at
+     2 layers on a 1 x 1 NCCL grid: train (B 4, S 4,096), prefill (B 1, S
+     4,096) and decode (B 4, a 32,768-position cache) on the card under
+     the dry run's counters against the dry run of the same steps: FLOPs
+     and argument bytes equal, the high-water marks side by side.
 
 Cut for time: phase 4's Leiden route through K2 (its ``ell_leiden__sbm``
 golden through K2 stays in phase 3), and phase 6's solo comparison to the
@@ -296,6 +313,13 @@ KERNELS = {
     # K3 in the training CLI's louvain run on its R-MAT graph (phase 13
     # (f)); the CLI's LouvainConfig() does not take K1.
     "coarsen_groups_cli": ("src/repro_torch/csrc/coarsen.cu",
+                           "src/repro/kernels/aggregate/coarsen.py:113"),
+    # K3 in the Louvain arch's road_108M aggregation steps (phase 15 (a)):
+    # the gather baseline (its owner-side re-reduce) and the owner-routed
+    # all-to-all (its re-reduce over n_shards x cap records).
+    "coarsen_groups_gather": ("src/repro_torch/csrc/coarsen.cu",
+                              "src/repro/kernels/aggregate/coarsen.py:113"),
+    "coarsen_groups_a2a": ("src/repro_torch/csrc/coarsen.cu",
                            "src/repro/kernels/aggregate/coarsen.py:113"),
 }
 
@@ -4880,6 +4904,13 @@ def phase_lm_sharded(torch, args, dev, report):
         f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved, beside "
         f"the ranks")
     tmp = tempfile.mkdtemp(prefix="chip-smoke-lm-ranks-")
+    # The ranks draw deepseek's whole expert tensors (5 GB each) and keep
+    # their shares: with the caching allocator's segments split, a rank
+    # once held 2.52 GiB reserved but unallocated when another ran out of
+    # memory on the card.  The spawned ranks read this at their first CUDA
+    # call; this process has made its own allocator already.
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
         runs = [dict(run, grid=SHARD_GRID) for _, _, run in tagged]
         t0, t_wall = time.perf_counter(), time.time()
@@ -4892,6 +4923,10 @@ def phase_lm_sharded(torch, args, dev, report):
         out = [load_result(o) for o in out]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        if alloc_conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
     log("lm_sharded", f"{SHARD_RANKS} gloo ranks on one card as a "
         f"{SHARD_GRID} grid, {len(runs)} runs: {nums['launch_s']:.2f} s with "
         f"the rank starts; the ranks' step seconds "
@@ -5007,6 +5042,459 @@ def sharded_ce_identity(torch, dev, run, want) -> dict:
             / abs(want_sum)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the dry run and the Louvain arch's distributed phases.
+# ---------------------------------------------------------------------------
+
+#: Phase 15 (a) runs at road_108M's size (``louvain_arch.LOUVAIN_SHAPES``,
+#: the europe_osm row of the paper's Table 1: 50,912,018 vertices,
+#: 108,109,320 directed slots).  Its start membership: blocks of this many consecutive vertices (the
+#: path makes a block a good community; its boundary vertices move).
+ROAD_BLOCK = 50
+#: Longest shortcut of the road graph beyond its path.
+ROAD_REACH = 64
+#: Float tolerance of the delta round against the gather round.
+DRY_TOL = 1e-4
+#: (b), (d): gloo ranks on the one card.
+DRY_RANKS = 4
+#: (c): qwen2-1.5b cut to 2 layers; train at B 4, S 4,096, prefill at B 1,
+#: S 4,096, one decode step at B 4 against a 32,768-position cache.
+DRY_LM_LAYERS = 2
+DRY_TRAIN = (4, 4096)
+DRY_PREFILL = (1, 4096)
+DRY_DECODE = (4, 32768)
+#: (c): a dry high-water mark more than this far from the card's is written
+#: down with its cause.
+DRY_PEAK_GAP = 0.10
+
+
+def road_graph(torch, dev, n: int, slots: int, seed: int):
+    """A road-like graph of ``n`` vertices and ``slots`` directed unit-weight
+    slots (average degree ~2.1, as europe_osm's), drawn on the card from
+    ``seed``: the path 0-1-...-(n-1) and random shortcuts (u, u + d), d in
+    [2, ROAD_REACH], each pair in both directions."""
+    extra = slots // 2 - (n - 1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.randint(0, n - ROAD_REACH, (extra,), generator=gen,
+                      device=dev)
+    d = torch.randint(2, ROAD_REACH + 1, (extra,), generator=gen, device=dev)
+    a = torch.cat([torch.arange(n - 1, device=dev), u])
+    b = torch.cat([torch.arange(1, n, device=dev), u + d])
+    del u, d
+    src = torch.cat([a, b]).to(torch.int32)
+    dst = torch.cat([b, a]).to(torch.int32)
+    del a, b
+    return src, dst, torch.ones(slots, dtype=torch.float32, device=dev)
+
+
+def block_state(torch, src, w, n: int):
+    """Blocks of ROAD_BLOCK consecutive vertices as the membership (each
+    labelled by its first vertex), with K, Sigma, the community sizes and
+    m, each (n + 1,) with the sentinel n."""
+    dev = src.device
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    comm = torch.cat([ids // ROAD_BLOCK * ROAD_BLOCK,
+                      torch.full((1,), n, dtype=torch.int32, device=dev)])
+    k = torch.zeros(n + 1, dtype=torch.float64, device=dev).index_add_(
+        0, src.long(), w.double()).float()
+    sigma = torch.zeros(n + 1, dtype=torch.float64, device=dev).index_add_(
+        0, comm[:n].long(), k[:n].double()).float()
+    sizes = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
+        0, comm[:n].long(), torch.ones(n, dtype=torch.int32, device=dev))
+    m = (w.double().sum() / 2).float()
+    return comm, k, sigma, sizes, m
+
+
+@contextlib.contextmanager
+def k3_calls(torch):
+    """Every K3 call of the aggregation (``core.aggregate.coarsen_groups``,
+    the by-name import ``reduce_sorted_slots`` reaches): each call's
+    inputs and outputs kept (clones); the wrapper counts its launches."""
+    from repro_torch.core import aggregate
+    real = aggregate.coarsen_groups
+    calls = []
+
+    def recorder(s_ci, s_cj, s_w, *, sent):
+        out = real(s_ci, s_cj, s_w, sent=sent)
+        calls.append(((s_ci.clone(), s_cj.clone(), s_w.clone()), sent,
+                      tuple(o.clone() for o in out)))
+        return out
+
+    aggregate.coarsen_groups = recorder
+    try:
+        yield calls
+    finally:
+        aggregate.coarsen_groups = real
+
+
+def k3_calls_held(torch, calls, what: str):
+    """Each recorded K3 call against its plain version, bit for bit; the
+    (ms, plain ms, bound bytes, slots) of each, CUDA events."""
+    from repro_torch.kernels.aggregate import coarsen
+    out = []
+    for i, (slots, sent, got) in enumerate(calls):
+        want = coarsen.coarsen_groups_ref(*slots, sent=sent)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                    for a, b in zip(got, want)),
+                f"{what}: K3 launch {i} differs from its plain version")
+        del want
+        total = slots[0].numel()
+        ms = time_ms(torch, lambda: coarsen.coarsen_groups(*slots,
+                                                           sent=sent), 3)
+        plain = time_ms(torch, lambda: coarsen.coarsen_groups_ref(
+            *slots, sent=sent), 1, warmup=0)
+        out.append((ms, plain, 12 * total + 17 * (total + 1), total))
+        log("dryrun", f"(a) {what}, K3 launch {i}: exact on {total} slots "
+            f"({int(got[0].sum())} groups); {ms:.4f} ms (plain "
+            f"{plain:.4f} ms), {ms / (out[-1][2] / HBM_BYTES_PER_S * 1e3):.3f}"
+            f"x its bound")
+    return out
+
+
+def dry_road_checks(torch, args, dev, report, nums):
+    """Phase 15 (a): ``LouvainArch``'s road_108M steps at world size 1
+    through NCCL on a road-like graph of that size: the delta-C round
+    against the gather round (membership exact, Sigma and dQ within
+    DRY_TOL, no overflow), the a2a aggregation against the gather one
+    (records equal; exact, the weights being units), every K3 launch held
+    against its plain version bit for bit; each step's ms (CUDA events)
+    and peak memory."""
+    from repro_torch.configs import louvain_arch as la
+    from repro_torch.kernels.aggregate import coarsen
+
+    n, e, _ = la.LOUVAIN_SHAPES["road_108M_move"]
+    src, dst, w = road_graph(torch, dev, n, e, args.seed)
+    comm, k, sigma, sizes, m = block_state(torch, src, w, n)
+    log("dryrun", f"(a) road graph on the card: {n} vertices, {e} slots "
+        f"(seed {args.seed}), blocks of {ROAD_BLOCK}; edges "
+        f"{3 * 4 * e / 1e9:.2f} GB")
+    move = {"src": src, "dst": dst, "w": w, "comm": comm, "sigma": sigma,
+            "k": k, "m": m}
+    agg = {"src": src, "dst": dst, "w": w, "comm": comm}
+    outs, ms, peaks = {}, {}, {}
+    with nccl_world_of_one(dev) as group:
+        steps = {name: la.ARCH.build_step(shape, group, variant=variant)
+                 for name, shape, variant in (
+                     ("move", "road_108M_move", ()),
+                     ("delta_c", "road_108M_move", ("delta_c",)),
+                     ("gather", "road_108M_aggregate", ()),
+                     ("a2a", "road_108M_aggregate", ("a2a",)))}
+        require(steps["a2a"].spec == la.spec_for(group, n, e)
+                and steps["a2a"].spec.e_per_shard == e,
+                "the road layout is not one rank's whole graph")
+        inputs = {"move": move, "delta_c": dict(move, comm_sizes=sizes),
+                  "gather": agg, "a2a": agg}
+        k3 = {}
+        coarsen.coarsen_groups.launches = 0
+        for name, step in steps.items():
+            with k3_calls(torch) as calls:
+                outs[name] = step(inputs[name])
+            k3[name] = calls
+        launches = coarsen.coarsen_groups.launches
+        require(launches == 4 and len(k3["gather"]) == 2
+                and len(k3["a2a"]) == 2 and not k3["move"]
+                and not k3["delta_c"],
+                f"K3 launched {launches} times in the four steps; want 2 "
+                f"per aggregation")
+
+        cb, sb, _, dqb = outs["move"]
+        cd, sd, szd, _, dqd, ovf = outs["delta_c"]
+        moved = int((cb[:n] != comm[:n]).sum())
+        require(int(ovf) <= 0 and torch.equal(cb, cd) and moved > 0,
+                f"the delta-C round's membership differs from the gather "
+                f"round's (overflow {int(ovf)}, movers {moved})")
+        sig_err = float((sb - sd).abs().max())
+        dq_err = abs(float(dqb) - float(dqd))
+        require(sig_err <= DRY_TOL and dq_err <= DRY_TOL,
+                f"delta-C round: Sigma {sig_err:.3e}, dQ {dq_err:.3e}")
+        want_sizes = torch.zeros_like(szd).index_add_(
+            0, cd[:n].long(), torch.ones(n, dtype=szd.dtype, device=dev))
+        require(torch.equal(szd, want_sizes),
+                "the delta-C round's sizes are not its membership's")
+        log("dryrun", f"(a) delta-C round = gather round: {moved} movers "
+            f"(cap {n // la.DELTA_C_MOVE_CAP_FRAC}), Sigma within "
+            f"{sig_err:.3e}, dQ {float(dqd):.6f} within {dq_err:.3e}")
+
+        gc_, gj, gw, gvalid, gmax = outs["gather"]
+        ac, aj, aw, avalid, dropped = outs["a2a"]
+        ev = int(gvalid)
+        require(ev == int(avalid) == int(gmax) and int(dropped) == 0
+                and torch.equal(gc_[:ev], ac[:ev])
+                and torch.equal(gj[:ev], aj[:ev])
+                and torch.equal(gw[:ev], aw[:ev])
+                and bool((ac[ev:] == n).all())
+                and float(aw.double().sum()) == float(e),
+                f"a2a and gather coarse graphs differ ({ev} and "
+                f"{int(avalid)} coarse edges, {int(dropped)} dropped)")
+        log("dryrun", f"(a) a2a aggregation = gather aggregation: {ev} "
+            f"coarse edges, total weight {e} exactly, nothing dropped")
+        del outs
+        times = {name: k3_calls_held(torch, k3[name], name)
+                 for name in ("gather", "a2a")}
+        del k3
+        for name, step in steps.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms[name] = time_ms(torch, lambda: step(inputs[name]), 2)
+            peaks[name] = torch.cuda.max_memory_allocated() - base
+        nums["road_ms"] = ms
+        nums["road_peak_gib"] = {k_: v / 2**30 for k_, v in peaks.items()}
+        log("dryrun", "(a) step ms (CUDA events, mean of 2): "
+            + ", ".join(f"{k_} {v:.1f}" for k_, v in ms.items())
+            + "; peak GiB above the inputs: "
+            + ", ".join(f"{k_} {v / 2**30:.2f}" for k_, v in peaks.items()))
+    for name in ("gather", "a2a"):
+        t_ms, plain, n_bytes, total = times[name][-1]
+        report.append(kernel_entry(f"coarsen_groups_{name}", 2, 0.0, t_ms,
+                                   plain, n_bytes, total))
+
+
+def dry_smoke_runs(torch, seed: int):
+    """(b)'s inputs: the smoke Louvain shapes laid out for DRY_RANKS ranks
+    (each rank's slots have sources it owns; each slot's target within 3
+    ids of its source), unit weights; the move runs start from blocks of 8,
+    the aggregations label by blocks of 16."""
+    from repro_torch.configs import louvain_arch as la
+    n, e = la.LOUVAIN_SMOKE
+    v_per, e_per = n // DRY_RANKS, e // DRY_RANKS
+    rng = np.random.default_rng(seed)
+    src = (np.repeat(np.arange(DRY_RANKS) * v_per, e_per)
+           + rng.integers(0, v_per, e)).astype(np.int32)
+    dst = np.clip(src + rng.choice([-3, -2, -1, 1, 2, 3], e), 0,
+                  n - 1).astype(np.int32)
+    w = np.ones(e, np.float32)
+    k = np.zeros(n + 1, np.float32)
+    np.add.at(k, src, w)
+    runs = []
+    for shape, variant, block in (("road_108M_move", (), 8),
+                                  ("road_108M_move", ("delta_c",), 8),
+                                  ("road_108M_aggregate", (), 16),
+                                  ("road_108M_aggregate", ("a2a",), 16)):
+        comm = np.append(np.arange(n) // block * block, n).astype(np.int32)
+        sigma = np.zeros(n + 1, np.float32)
+        np.add.at(sigma, comm[:n], k[:n])
+        batch = {"src": src, "dst": dst, "w": w, "comm": comm}
+        if "move" in shape:
+            batch.update(sigma=sigma, k=k, m=np.float32(e / 2))
+            if variant:
+                batch["comm_sizes"] = np.bincount(
+                    comm[:n], minlength=n + 1).astype(np.int32)
+        runs.append({"shape": shape, "variant": variant, "batch": batch})
+    return runs
+
+
+def dry_smoke_checks(torch, out) -> None:
+    """(b): on the ranks, a2a equals gather and delta-C equals the gather
+    round (membership exact, Sigma and dQ within DRY_TOL)."""
+    from repro_torch.configs import louvain_arch as la
+    n = la.LOUVAIN_SMOKE[0]
+    for rank, res in enumerate(out):
+        cb, sb, _, dqb = res[0]["out"]
+        cd, sd, _, _, dqd, ovf = res[1]["out"]
+        require(int(ovf) <= 0 and np.array_equal(cb, cd)
+                and np.abs(sb - sd).max() <= DRY_TOL
+                and abs(float(dqb) - float(dqd)) <= DRY_TOL
+                and int((cb[:n] != np.arange(n) // 8 * 8).sum()) > 0,
+                f"(b) rank {rank}: the delta-C round differs from the "
+                f"gather round")
+
+    def records(i):
+        got = {}
+        for res in out:
+            ci, cj, cw = res[i]["out"][:3]
+            for a, b, x in zip(ci, cj, cw):
+                if a < n:
+                    got[(int(a), int(b))] = float(x)
+        return got
+
+    base, a2a = records(2), records(3)
+    require(base == a2a and len(base) > 0
+            and all(int(res[3]["out"][4]) == 0 for res in out),
+            "(b) the a2a coarse graph differs from the gather one")
+    log("dryrun", f"(b) smoke shapes on {len(out)} gloo ranks on the card: "
+        f"a2a = gather ({len(base)} coarse edges), delta-C = gather round; "
+        f"step seconds rank 0: "
+        + ", ".join(f"{r['seconds']:.3f}" for r in out[0]))
+
+
+def dry_lm_checks(torch, dev, args, nums) -> None:
+    """(c): qwen2-1.5b at DRY_LM_LAYERS layers on a 1 x 1 grid over one
+    NCCL rank: its train, prefill and decode steps on the card under the
+    dry run's counters (``analysis.trace``: ``FlopCounterMode`` and the
+    storages the operators return), against the dry run of the same steps
+    (a dry 1 x 1 grid, meta tensors): FLOPs and argument bytes equal; the
+    dry high-water mark beside ``max_memory_allocated`` and beside the
+    counters' mark on the card."""
+    from repro_torch import compat
+    from repro_torch.configs import lm_common
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.collectives import RankGrid, ShardGroup
+    from repro_torch.launch import analysis, dryrun
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw_init
+
+    arch = get_arch("qwen2-1.5b")
+    cfg = arch.config(False, DRY_LM_LAYERS)
+    runs = (("train_4k", DRY_TRAIN), ("prefill_32k", DRY_PREFILL),
+            ("decode_32k", DRY_DECODE))
+    with nccl_world_of_one(dev) as group:
+        grid = RankGrid(group, (1, 1))
+        params = lm_common.init_param_shares(cfg, grid, args.seed, dev)
+        for shape, (b, s) in runs:
+            kind = lm_common.LM_SHAPES[shape][2]
+            step = lm_common.build_lm_step(cfg, shape, grid)
+            if kind == "train":
+                tok = lm_token_batch(torch, cfg.vocab, b, s, args.seed, dev)
+                batch = {"tokens": tok["tokens"], "labels": tok["labels"]}
+                opt = adamw_init(tf.flat_params(params))
+                call = (params, opt, batch)
+                specs = {k: ((b, s), torch.int32) for k in batch}
+            elif kind == "prefill":
+                batch = {"tokens": lm_token_batch(
+                    torch, cfg.vocab, b, s, args.seed, dev)["tokens"]}
+                call = (params, batch)
+                specs = {"tokens": ((b, s), torch.int32)}
+            else:
+                cache = lm_common.random_cache(
+                    cfg, b, s, args.seed, dev, grid,
+                    lm_common.step_cache_split(cfg, shape, grid))
+                batch = {"tokens": torch.zeros((b, 1), dtype=torch.int32,
+                                               device=dev),
+                         "cache_len": torch.tensor(s - 1, dtype=torch.int32,
+                                                   device=dev)}
+                call = (params, cache, batch)
+                specs = {"tokens": ((b, 1), torch.int32),
+                         "cache_len": ((), torch.int32)}
+            local = lm_common.local_batch(batch, grid)
+            real_args = analysis.tensor_bytes(call[:-1] + (local,))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            # The dry run's counters on the card's tensors: FLOPs
+            # (``FlopCounterMode``) and the storages the operators return.
+            card = analysis.trace(step, call, grid, real_args)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            real_peak = real_args + torch.cuda.max_memory_allocated() - base
+            real_flops = card["flops"]
+            del call, batch, local
+            dry_grid = compat.make_mesh((1, 1), ("data", "model"),
+                                        ShardGroup.dry(0, 1))
+            t = time.perf_counter()
+            rec = dryrun.trace_cell(arch, shape, dry_grid,
+                                    n_repeats=DRY_LM_LAYERS,
+                                    batch_specs=specs, cache_len=s)
+            dry_s = time.perf_counter() - t
+            dry_peak = analysis.memory_stats(rec)["peak_memory_in_bytes"]
+            gap = dry_peak / real_peak - 1.0
+            traced_peak = real_args + card["temp_peak"]
+            nums[f"lm_{kind}"] = {"flops": real_flops, "arg_bytes": real_args,
+                                  "dry_peak": dry_peak,
+                                  "card_peak": real_peak, "gap": gap,
+                                  "card_traced_peak": traced_peak,
+                                  "step_s": secs, "dry_s": dry_s}
+            require(rec["flops"] == real_flops > 0,
+                    f"(c) {kind}: the dry run counts {rec['flops']:.6e} "
+                    f"FLOPs, the card's step {real_flops:.6e}")
+            require(rec["arg_bytes"] == real_args,
+                    f"(c) {kind}: the dry run's argument bytes "
+                    f"{rec['arg_bytes']} differ from the shares' "
+                    f"{real_args}")
+            log("dryrun", f"(c) qwen2-1.5b {kind} (B {b}, S {s}, "
+                f"{DRY_LM_LAYERS} layers): FLOPs {real_flops:.6e} equal, "
+                f"argument bytes {real_args} equal; high-water dry "
+                f"{dry_peak / 2**30:.3f} GiB, card {real_peak / 2**30:.3f} "
+                f"GiB (gap {gap * 100:+.1f}%"
+                f"{', above ' + str(int(DRY_PEAK_GAP * 100)) + '%' if abs(gap) > DRY_PEAK_GAP else ''}"
+                f"), the dry counters on the card's step "
+                f"{traced_peak / 2**30:.3f} GiB; step {secs:.3f} s on the "
+                f"card under the counters, dry trace {dry_s:.2f} s")
+        del params
+    torch.cuda.empty_cache()
+
+
+def dry_dimenet_runs(torch, args):
+    """(d)'s run: DimeNet at full width on a full_graph_sm batch from
+    ``make_batch(--seed)`` (triplets drawn at random, as the arch's batch
+    draws them), the weights drawn from seed 0 on every rank."""
+    from repro_torch.configs.gnn_common import GNN_SHAPES
+    from repro_torch.configs.registry import get_arch
+    arch = get_arch("dimenet")
+    cfg = arch.make_config(GNN_SHAPES["full_graph_sm"], False)
+    batch = arch.make_batch("full_graph_sm", args.seed, smoke=False,
+                            device="cpu")
+    return {"arch": "dimenet", "cfg": cfg, "shape": "full_graph_sm",
+            "smoke": False, "batch": {k: v.numpy() for k, v in batch.items()}}
+
+
+def phase_dryrun(torch, args, dev, report):
+    """Phase 15: (a) ``dry_road_checks``; (b) the smoke Louvain shapes and
+    (d) DimeNet's full graph on DRY_RANKS gloo ranks on the one card, in
+    one launch, against world size 1; (c) ``dry_lm_checks``."""
+    from repro_torch import ShardGroup
+    from repro_torch.core import collectives, gnn_halo
+
+    nums = {}
+    t0 = time.perf_counter()
+    dry_road_checks(torch, args, dev, report, nums)
+    log("dryrun", f"(a) {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    smoke = dry_smoke_runs(torch, args.seed)
+    dn = dry_dimenet_runs(torch, args)
+    one = gnn_halo.gnn_rank_runs(ShardGroup.single(dev), [dn, dn])
+    out = collectives.launch(dry_rank_runs, DRY_RANKS, smoke, dn,
+                             backend="gloo",
+                             devices=[str(dev)] * DRY_RANKS, timeout=300)
+    wall = time.perf_counter() - t0
+    dry_smoke_checks(torch, [o["louvain"] for o in out])
+
+    def grads(run):
+        return {k: torch.from_numpy(x) for k, x in run["grads"].items()}
+
+    want, again = one["results"]
+    # The float32 scatter-adds' atomics make one rank differ from itself
+    # run to run: the floor of the per-tensor comparison.
+    floor = grads_agree(grads(again), grads(want))
+    for rank, o in enumerate(out):
+        got = o["dimenet"]["results"][0]
+        rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        # Within 1e-4 of the largest gradient entry, the CPU test's bound
+        # (``tests/_gnn_parity.assert_grads_close``).
+        worst = grads_agree(grads(got), grads(want), per_tensor=False)
+        per = grads_agree(grads(got), grads(want))
+        require(rel <= 1e-5 and worst <= 1e-4,
+                f"(d) DimeNet on {DRY_RANKS} ranks, rank {rank}: loss "
+                f"{rel:.3e}, gradients {worst:.3e}")
+        log("dryrun", f"(d) DimeNet full_graph_sm at full width, rank "
+            f"{rank}: loss {got['loss']:.8f} against {want['loss']:.8f} "
+            f"({rel:.3e}), gradients {worst:.3e} of the largest entry "
+            f"({per:.3e} of each tensor's; one rank against itself "
+            f"{floor:.3e}); {got['seconds']:.3f} s a step (one rank "
+            f"{want['seconds']:.3f} s, {again['seconds']:.3f} s again); "
+            f"wire bytes {got['wire_bytes']}")
+    log("dryrun", f"(b)+(d) {wall:.2f} s with the rank starts (no "
+        f"multi-GPU number)")
+
+    t0 = time.perf_counter()
+    dry_lm_checks(torch, dev, args, nums)
+    log("dryrun", f"(c) {time.perf_counter() - t0:.2f} s")
+    log("dryrun", "numbers " + json.dumps(nums, default=float))
+
+
+def dry_rank_runs(group, smoke: list, dimenet_run: dict) -> dict:
+    """The rank entry of phase 15's launch: (b)'s Louvain runs and (d)'s
+    DimeNet run."""
+    from repro_torch.configs.louvain_arch import louvain_rank_runs
+    from repro_torch.core.gnn_halo import gnn_rank_runs
+    return {"louvain": louvain_rank_runs(group, smoke),
+            "dimenet": gnn_rank_runs(group, [dimenet_run])}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22,
@@ -5067,6 +5555,8 @@ def main() -> int:
                              torch, ops, args, dev, report)),
                          ("lm", lambda: phase_lm(torch, args, dev, report)),
                          ("lm_sharded", lambda: phase_lm_sharded(
+                             torch, args, dev, report)),
+                         ("dryrun", lambda: phase_dryrun(
                              torch, args, dev, report))):
             t = time.perf_counter()
             fn()

@@ -6,18 +6,22 @@ shapes use random positions; triplet lists are capacity-capped on the
 web-scale shapes.  Each loss returns this rank's share of the reference's
 loss (see ``configs.gnn_common``); the batched kinds run as one merged
 graph (its triplets offset with the edges), whose part b's output row is
-the reference's per-part row 0.  A full graph runs on one rank: its
-triplets index edges across the whole graph, and the split layout of
-edges and triplets over ranks is not ported.
+the reference's per-part row 0.  A full graph splits its nodes, edges and
+triplets over the ranks (dim 0, in rank order): the node exchange of
+``configs.gnn_common`` moves node rows, and the same exchange over the
+edge dimension moves each block's per-edge tensors to the triplets that
+read them and the triplet sums back to their edges
+(``models.gnn.dimenet.DimeNet.forward``); the graph's loss is rank 0's
+share.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.gnn_common import GNNArch, GNNShape, merged_graph
+from repro_torch.configs.gnn_common import (GNNArch, GNNShape, full_graph,
+                                            merged_graph, node_exchange)
 from repro_torch.models.gnn import dimenet
-from repro_torch.models.gnn.common import GraphBatch
 
 
 def _config(sh: GNNShape, smoke: bool) -> dimenet.DimeNetConfig:
@@ -33,20 +37,12 @@ def _config(sh: GNNShape, smoke: bool) -> dimenet.DimeNetConfig:
 def _loss(cfg: dimenet.DimeNetConfig, sh: GNNShape, shape_name: str):
     if sh.kind == "full":
         def share(model, batch, group):
-            if group.world_size != 1:
-                raise ValueError("dimenet runs a full graph on one rank; "
-                                 f"got a group of {group.world_size}")
-            nf = batch["node_feat"]
-            n_pad = nf.shape[0]
-            g = GraphBatch(
-                node_feat=nf, edge_src=batch["edge_src"],
-                edge_dst=batch["edge_dst"], n_nodes=sh.n_nodes,
-                labels=batch["labels"],
-                graph_id=torch.zeros(n_pad, dtype=torch.int64,
-                                     device=nf.device),
-                n_graphs=1, positions=batch["positions"])
-            pred = model(g, batch["t_kj"], batch["t_ji"])   # (n_pad, 1)
-            return torch.square(pred[0, 0] - batch["labels"][0])
+            g, _ = full_graph(batch, group, sh.n_nodes)
+            split = node_exchange(group)
+            pred = model(g, batch["t_kj"], batch["t_ji"], split, split)
+            loss = torch.square(pred[0, 0] - batch["labels"][0])
+            # The graph's loss is one number: rank 0 holds it.
+            return loss if group.rank == 0 else loss * 0.0
         return share
 
     def share(model, batch, group):

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.gnn_common import shard_batch
-from repro_torch.core.collectives import ReduceScatter, ShardGroup
+from repro_torch.core.collectives import RankGrid, ReduceScatter, ShardGroup
 from repro_torch.core.graph import resolve_device
 from repro_torch.data.recsys import synthetic_click_batches
 from repro_torch.models import recsys
@@ -105,7 +105,7 @@ def sharded_sums(cfg: recsys.FMConfig, model: recsys.FM,
 def _plain(group: ShardGroup) -> bool:
     """Whether ``group`` has no process group (``ShardGroup.single``): the
     plain FM, with no collective."""
-    return group.group is None
+    return group.group is None and group.backend != "dry"
 
 
 def _logits(cfg, model, field_ids, group):
@@ -234,8 +234,12 @@ class FMArch:
     def input_specs(self, shape: str, smoke: bool = False) -> dict:
         return fm_input_specs(self.config(smoke), shape, smoke=smoke)
 
-    def build_step(self, shape: str, group: ShardGroup, smoke: bool = False,
+    def build_step(self, shape: str, group, smoke: bool = False,
                    opt_cfg: AdamWConfig = AdamWConfig()):
+        """The step over ``group``, a ``ShardGroup`` or a ``RankGrid``
+        (the table's rows and the batch split over all its ranks)."""
+        if isinstance(group, RankGrid):
+            group = group.everyone
         return build_fm_step(self.config(smoke), shape, group, opt_cfg)
 
     def init_model(self, shape: str, seed: int = 0, smoke: bool = False,

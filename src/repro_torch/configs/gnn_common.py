@@ -34,8 +34,8 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.collectives import (AllGather, AllSum, ReduceScatter,
-                                          ShardGroup)
+from repro_torch.core.collectives import (AllGather, AllSum, RankGrid,
+                                          ReduceScatter, ShardGroup)
 from repro_torch.core.graph import resolve_device
 from repro_torch.models.gnn.common import LOCAL, GraphBatch
 from repro_torch.optim import AdamWConfig, adamw_apply
@@ -350,7 +350,9 @@ class GNNArch:
     def build_step(self, shape: str, group: ShardGroup, smoke: bool = False,
                    variant: Tuple[str, ...] = (),
                    opt_cfg: AdamWConfig = AdamWConfig(), **halo_kwargs):
-        """The ``TrainStep`` of ``build_gnn_step``.  variant ``"halo"``: the
+        """The ``TrainStep`` of ``build_gnn_step`` over ``group``, a
+        ``ShardGroup`` or a ``RankGrid`` (a full graph over all its ranks,
+        a batched shape over its dp axes).  variant ``"halo"``: the
         Louvain-partitioned halo-exchange layout on the full-graph shapes
         of gin-tu and equiformer-v2 (``core/gnn_halo.build_halo_step``,
         which takes ``halo_kwargs``), with ``"bf16_msgs"`` for bf16
@@ -358,6 +360,10 @@ class GNNArch:
         Equiformer's edge tensors over all coefficients."""
         sh = shape_of(shape, smoke)
         cfg = self.make_config(sh, smoke)
+        if isinstance(group, RankGrid):
+            # The reference's layouts over a mesh: a full graph split over
+            # every axis, a batched shape over the dp axes.
+            group = group.everyone if sh.kind == "full" else group.dp
         if ("halo" in variant and sh.kind == "full"
                 and self.arch_id in ("gin-tu", "equiformer-v2")):
             from repro_torch.core.gnn_halo import build_halo_step

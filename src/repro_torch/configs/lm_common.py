@@ -511,7 +511,10 @@ def lm_rank_runs(group: ShardGroup, runs: list,
         res["started"], res["finished"] = started, time.time()
         res["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
                              if dev.type == "cuda" else 0)
-        res["stats"] = {k: v - stats0[k] for k, v in grid.stats().items()}
+        res["stats"] = {
+            k: ({kind: n - stats0[k][kind] for kind, n in v.items()}
+                if isinstance(v, dict) else v - stats0[k])
+            for k, v in grid.stats().items()}
         out.append(res)
         del params, step
         if dev.type == "cuda":

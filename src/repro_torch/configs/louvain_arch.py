@@ -393,3 +393,295 @@ def migrate_envelope(env: FleetEnvelope, e_need: int) -> FleetEnvelope:
     e_per = _pow2_at_least(max(FLEET_GROW_FACTOR * env.e_per_shard,
                                int(e_need)))
     return env._replace(e_per_shard=e_per)
+
+
+# ---------------------------------------------------------------------------
+# The paper's distributed phases as dry-run cells (``--arch louvain`` of
+# ``launch/dryrun.py``), mirroring Table 1's largest graphs; |E| counts
+# directed slots.  Each phase is a runnable algorithm over the ranks of a
+# ``ShardGroup``, and a dry group (``ShardGroup.dry``) traces it on meta
+# tensors at full scale.
+#
+# Variants:
+#   "delta_c"  one local-move round whose state exchange ships the movers
+#              only (``move_round_delta``), in place of the gather round's
+#              three O(n_pad) collectives (``distributed.round_body``);
+#   "a2a"      aggregation routing each partial coarse edge to the rank
+#              owning its source community with one capacity-bounded
+#              ``all_to_all`` (``aggregate_a2a_body``), in place of the
+#              baseline's ``all_gather``, which puts the whole edge list on
+#              every rank (45.6 GB at sk-2005 scale).
+# ---------------------------------------------------------------------------
+
+#: name -> (|V|, |E| directed slots, phase).
+LOUVAIN_SHAPES: Dict[str, Tuple[int, int, str]] = {
+    "web_3.8B_move": (50_636_154, 3_800_000_000, "move"),
+    "web_3.8B_aggregate": (50_636_154, 3_800_000_000, "aggregate"),
+    "road_108M_move": (50_912_018, 108_109_320, "move"),
+    "road_108M_aggregate": (50_912_018, 108_109_320, "aggregate"),
+}
+
+#: The smoke size of every Louvain shape: (|V|, |E|).
+LOUVAIN_SMOKE = (4096, 32768)
+
+#: Mover cap of the ``delta_c`` round as a fraction of ``v_per_shard``, and
+#: the ``a2a`` capacity per destination as a multiple of the fair share.
+DELTA_C_MOVE_CAP_FRAC = 4
+A2A_CAP_FACTOR = 4
+
+
+def spec_for(group, n: int, e: int):
+    """The ``ShardedGraphSpec`` of ``n`` vertices and ``e`` slots over the
+    ranks of ``group`` (the reference's ``_spec_for``)."""
+    from repro_torch.core.distributed import ShardedGraphSpec
+    n_shards = int(group.world_size)
+    v_per = -(-n // n_shards)
+    e_per = -(-e // n_shards)
+    return ShardedGraphSpec(n_shards, v_per, e_per, v_per * n_shards)
+
+
+def move_round_delta(group, spec, move_cap_frac: int, src_l, dst_l, w_l,
+                     comm, sigma, comm_sizes, k, m):
+    """One local-move round with a delta-encoded state exchange (the
+    reference's ``_move_round_delta``).
+
+    The gather round all-gathers the membership and sums the dense Sigma
+    and community sizes over the ranks.  Here each rank gathers only the
+    (vertex, new community) pairs of its movers, at most ``v_per //
+    move_cap_frac`` of them (``overflow``: the largest excess over that
+    cap, over all ranks; movers past the cap are not applied), and every
+    rank rebuilds membership, Sigma, sizes and its frontier from the
+    replicated K, the replicated sizes ``comm_sizes`` and the gathered
+    pairs.  The scan, the move rule (round-0 gate, singleton guard) and
+    the neighbour marking are the gather scanner's
+    (``distributed.ShardedScanner``); Sigma's sums run in float64 in vertex
+    order, as the delta scanner's do.  Returns (comm', sigma', sizes',
+    frontier (v_per,), dq, overflow)."""
+    from repro_torch.core.comm import compact_movers
+    from repro_torch.core.distributed import ShardedScanner
+    from repro_torch.core.engine import gated_move_mask, round_gate
+    from repro_torch.core.graph import segment_sum
+
+    v_per, sent = spec.v_per_shard, spec.sentinel
+    sc = ShardedScanner(group, spec, src_l, dst_l, w_l, k, m)
+    frontier_l = torch.ones(v_per, dtype=torch.bool, device=k.device)
+    best_c, best_dq = sc.scan(comm, sigma, frontier_l)
+    own_l = sc.comm_local(comm)
+    do_move = gated_move_mask(best_c, best_dq, own_l, comm_sizes,
+                              frontier_l, sent,
+                              gate=round_gate(sc.local_ids, 0, 2))
+    dq_local = torch.sum(torch.where(do_move, best_dq, 0.0),
+                         dtype=torch.float64).to(torch.float32)
+    dq = group.psum(dq_local.reshape(1))[0]
+
+    # Delta encoding: the (global vertex, new community) of the first
+    # ``cap`` movers, empty slots (sent, sent).
+    cap = max(v_per // move_cap_frac, 1)
+    idx, lab, n_moved = compact_movers(do_move, best_c, cap, sent)
+    gidx = torch.where(idx < v_per, sc.v0 + idx, sent).to(torch.int32)
+    overflow = group.pmax((n_moved - cap).reshape(1))[0]
+    g = group.all_gather(torch.stack([gidx, lab]), tiled=False)  # (S, 2, cap)
+    g_idx, g_val = g[:, 0].reshape(-1), g[:, 1].reshape(-1)
+
+    # Replicated reconstruction from the pairs; empty slots write the
+    # sentinel's own entries and add nothing.
+    live = g_idx < sent
+    at = torch.clamp(g_idx, max=sent).to(torch.int64)
+    old_c = comm[at]
+    comm_new = comm.clone().scatter_(0, at, torch.where(live, g_val, old_c))
+    new_c = torch.where(live, g_val, sent)
+    old_c = torch.where(live, old_c, sent)
+    k_moved = torch.where(live, k[at], 0.0)
+    sigma_new = (sigma + segment_sum(k_moved, new_c, sent + 1)
+                 - segment_sum(k_moved, old_c, sent + 1))
+    one = live.to(comm_sizes.dtype)
+    sizes_new = (comm_sizes + segment_sum(one, new_c, sent + 1)
+                 - segment_sum(one, old_c, sent + 1))
+    moved = torch.zeros(sent + 1, dtype=torch.bool, device=k.device)
+    moved.scatter_(0, at, live)
+    frontier_new = sc.mark_neighbors(moved) & sc.frontier_valid
+    return comm_new, sigma_new, sizes_new, frontier_new, dq, overflow
+
+
+def aggregate_a2a_body(group, spec, cap_factor: int, src_l, dst_l, w_l,
+                       comm):
+    """Owner-routed aggregation (the reference's ``_aggregate_a2a_body``):
+    the local partial reduce, each live partial coarse edge routed to the
+    rank owning its source community (``ci // v_per``) through one
+    ``all_to_all`` of packed (ci, cj, w) records with ``cap_factor * (e_l
+    // n_shards)`` slots per destination, and the owner's re-reduce.  Both
+    reductions resolve their sorted groups in K3
+    (``distributed.reduce_sorted_slots``).  A rank's traffic is 3 x
+    n_shards x cap x 4 B, about ``cap_factor x e_l x 12 B``, against the
+    gather baseline's ``n_shards x e_l x 12 B``.
+
+    Returns (o_ci, o_cj, o_w) of ``n_shards * cap`` slots (the rank's
+    coarse edges, padding (sent, sent, 0)), ``e_valid`` (coarse edges over
+    all ranks) and ``dropped`` (live partials the per-destination cap
+    refused, over all ranks), both 0-d."""
+    from repro_torch.core.distributed import (reduce_sorted_slots,
+                                              sorted_relabelled_slots)
+
+    v_per, sent, S = spec.v_per_shard, spec.sentinel, spec.n_shards
+    e_l = src_l.shape[0]
+    dev = src_l.device
+    p_ci, p_cj, p_w, n_live = reduce_sorted_slots(
+        *sorted_relabelled_slots(src_l, dst_l, w_l, comm, sent), sent, e_l)
+
+    # Destination sort: each destination's partials in (ci, cj) order,
+    # ranked within it; partials past the capacity are dropped.
+    cap = cap_factor * (e_l // S)
+    dest = torch.where(p_ci < sent, p_ci // v_per, S)
+    d_sorted, d_order = torch.sort(dest, stable=True)
+    rank = (torch.arange(e_l, device=dev)
+            - torch.searchsorted(d_sorted, d_sorted, side="left"))
+    keep = (d_sorted < S) & (rank < cap)
+    slot = torch.where(keep, d_sorted * cap + rank, S * cap)
+    wire = torch.full((3, S * cap + 1), sent, dtype=torch.int32, device=dev)
+    wire[2] = 0
+    rec = torch.stack([p_ci, p_cj, p_w.view(torch.int32)])[:, d_order]
+    wire.scatter_(1, slot.expand(3, -1),
+                  torch.where(keep, rec, wire[:, -1:]))
+    # One all_to_all: block p of the (S, 3, cap) records goes to rank p.
+    recv = group.all_to_all(
+        wire[:, :-1].view(3, S, cap).transpose(0, 1).contiguous())
+    r_ci = recv[:, 0].reshape(-1)
+    r_cj = recv[:, 1].reshape(-1)
+    r_w = recv[:, 2].reshape(-1).view(torch.float32)
+
+    # The owner's re-reduce of everything it was sent.
+    key = r_ci.to(torch.int64) * (sent + 1) + r_cj.to(torch.int64)
+    order = torch.sort(key, stable=True).indices
+    o_ci, o_cj, o_w, owned = reduce_sorted_slots(
+        r_ci[order], r_cj[order], r_w[order], sent, S * cap)
+    e_valid = group.psum(owned.reshape(1))[0]
+    dropped = group.psum((n_live - keep.to(torch.int32).sum())
+                         .reshape(1))[0]
+    return o_ci, o_cj, o_w, e_valid, dropped
+
+
+def aggregate_gather_body(group, spec, src_l, dst_l, w_l, comm):
+    """The gather baseline (the reference's ``_aggregate_gather_body``):
+    ``distributed.aggregate_records``, the port's distributed aggregation.
+    Returns (o_ci, o_cj, o_w) of ``e_l`` slots, ``e_valid`` and
+    ``owned_max`` (the largest count of coarse edges a rank owns: above
+    ``e_l`` the excess was dropped), both 0-d."""
+    from repro_torch.core.distributed import aggregate_records
+    return aggregate_records(group, spec, src_l, dst_l, w_l, comm)
+
+
+class LouvainStep:
+    """``step(batch)`` of one Louvain phase on this rank: ``batch`` holds
+    the rank's edge slices ``src``/``dst``/``w`` ((e_per_shard,)) and the
+    replicated ``comm``/``sigma``/``k`` ((n_pad + 1,)), ``m`` (0-d) and,
+    for ``delta_c``, ``comm_sizes``.  ``arg_specs`` is that batch's
+    ``{field: (shape, dtype)}``."""
+
+    def __init__(self, group, spec, phase: str, variant: Tuple[str, ...]):
+        self.group, self.spec, self.phase = group, spec, phase
+        self.variant = tuple(variant)
+        n1, e_l = spec.n_pad + 1, spec.e_per_shard
+        self.arg_specs = {"src": ((e_l,), torch.int32),
+                          "dst": ((e_l,), torch.int32),
+                          "w": ((e_l,), torch.float32),
+                          "comm": ((n1,), torch.int32),
+                          "sigma": ((n1,), torch.float32),
+                          "k": ((n1,), torch.float32),
+                          "m": ((), torch.float32)}
+        if phase == "move" and "delta_c" in self.variant:
+            self.arg_specs["comm_sizes"] = ((n1,), torch.int32)
+
+    def __call__(self, batch: dict):
+        from repro_torch.core.distributed import round_body
+        g, spec = self.group, self.spec
+        edges = (batch["src"], batch["dst"], batch["w"])
+        if self.phase == "move":
+            if "delta_c" in self.variant:
+                return move_round_delta(
+                    g, spec, DELTA_C_MOVE_CAP_FRAC, *edges, batch["comm"],
+                    batch["sigma"], batch["comm_sizes"], batch["k"],
+                    batch["m"])
+            frontier = torch.ones(spec.v_per_shard, dtype=torch.bool,
+                                  device=batch["k"].device)
+            return round_body(g, spec, *edges, batch["comm"],
+                              batch["sigma"], batch["k"], frontier, 0, 2,
+                              batch["m"])
+        if "a2a" in self.variant:
+            return aggregate_a2a_body(g, spec, A2A_CAP_FACTOR, *edges,
+                                      batch["comm"])
+        return aggregate_gather_body(g, spec, *edges, batch["comm"])
+
+
+class LouvainArch:
+    """The arch protocol over the paper's distributed phases (the
+    reference's ``LouvainArch``): ``input_specs`` and ``build_step``."""
+
+    arch_id = "louvain"
+    family = "louvain"
+    shapes: Tuple[str, ...] = tuple(LOUVAIN_SHAPES)
+
+    def __init__(self):
+        self.skip_notes: Dict[str, str] = {}
+
+    def sizes(self, shape: str, smoke: bool = False) -> Tuple[int, int, str]:
+        n, e, phase = LOUVAIN_SHAPES[shape]
+        if smoke:
+            n, e = LOUVAIN_SMOKE
+        return n, e, phase
+
+    def input_specs(self, shape: str, smoke: bool = False) -> dict:
+        """The global, unpadded ``{field: (shape, dtype)}``; the edge
+        arrays are padded to the ranks when the step is built."""
+        n, e, _ = self.sizes(shape, smoke)
+        return {"src": ((e,), torch.int32), "dst": ((e,), torch.int32),
+                "w": ((e,), torch.float32), "comm": ((n + 1,), torch.int32),
+                "sigma": ((n + 1,), torch.float32),
+                "k": ((n + 1,), torch.float32), "m": ((), torch.float32)}
+
+    def build_step(self, shape: str, group, smoke: bool = False,
+                   variant: Tuple[str, ...] = ()) -> LouvainStep:
+        """The phase of ``shape`` over the ranks of ``group`` (a
+        ``ShardGroup``, or a ``RankGrid``, whose axes the vertex partition
+        flattens over); variants ``"delta_c"`` (move) and ``"a2a"``
+        (aggregate)."""
+        if hasattr(group, "everyone"):
+            group = group.everyone
+        n, e, phase = self.sizes(shape, smoke)
+        return LouvainStep(group, spec_for(group, n, e), phase, variant)
+
+
+ARCH = LouvainArch()
+
+
+def louvain_rank_runs(group, runs: list) -> list:
+    """One rank of a spawned run of the Louvain phases
+    (``collectives.launch``), for each dict of ``runs``: ``shape``,
+    ``variant``, ``smoke`` (default True) and ``batch``, the step's global
+    inputs as numpy: ``src``/``dst``/``w`` of ``n_shards * e_per_shard``
+    slots in the step's layout (a move round reads each vertex's slots on
+    its owner), and the replicated ``comm``/``sigma``/``k``/``m`` (and
+    ``comm_sizes``).  Each result holds the step's outputs as numpy (the
+    rank's share of the edge outputs) and the step's host seconds
+    (``seconds``, ending in a sync on a card)."""
+    import time
+
+    dev = group.device
+    out = []
+    for run in runs:
+        step = ARCH.build_step(run["shape"], group,
+                               smoke=run.get("smoke", True),
+                               variant=tuple(run.get("variant", ())))
+        lo = group.rank * step.spec.e_per_shard
+        hi = lo + step.spec.e_per_shard
+        batch = {k: torch.from_numpy(np.array(
+                     v[lo:hi] if k in ("src", "dst", "w") else v)).to(dev)
+                 for k, v in run["batch"].items()}
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        res = step(batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        out.append({"out": [x.cpu().numpy() for x in res],
+                    "seconds": time.perf_counter() - t})
+    return out

@@ -7,11 +7,9 @@ Every entry exposes the arch protocol:
     .build_step(shape, group, smoke=False, ...) -> the step over the ranks
         of a ``ShardGroup``
 
-The reference's ``EXTRA_ARCHS`` holds ``louvain_arch.ARCH``, the Louvain
-phases as dry-run targets; that half of ``configs/louvain_arch.py`` is not
-ported yet (ROADMAP item 13c), so ``EXTRA_ARCHS`` is empty and
-``get_arch("louvain")`` raises the reference's ``KeyError`` for an
-unknown id.
+``EXTRA_ARCHS`` holds ``louvain_arch.ARCH``, the paper's own distributed
+phases as dry-run targets (not among the assigned cells; ``--arch louvain``
+of ``launch/dryrun.py``), as the reference's does.
 """
 
 from __future__ import annotations
@@ -29,7 +27,11 @@ ALL_ARCHS = {
               fm)
 }
 
-EXTRA_ARCHS: Dict[str, object] = {}
+# The paper's own distributed phases as dry-run targets.
+from repro_torch.configs import louvain_arch  # noqa: E402
+
+EXTRA_ARCHS: Dict[str, object] = {louvain_arch.ARCH.arch_id:
+                                  louvain_arch.ARCH}
 
 
 def get_arch(arch_id: str):

@@ -18,7 +18,19 @@ The backend is the caller's choice and is never changed behind its back:
     ``staged_bytes``.  Its wall time is no multi-GPU number;
   * ``"single"``: one rank and no process group (``ShardGroup.single``);
     every collective is the identity.  A process group of world size 1
-    (NCCL on the one card) still runs each collective through it.
+    (NCCL on the one card) still runs each collective through it;
+  * ``"dry"``: one rank of any world size with no process group
+    (``ShardGroup.dry``), for the dry run (``launch/dryrun.py``): each
+    collective returns an uninitialised tensor of the shape and type the
+    real one returns, on the input's device, and counts what a real rank
+    counts.  Its tensors are meant to be ``meta`` tensors, which hold no
+    memory.
+
+Every rank counts the bytes of each collective's output by kind
+(``coll_bytes``, the five kinds of the reference's
+``launch/analysis._COLLECTIVES``): what it issues, so a float ``psum``
+counts as the all-gather it runs and ``reduce_scatter`` as its
+all-to-all.
 
 Float sums across ranks (``psum`` of a float tensor) gather the partials
 and add them in rank order in float64, rounding once, so every rank gets
@@ -73,6 +85,15 @@ def mesh_rank(coords: Sequence[int], shape: Sequence[int]) -> int:
     return rank
 
 
+#: The kinds of ``coll_bytes``, the reference's ``analysis._COLLECTIVES``.
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+
+
+def _zero_kinds() -> dict:
+    return dict.fromkeys(COLLECTIVE_KINDS, 0)
+
+
 def _default_device(backend: str, rank: int) -> torch.device:
     if backend == "nccl":
         return torch.device(f"cuda:{rank}")
@@ -102,12 +123,24 @@ class ShardGroup:
     #: goes on the wire; counted at world size 1 too, where a collective is
     #: the identity).  The sharded move phase reads its own share of it.
     wire_bytes: int = 0
+    #: Bytes of the output of each collective this rank issued, by kind
+    #: (``COLLECTIVE_KINDS``).
+    coll_bytes: dict = dataclasses.field(default_factory=_zero_kinds)
 
     @classmethod
     def single(cls, device="cuda") -> "ShardGroup":
         """World size 1 without a process group, on ``device`` (the card
         unless the caller asks for the CPU)."""
         return cls(0, 1, resolve_device(device), "single")
+
+    @classmethod
+    def dry(cls, rank: int, world_size: int,
+            device="cpu") -> "ShardGroup":
+        """Rank ``rank`` of ``world_size`` with no process group and no
+        peers: the dry run's group (see the module docstring)."""
+        if not 0 <= rank < world_size:
+            raise ValueError(f"rank {rank} outside a world of {world_size}")
+        return cls(rank, world_size, torch.device(device), "dry")
 
     @classmethod
     def init(cls, backend: str, rank: int, world_size: int,
@@ -153,6 +186,10 @@ class ShardGroup:
         return self.rank
 
     # -- collectives -------------------------------------------------------
+    def _issued(self, kind: str, out_numel: int, x: torch.Tensor) -> None:
+        self.collectives += 1
+        self.coll_bytes[kind] += out_numel * x.element_size()
+
     def _staged(self, x: torch.Tensor) -> bool:
         return self.backend == "gloo" and x.device.type == "cuda"
 
@@ -179,9 +216,15 @@ class ShardGroup:
         """Every rank's ``x`` in rank order: concatenated along ``dim``
         (``tiled``) or stacked on a new leading axis."""
         self.wire_bytes += x.numel() * x.element_size()
+        if self.backend == "dry":
+            self._issued("all-gather", x.numel() * self.world_size, x)
+            # The real path's allocations: one buffer a rank, then their
+            # concatenation (or stack).
+            parts = x.new_empty((self.world_size, *x.shape)).unbind(0)
+            return torch.cat(parts, dim) if tiled else torch.stack(parts)
         if self.group is None:
             return x if tiled else x[None]
-        self.collectives += 1
+        self._issued("all-gather", x.numel() * self.world_size, x)
         wire = self._to_wire(x)
         parts = [torch.empty_like(wire) for _ in range(self.world_size)]
         dist.all_gather(parts, wire, group=self.group)
@@ -196,12 +239,14 @@ class ShardGroup:
         ``split_axis = concat_axis = 0``.  Gloo moves the bytes (any
         type)."""
         self.wire_bytes += x.numel() * x.element_size()
-        if self.group is None:
+        if self.group is None and self.backend != "dry":
             return x
         if x.shape[0] % self.world_size:
             raise ValueError(f"all_to_all: {x.shape[0]} rows do not split "
                              f"over {self.world_size} ranks")
-        self.collectives += 1
+        self._issued("all-to-all", x.numel(), x)
+        if self.backend == "dry":
+            return x.new_empty(x.shape)
         raw = x.contiguous()
         if self.backend == "gloo":
             raw = raw.view(torch.uint8)
@@ -213,9 +258,12 @@ class ShardGroup:
 
     def _all_reduce(self, x: torch.Tensor, op) -> torch.Tensor:
         self.wire_bytes += x.numel() * x.element_size()
+        if self.backend == "dry":
+            self._issued("all-reduce", x.numel(), x)
+            return x.new_empty(x.shape)
         if self.group is None:
             return x
-        self.collectives += 1
+        self._issued("all-reduce", x.numel(), x)
         wire = self._to_wire(x.clone())
         dist.all_reduce(wire, op=op, group=self.group)
         return self._from_wire(wire, x)
@@ -226,7 +274,7 @@ class ShardGroup:
         ``x``'s type, so every rank holds the same bits."""
         if not x.is_floating_point():
             return self._all_reduce(x, dist.ReduceOp.SUM)
-        if self.group is None:
+        if self.group is None and self.backend != "dry":
             self.wire_bytes += x.numel() * x.element_size()
             return x
         parts = self.all_gather(x, tiled=False)
@@ -241,7 +289,7 @@ class ShardGroup:
         r (one ``all_to_all``) and added there in rank order in float64,
         rounding once (integers in int64, exact).  The bits are
         ``psum(x)``'s part r, for a ``1 / world_size`` of its traffic."""
-        if self.group is None:
+        if self.group is None and self.backend != "dry":
             self.wire_bytes += x.numel() * x.element_size()
             return x
         moved = x.movedim(dim, 0).contiguous()
@@ -358,7 +406,8 @@ def all_gather_dim(x: torch.Tensor, dim: int, group: ShardGroup,
     one rank).  Its gradient is ``AllGather``'s (``backward="sum"``: the
     ranks consume the gathered tensor differently) or
     ``AllGatherReplicated``'s (``"own"``)."""
-    if group.world_size == 1 and group.group is None:
+    if (group.world_size == 1 and group.group is None
+            and group.backend != "dry"):
         return x
     op = {"sum": AllGather, "own": AllGatherReplicated}[backward]
     return op.apply(x.contiguous(), group, dim % x.dim())
@@ -383,7 +432,8 @@ class RankGrid:
     the same order on every rank; a subgroup of one rank has no process
     group (its collectives are the identity) and one that spans the world
     reuses the parent's.  At ``ShardGroup.single`` every subgroup is
-    single.
+    single; over a dry group (``ShardGroup.dry``) every subgroup of more
+    than one rank is dry, and no process group is made.
     """
 
     def __init__(self, group: ShardGroup, shape: Sequence[int],
@@ -430,6 +480,10 @@ class RankGrid:
         sub_rank = mesh_rank([self.coords[a] for a in axes], sizes)
         if size == g.world_size:
             return ShardGroup(sub_rank, size, g.device, g.backend, g.group)
+        if g.backend == "dry":
+            # No process group to make: the subgroup is a dry group too.
+            backend = "dry" if size > 1 else "single"
+            return ShardGroup(sub_rank, size, g.device, backend)
         others = [a for a in self.axis_names if a not in axes]
         mine = None
         if size > 1:
@@ -470,12 +524,16 @@ class RankGrid:
         return self.sub(self.axis_names)
 
     def stats(self) -> dict:
-        """``staged_bytes``, ``collectives`` and ``wire_bytes`` summed over
-        the parent group and every subgroup (each counts its own)."""
+        """``staged_bytes``, ``collectives``, ``wire_bytes`` and
+        ``coll_bytes`` (by kind) summed over the parent group and every
+        subgroup (each counts its own)."""
         groups = [self.group] + [s for s in self._subs.values()
                                  if s is not self.group]
-        return {k: sum(getattr(s, k) for s in groups)
-                for k in ("staged_bytes", "collectives", "wire_bytes")}
+        out = {k: sum(getattr(s, k) for s in groups)
+               for k in ("staged_bytes", "collectives", "wire_bytes")}
+        out["coll_bytes"] = {k: sum(s.coll_bytes[k] for s in groups)
+                             for k in COLLECTIVE_KINDS}
+        return out
 
 
 

@@ -61,7 +61,8 @@ from repro_torch.core.comm import (CommPlan, boundary_mask, comm_plan,
                                    size_delta_width, topk_touched_deltas,
                                    unpack_bits)
 from repro_torch.core.engine import (ConstrainedScanner, EngineConfig,
-                                     MoveEngine, assert_outer_sane,
+                                     MoveEngine, MoveState,
+                                     assert_outer_sane,
                                      mask_cross_outer_slots, sanitize_outer,
                                      valid_ids)
 from repro_torch.core.graph import CSRGraph, scatter_slots, segment_sum
@@ -817,6 +818,23 @@ def distributed_move(group: ShardGroup, spec: ShardedGraphSpec, src_l, dst_l,
             (group.wire_bytes - wire0) * group.world_size)
 
 
+def round_body(group: ShardGroup, spec: ShardedGraphSpec, src_l, dst_l, w_l,
+               comm, sigma, k, frontier_l, round_ix: int, gate_fraction: int,
+               m):
+    """One synchronous local-move round of one rank (the reference's
+    ``_round_body``): ``MoveEngine.one_round`` over the gather exchange
+    (``ShardedScanner``) from (comm, sigma) and the rank's frontier.
+    Returns (comm', sigma', frontier', dq), comm and sigma replicated."""
+    scanner = ShardedScanner(group, spec, src_l, dst_l, w_l, k, m)
+    engine = MoveEngine(scanner, EngineConfig(gate_fraction=gate_fraction))
+    zero = torch.zeros(1, dtype=torch.float32, device=k.device)
+    live = torch.ones(spec.v_per_shard, dtype=torch.bool, device=k.device)
+    st = MoveState(comm, sigma, frontier_l, np.zeros(1, np.int64), zero,
+                   zero, live)
+    st = engine.one_round(st, frontier_l, round_ix)
+    return st.comm, st.sigma, st.frontier, st.dq[0]
+
+
 def distributed_refine(group: ShardGroup, spec: ShardedGraphSpec, src_l,
                        dst_l, w_l, outer, k, n_live, m, tolerance, *,
                        config: EngineConfig, comm_backend: str = "gather",
@@ -896,8 +914,18 @@ def distributed_aggregate(group: ShardGroup, spec: ShardedGraphSpec, src_l,
     membership.  Returns (src_l', dst_l', w_l', e_valid, owned_max): this
     rank's coarse slots in the same ``(e_per_shard,)`` layout (coarse
     vertex v owned by rank v // v_per) and the replicated total and
-    largest per-rank count of coarse slots.  A rank owning more than
-    ``e_per_shard`` drops the excess, and ``owned_max`` shows it."""
+    largest per-rank count of coarse slots, as host ints.  A rank owning
+    more than ``e_per_shard`` drops the excess, and ``owned_max`` shows
+    it."""
+    o_ci, o_cj, o_w, e_valid, owned_max = aggregate_records(
+        group, spec, src_l, dst_l, w_l, comm)
+    return o_ci, o_cj, o_w, int(e_valid), int(owned_max)
+
+
+def aggregate_records(group: ShardGroup, spec: ShardedGraphSpec, src_l,
+                      dst_l, w_l, comm):
+    """``distributed_aggregate`` with ``e_valid`` and ``owned_max`` left
+    as 0-d tensors on the device (the reference's outputs)."""
     v_per, sent = spec.v_per_shard, spec.sentinel
     e_l = src_l.shape[0]
     p_ci, p_cj, p_w, _ = reduce_sorted_slots(
@@ -910,8 +938,7 @@ def distributed_aggregate(group: ShardGroup, spec: ShardedGraphSpec, src_l,
     v0 = group.shard_index() * v_per
     o_ci, o_cj, o_w, owned = reduce_sorted_slots(
         *owner_sorted_slots(g_ci, g_cj, g_w, v0, v_per, sent), sent, e_l)
-    return (o_ci, o_cj, o_w, int(group.psum(owned)),
-            int(group.pmax(owned)))
+    return o_ci, o_cj, o_w, group.psum(owned), group.pmax(owned)
 
 
 def _vertex_k(group: ShardGroup, spec: ShardedGraphSpec, src_l, w_l):

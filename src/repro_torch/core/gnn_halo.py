@@ -35,6 +35,7 @@ reference's ``psum(nll) / psum(count)``.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -358,6 +359,11 @@ def build_halo_inputs(edge_src, edge_dst, membership_order, n_shards: int,
 # Spawned ranks
 # ---------------------------------------------------------------------------
 
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def gnn_rank_runs(group: ShardGroup, runs: list) -> dict:
     """One rank of a spawned GNN run (``collectives.launch``), for each
     dict of ``runs``: ``arch`` (an ``arch_id`` of ``gnn_archs()``), ``cfg``
@@ -369,9 +375,10 @@ def gnn_rank_runs(group: ShardGroup, runs: list) -> dict:
     keywords: ``spec``, ``n_valid``, ``bf16_msgs``, ``m_truncate``);
     ``steps`` AdamW steps (lr 1e-2) follow the first loss.  Each result
     holds the first loss, the summed gradients (numpy, by parameter name),
-    the steps' losses and the bytes the run handed to the collectives
-    (``wire_bytes``); the rank's totals of ``wire_bytes`` and
-    ``staged_bytes`` come beside them."""
+    the steps' losses, the bytes the run handed to the collectives
+    (``wire_bytes``) and the host seconds of the first loss and gradients
+    (``seconds``, ending in a sync on a card); the rank's totals of
+    ``wire_bytes`` and ``staged_bytes`` come beside them."""
     from repro_torch.configs.gnn_common import gnn_archs
     from repro_torch.optim import AdamWConfig, adamw_init
 
@@ -395,7 +402,11 @@ def gnn_rank_runs(group: ShardGroup, runs: list) -> dict:
             step = arch.build_step(run["shape"], group,
                                    smoke=run.get("smoke", False),
                                    opt_cfg=opt_cfg)
+        _sync(dev)
+        t = time.perf_counter()
         loss, grads = step.loss_and_grads(model, batch)
+        _sync(dev)
+        seconds = time.perf_counter() - t
         opt = adamw_init(model)
         losses = []
         for _ in range(run.get("steps", 0)):
@@ -403,6 +414,7 @@ def gnn_rank_runs(group: ShardGroup, runs: list) -> dict:
             losses.append(float(lo))
         out.append({"loss": float(loss),
                     "grads": {k: g.cpu().numpy() for k, g in grads.items()},
-                    "losses": losses, "wire_bytes": group.wire_bytes - wire0})
+                    "losses": losses, "wire_bytes": group.wire_bytes - wire0,
+                    "seconds": seconds})
     return {"results": out, "wire_bytes": group.wire_bytes,
             "staged_bytes": group.staged_bytes}

@@ -13,13 +13,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import shutil
 import subprocess
 import threading
 from pathlib import Path
 from typing import Callable, Dict, Iterable
 
 import torch
+
+from repro_torch.compat import nvcc_path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -37,18 +38,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[str, Callable[..., int]] = {}
-
-
-def nvcc_path() -> str:
-    """The CUDA compiler: ``nvcc`` on PATH, else under PyTorch's CUDA_HOME."""
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
-                       "toolkit (nvcc on PATH or CUDA_HOME set)")
 
 
 def library_path(name: str) -> Path:

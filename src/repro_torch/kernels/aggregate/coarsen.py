@@ -54,9 +54,11 @@ def coarsen_groups_ref(s_ci: torch.Tensor, s_cj: torch.Tensor,
     pos = (torch.cumsum(em, 0, dtype=torch.int32) - em)
 
     incl = torch.cumsum(w, 0)
-    gid = torch.cumsum(is_first.to(torch.int64), 0) - 1
-    group_base = (incl - w)[is_first]          # prefix before each group
-    open_sum = (incl - group_base[gid]).to(torch.float32)
+    # Each slot's group start (a running maximum of the groups' first
+    # slots) and the prefix before it.
+    at = torch.arange(ci.shape[0], device=dev)
+    first = torch.cummax(torch.where(is_first, at, 0), 0).values
+    open_sum = (incl - (incl - w)[first]).to(torch.float32)
     g_w = torch.cat([torch.zeros(1, dtype=torch.float32, device=dev),
                      open_sum[:-1]])
     return emit, pos, prev_ci, prev_cj, g_w
@@ -75,10 +77,11 @@ def coarsen_groups(s_ci: torch.Tensor, s_cj: torch.Tensor, s_w: torch.Tensor,
                    *, sent: int) -> Tuple[torch.Tensor, ...]:
     """K3: per-slot group records over a sorted relabelled slot list.
 
-    On CPU tensors this is the plain version; on CUDA tensors it launches
-    the kernel (and counts the launch in ``coarsen_groups.launches``).
+    On CPU tensors this is the plain version (on ``meta`` tensors too,
+    which the dry run's shapes go through); on CUDA tensors it launches the
+    kernel (and counts the launch in ``coarsen_groups.launches``).
     """
-    if s_ci.device.type == "cpu":
+    if s_ci.device.type in ("cpu", "meta"):
         return coarsen_groups_ref(s_ci, s_cj, s_w, sent=sent)
     dev = s_ci.device
     total = s_ci.shape[0]

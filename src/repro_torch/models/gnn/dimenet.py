@@ -18,7 +18,9 @@ vectorised, in the reference's order and padding.  The bilinear
 interaction ``einsum("tb,bdo,td->to")`` runs as the edges' ``(d, b·o)``
 product gathered per triplet and contracted with the triplet's ``b``
 weights, so no (T, d, d) tensor is formed.  Sums are float32 scatter-adds:
-results are float32-close to the reference, not bit-equal.
+results are float32-close to the reference, not bit-equal.  A full graph
+splits over ranks as GIN's does (nodes, edges and triplets on dim 0), with
+an edge exchange beside the node exchange (``DimeNet.forward``).
 """
 
 from __future__ import annotations
@@ -33,8 +35,8 @@ import torch
 from torch import nn
 
 from repro_torch.core.graph import resolve_device
-from repro_torch.models.gnn.common import (MLP, GraphBatch, clamp_src,
-                                           segment_sum)
+from repro_torch.models.gnn.common import (LOCAL, MLP, GraphBatch,
+                                           LocalNodes, clamp_src, segment_sum)
 
 
 # --- spherical Bessel j_l, closed forms up to l = 6 -------------------------
@@ -225,13 +227,24 @@ class DimeNet(nn.Module):
         self.to(dev)
 
     def forward(self, g: GraphBatch, t_kj: torch.Tensor,
-                t_ji: torch.Tensor) -> torch.Tensor:
+                t_ji: torch.Tensor, nodes=LOCAL, edges=LOCAL) -> torch.Tensor:
         """Graph-level prediction (G_pad, out_dim) over
-        ``graph_id.shape[0]`` segments.  Requires ``g.positions``."""
+        ``graph_id.shape[0]`` segments.  Requires ``g.positions``.
+
+        With ``nodes`` and ``edges`` splitting a full graph over ranks
+        (``configs.gnn_common.ShardedNodes``; both dim 0, in rank order):
+        ``g`` holds the rank's nodes and edges (ids global) and ``t_kj`` /
+        ``t_ji`` its triplets (edge ids global).  Node reads gather every
+        node's position and features; the triplets read every edge's
+        geometry and each block's per-edge products through the edge
+        exchange's gather, and their sums go back to the owning edges by
+        its reduce-scatter; the readout over ``edge_dst`` scatters to the
+        owning nodes, and the graph sum adds over ranks (all in rank
+        order).  The output then has ``g.n_graphs`` rows."""
         cfg = self.cfg
-        n_pad = g.node_feat.shape[0]
-        e_pad = g.edge_src.shape[0]
-        pos = g.positions
+        pos = nodes.gather(g.positions)
+        feat = nodes.gather(g.node_feat)
+        n_pad = pos.shape[0]
         # Edge geometry (padding edges point sentinel->sentinel; clamp).
         s = clamp_src(g.edge_src, n_pad)
         t = clamp_src(g.edge_dst, n_pad)
@@ -240,19 +253,22 @@ class DimeNet(nn.Module):
         rbf = rbf_basis(dist, cfg.n_radial, cfg.cutoff)     # (E, n_radial)
 
         live_e = (g.edge_src < n_pad)[:, None].to(pos.dtype)
-        x_e = self.embed(torch.cat([g.node_feat[s], g.node_feat[t], rbf],
-                                   dim=-1))
+        x_e = self.embed(torch.cat([feat[s], feat[t], rbf], dim=-1))
         x_e = x_e * live_e                                  # (E, d)
 
-        # Triplet geometry: angle between edge ji and edge kj at node j.
+        # Triplet geometry: angle between edge ji and edge kj at node j,
+        # from every edge's vector and length.
+        geo = edges.gather(torch.cat([vec, dist[:, None]], -1))
+        vec_all, dist_all = geo[:, :3], geo[:, 3]
+        e_pad = geo.shape[0]
         kj = clamp_src(t_kj, e_pad)
         ji = clamp_src(t_ji, e_pad)
-        v1 = -vec[kj]                                       # j -> k
-        v2 = vec[ji]                                        # j -> i
+        v1 = -vec_all[kj]                                   # j -> k
+        v2 = vec_all[ji]                                    # j -> i
         cos_a = torch.sum(v1 * v2, -1) / torch.clamp(
             torch.linalg.norm(v1, dim=-1) * torch.linalg.norm(v2, dim=-1),
             min=1e-8)
-        sbf = sbf_basis(dist[kj], torch.clamp(cos_a, -1.0, 1.0),
+        sbf = sbf_basis(dist_all[kj], torch.clamp(cos_a, -1.0, 1.0),
                         cfg.n_spherical, cfg.n_radial, cfg.cutoff)
         live_t = (t_kj < e_pad)[:, None].to(pos.dtype)
         seg_t = torch.clamp(t_ji, max=e_pad).to(torch.int64)
@@ -265,16 +281,19 @@ class DimeNet(nn.Module):
             # Bilinear directional interaction (DimeNet eq. 9): each edge's
             # (b, o) products, gathered per triplet, weighted by sbf_p.
             w = bp.w_bil.permute(1, 0, 2).reshape(d, nb * d)
-            per_b = (m_kj @ w).view(-1, nb, d).index_select(0, kj)
+            per_b = edges.gather((m_kj @ w).view(-1, nb, d)).index_select(
+                0, kj)
             tri = torch.einsum("tb,tbo->to", sbf_p, per_b)
-            agg = segment_sum(tri, seg_t, e_pad + 1)[:e_pad]
+            agg = edges.scatter(segment_sum(tri, seg_t, e_pad + 1)[:e_pad])
             x_e = x_e + bp.mlp_out(bp.mlp_ji(x_e) * rbf_proj + agg)
             x_e = x_e * live_e
 
         # Per-node then per-graph readout.
-        node_out = segment_sum(x_e, torch.clamp(g.edge_dst, max=n_pad).to(
-            torch.int64), n_pad + 1)[:n_pad]
-        g_out = segment_sum(node_out, g.graph_id, int(g.graph_id.shape[0]))
+        node_out = nodes.scatter(segment_sum(x_e, torch.clamp(
+            g.edge_dst, max=n_pad).to(torch.int64), n_pad + 1)[:n_pad])
+        rows = (int(g.graph_id.shape[0]) if isinstance(nodes, LocalNodes)
+                else g.n_graphs)
+        g_out = nodes.all_sum(segment_sum(node_out, g.graph_id, rows))
         return self.out(g_out)
 
     def loss(self, g: GraphBatch, t_kj: torch.Tensor,

@@ -320,7 +320,9 @@ class TensorParallel:
                        n_experts: int) -> torch.Tensor:
         """(E,) the assignments to each expert on the lower dp ranks: the
         global token-major order puts them first."""
-        counts = torch.bincount(flat_e, minlength=n_experts)
+        counts = torch.zeros(n_experts, dtype=torch.int64,
+                             device=flat_e.device).index_add_(
+            0, flat_e.long(), torch.ones_like(flat_e, dtype=torch.int64))
         if not self.tokens_split or self.dp.world_size == 1:
             return torch.zeros_like(counts)
         every = self.dp.all_gather(counts, tiled=False)

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.compat import is_dry
 from repro_torch.core.graph import resolve_device
 from repro_torch.sharding.rules import fm_param_split
 
@@ -130,29 +131,38 @@ def sorted_segment_sums(values: Sequence[torch.Tensor],
     same inputs give the same bits on every run and every device."""
     seg = segments.reshape(-1).long()
     n = seg.numel()
-    outs = [torch.zeros((num_segments, *v.shape[1:]), dtype=v.dtype,
+    # One spare last row takes the entries that are not their run's first.
+    outs = [torch.zeros((num_segments + 1, *v.shape[1:]), dtype=v.dtype,
                         device=v.device) for v in values]
     if n == 0:
-        return outs
+        return [out[:num_segments] for out in outs]
     order = torch.argsort(seg, stable=True)
     s = seg[order]
     head = torch.ones(n, dtype=torch.bool, device=seg.device)
     head[1:] = s[1:] != s[:-1]
-    heads = torch.nonzero(head).squeeze(1)           # each run's first entry
-    counts = torch.diff(heads, append=heads.new_tensor([n]))
-    run = torch.cumsum(head, 0) - 1                  # each entry's run
-    pos = torch.arange(n, device=seg.device) - heads[run]
+    # Each entry's run: its first entry (a running maximum of the heads'
+    # positions) and its end (a running minimum from the right).
+    at = torch.arange(n, device=seg.device)
+    first = torch.cummax(torch.where(head, at, 0), 0).values
+    nxt = torch.full((n,), n, dtype=at.dtype, device=seg.device)
+    nxt[:-1] = torch.where(head[1:], at[1:], n)
+    end = torch.flip(torch.cummin(torch.flip(nxt, (0,)), 0).values, (0,))
+    pos, length = at - first, end - first
+    # A run is at most n long: the bound a dry run takes for the tree's
+    # depth, where the longest run is not known.
+    dry = is_dry(seg)
     flat = [v.reshape(n, -1) for v in values]
-    x = _tree_sum(torch.cat(flat, 1).index_select(0, order), pos,
-                  counts[run], int(counts.max()))
-    rows, tot = s[heads], x[heads]
+    x = _tree_sum(torch.cat(flat, 1).index_select(0, order), pos, length,
+                  n if dry else int(length.max()), gather=not dry)
+    # Each run's total sits on its first entry.
+    rows = torch.where(head, s, num_segments)
     col = 0
     for out, f in zip(outs, flat):
         w = f.shape[1]
-        out.index_copy_(0, rows, tot[:, col:col + w].reshape(
+        out.index_copy_(0, rows, x[:, col:col + w].reshape(
             -1, *out.shape[1:]))
         col += w
-    return outs
+    return [out[:num_segments] for out in outs]
 
 
 def sorted_segment_sum(values: torch.Tensor, segments: torch.Tensor,

@@ -55,6 +55,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.compat import is_dry
 from repro_torch.core.collectives import SumFromRanks, all_gather_dim
 from repro_torch.core.graph import resolve_device
 from repro_torch.models import mla as mla_mod
@@ -344,6 +345,8 @@ def _attention_block(cfg: TransformerConfig, p: dict, x: torch.Tensor,
     if cfg.mla is not None:
         return mla_mod.mla_attention_full(p, cfg.mla, h, x, positions,
                                           cfg.rope_theta, tp=tp)
+    if tp is not None and h % tp.size:
+        return _attention_all_heads(cfg, p, x, positions, window, tp)
     if tp is not None:
         h = tp.local_heads(h)
         x = tp.copy(x)
@@ -360,6 +363,29 @@ def _attention_block(cfg: TransformerConfig, p: dict, x: torch.Tensor,
     out = blockwise_attention(q, k, v, causal=True, window=window)
     out = out.reshape(b, s, h * dh) @ p["wo"]
     return out if tp is None else tp.sum(out)
+
+
+def _attention_all_heads(cfg: TransformerConfig, p: dict, x: torch.Tensor,
+                         positions, window: Optional[int],
+                         tp: TensorParallel) -> torch.Tensor:
+    """The attention block over a grid whose model axis does not divide
+    the query heads (qwen2-1.5b's 12 over 16): the rank's columns of the
+    query, key and value projections are gathered over ``model``, every
+    rank attends every head, and the rank's rows of ``wo`` read its
+    columns of the heads' outputs (what the reference's column split of
+    ``wq`` and row split of ``wo`` leave to the compiler)."""
+    b, s, _ = x.shape
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    x = tp.copy(x)
+    q, k, v = (x @ p[w] + p[bias] if cfg.qkv_bias else x @ p[w]
+               for w, bias in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
+    q, k, v = (tp.gather(t, -1) for t in (q, k, v))
+    q = apply_rope(q.reshape(b, s, h, dh), positions, cfg.rope_theta)
+    k = apply_rope(k.reshape(b, s, hk, dh), positions, cfg.rope_theta)
+    out = blockwise_attention(q, k, v.reshape(b, s, hk, dh), causal=True,
+                              window=window).reshape(b, s, h * dh)
+    cols = p["wo"].shape[0]
+    return tp.sum(out[..., tp.rank * cols:(tp.rank + 1) * cols] @ p["wo"])
 
 
 def _ffn_block(cfg: TransformerConfig, p: dict, x: torch.Tensor,
@@ -700,11 +726,11 @@ def _decode_layer_grid(cfg, window, p, x, pos, cache_slot, cache_len,
     merged, and the rank's heads go through its rows of ``wo``."""
     b = x.shape[0]
     h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    h_loc = tp.local_heads(h)
     hcur = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
         m = cfg.mla
-        _, _, c_kv, k_rope = mla_mod.mla_qkv(p, m, h_loc, hcur, pos,
+        _, _, c_kv, k_rope = mla_mod.mla_qkv(p, m, tp.local_heads(h), hcur,
+                                             pos,
                                              cfg.rope_theta)
         cs.write(cache_slot["c_kv"], c_kv, cache_len, "c_kv")
         cs.write(cache_slot["k_rope"], k_rope[:, :, 0], cache_len, "k_rope")
@@ -738,18 +764,23 @@ def _decode_layer_grid(cfg, window, p, x, pos, cache_slot, cache_len,
         part = decode_attention_partial(q, read[0], read[1], cache_len + 1,
                                         start=cs.start, window=window,
                                         **scales)
-        attn = cs.merge(part, q.dtype)[:, :, tp.rank * h_loc:
-                                             (tp.rank + 1) * h_loc]
-        x = x + tp.sum(attn.reshape(b, 1, h_loc * dh) @ p["wo"])
+        # The rank's rows of wo read its columns of the heads' outputs
+        # (its heads where they divide the model axis).
+        cols = p["wo"].shape[0]
+        attn = cs.merge(part, q.dtype).reshape(b, 1, h * dh)
+        x = x + tp.sum(attn[..., tp.rank * cols:(tp.rank + 1) * cols]
+                       @ p["wo"])
     hcur = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + _ffn_block(cfg, p, hcur, tp)
 
 
 def _host_int(value):
     """``value`` as a Python int where it is one on the host (an int or a
-    CPU tensor), else ``None`` (reading a card tensor would sync)."""
+    CPU tensor), else ``None`` (reading a card tensor would sync; a dry
+    run's tensor holds no value)."""
     if isinstance(value, torch.Tensor):
-        return int(value) if value.device.type == "cpu" else None
+        return (int(value) if value.device.type == "cpu"
+                and not is_dry(value) else None)
     return int(value)
 
 

@@ -227,11 +227,65 @@ def test_energies_invariant_under_rotation_and_translation():
 
 
 def test_full_graph_runs_on_one_rank_only():
-    import dataclasses
+    """A full graph no longer runs on one rank only: over a (dry) group of
+    two ranks the share takes the rank's half of every split field, moves
+    node and edge rows through the exchanges (all-gathers, and the
+    reduce-scatters as all-to-alls), and rank 1's share carries no loss of
+    its own (rank 0 holds the graph's)."""
     from repro_torch import ShardGroup
+    from repro_torch.configs.gnn_common import shard_batch
     sh = GNN_SMOKE_SHAPES["full_graph_sm"]
-    share = dimenet_cfg.ARCH.make_loss(dimenet_cfg._config(sh, True), sh,
-                                       "full_graph_sm")
-    two = dataclasses.replace(ShardGroup.single(CPU), world_size=2)
-    with pytest.raises(ValueError, match="one rank"):
-        share(None, {}, two)
+    cfg = dimenet_cfg._config(sh, True)
+    share = dimenet_cfg.ARCH.make_loss(cfg, sh, "full_graph_sm")
+    specs = dimenet_cfg.ARCH.input_specs("full_graph_sm", smoke=True)
+    with torch.device("meta"):
+        model = dimenet.DimeNet(cfg, 0, "meta")
+        batch = {k: torch.empty(s, dtype=dt) for k, (s, dt) in specs.items()}
+        for rank in (0, 1):
+            two = ShardGroup.dry(rank, 2)
+            split = {k: None if k == "labels" else 0 for k in batch}
+            loss = share(model, shard_batch(batch, split, two), two)
+            assert loss.shape == () and loss.device.type == "meta"
+            assert two.coll_bytes["all-gather"] > 0
+            assert two.coll_bytes["all-to-all"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The full graph over ranks (nodes, edges and triplets split in rank order).
+# ---------------------------------------------------------------------------
+
+RANKS = 4
+RANK_TIMEOUT = 240.0
+
+
+def rank_full_graph(group, state: dict, batch: dict) -> tuple:
+    """One rank of the spawned run: the loss and the summed gradients of
+    the smoke full graph (the train step's ``loss_and_grads``)."""
+    model = dimenet_cfg.ARCH.init_model("full_graph_sm", smoke=True,
+                                        device=CPU)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    step = dimenet_cfg.ARCH.build_step("full_graph_sm", group, smoke=True)
+    loss, grads = step.loss_and_grads(
+        model, {k: torch.from_numpy(v) for k, v in batch.items()})
+    return float(loss), {k: g.numpy() for k, g in grads.items()}
+
+
+def test_full_graph_over_four_ranks_equals_one_rank_and_the_reference(
+        cases):
+    """4 gloo CPU ranks against one rank and the JAX package: the loss
+    within 1e-5 relative, the gradients within 1e-4
+    (``assert_grads_close``)."""
+    from repro_torch.core import collectives
+    case = cases["full_graph_sm"]
+    state = {k: v.detach().numpy() for k, v in case.model.state_dict().items()}
+    batch = {k: v.numpy() for k, v in case.batch.items()}
+    res = collectives.launch(rank_full_graph, RANKS, state, batch,
+                             devices=[CPU] * RANKS, timeout=RANK_TIMEOUT)
+    one_loss, one_grads = case.port_loss_and_grads()
+    _, j_loss, j_grads = case.jax_outputs_loss_and_grads()
+    for loss, grads in res:
+        grads = {k: torch.from_numpy(g) for k, g in grads.items()}
+        assert loss == pytest.approx(float(one_loss), rel=1e-5)
+        assert loss == pytest.approx(j_loss, rel=1e-5)
+        assert_grads_close(grads, one_grads)
+        assert_grads_close(grads, case.convert(j_grads))

@@ -27,6 +27,7 @@ import torch
 from repro.compat import make_mesh
 from repro.configs import lm_common as jlm
 from repro.configs.registry import (ALL_ARCHS as J_ARCHS,
+                                    EXTRA_ARCHS as J_EXTRA,
                                     all_cells as j_all_cells,
                                     skipped_cells as j_skipped_cells)
 from repro.launch.train import run_louvain as j_run_louvain
@@ -121,9 +122,13 @@ def test_registry_equals_the_reference():
     for aid, arch in ALL_ARCHS.items():
         assert arch.family == J_ARCHS[aid].family
         assert get_arch(aid) is arch
-    assert EXTRA_ARCHS == {}
-    with pytest.raises(KeyError, match="unknown arch 'louvain'; have"):
-        get_arch("louvain")
+    assert set(EXTRA_ARCHS) == set(J_EXTRA) == {"louvain"}
+    louvain = get_arch("louvain")
+    assert louvain is EXTRA_ARCHS["louvain"]
+    assert louvain.family == J_EXTRA["louvain"].family
+    assert louvain.shapes == J_EXTRA["louvain"].shapes
+    with pytest.raises(KeyError, match="unknown arch 'nope'; have"):
+        get_arch("nope")
 
 
 # ---------------------------------------------------------------------------
