@@ -17,7 +17,6 @@ affected frontier (``core/engine.affected_frontier``) and resumes
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -29,6 +28,7 @@ from repro_torch.core.graph import CSRGraph
 from repro_torch.core.louvain import (LouvainConfig, LouvainResult, louvain,
                                       membership_modularity, pad_membership,
                                       screened_frontier)
+from repro_torch.core.spans import span
 
 #: The frontier rule under its historical single-device name (the
 #: engine's ``affected_frontier``, shared with the sharded layout).
@@ -95,59 +95,62 @@ def louvain_dynamic(
     The resident stream graph is never laddered: ``louvain`` re-buckets only
     its internal coarse graphs, so every batch applies at stream capacity.
     """
-    t_start = time.perf_counter()
-    dev = graph.device
-    n_cap = graph.n_cap
-    screen_mode = normalize_screening(screening)
+    with span("dynamic.call") as call:
+        dev = graph.device
+        n_cap = graph.n_cap
+        screen_mode = normalize_screening(screening)
+        if prev is None:
+            prev = louvain(graph, config).membership
+        with span("dynamic.prepare", host=True):
+            membership = pad_membership(np.asarray(prev, np.int32), n_cap)
+            n_comms = int(len(np.unique(membership[: graph.n_valid])))
 
-    if prev is None:
-        prev = louvain(graph, config).membership
-    membership = pad_membership(np.asarray(prev, np.int32), n_cap)
-
-    stats: List[BatchUpdateStats] = []
-    # n_touched is a device reduction; reading it per batch would wait on
-    # the device inside the stream loop, so the counts are read in one
-    # transfer after the stream.
-    touched_counts: List[torch.Tensor] = []
-    n_comms = int(len(np.unique(membership[: graph.n_valid])))
-    for batch in batches:
-        t0 = time.perf_counter()
-        # The apply reads its edge count to the host, so the device is done
-        # with it here.
-        graph, touched = apply_edge_batch(graph, batch, grow=grow_capacity,
-                                          backend=apply_backend)
-        t1 = time.perf_counter()
-
-        frontier = None
-        if screen_mode is not None:
-            frontier = affected_frontier(
-                touched, torch.from_numpy(membership).to(dev),
-                graph.n_valid, screen_mode)
-        res: LouvainResult = louvain(graph, config,
-                                     init_membership=membership,
-                                     init_frontier=frontier)
-        t2 = time.perf_counter()
-
-        membership = pad_membership(res.membership, n_cap)
-        n_comms = res.n_communities
-        touched_counts.append(touched.sum())
-        first = res.passes[0] if res.passes else None
-        stats.append(BatchUpdateStats(
-            batch_size=batch.b_valid,
-            n_touched=-1,  # filled from touched_counts after the stream
-            frontier_size=first.frontier_size if first else 0,
-            n_vertices=graph.n_valid,
-            n_communities=n_comms,
-            apply_seconds=t1 - t0,
-            update_seconds=t2 - t1,
-            modularity=(membership_modularity(graph, res.membership)
-                        if track_modularity else None),
-            scan_backend=first.scan_backend if first else None))
-    if touched_counts:
-        for s, cnt in zip(stats, torch.stack(touched_counts).tolist()):
-            s.n_touched = int(cnt)
-
-    n = graph.n_valid
-    return DynamicResult(graph=graph, membership=membership[:n].copy(),
+        stats: List[BatchUpdateStats] = []
+        # n_touched is a device reduction; reading it per batch would wait
+        # on the device inside the stream loop, so the counts are read in
+        # one transfer after the stream.
+        touched_counts: List[torch.Tensor] = []
+        for i, batch in enumerate(batches):
+            with span("dynamic.batch", batch=i):
+                # The apply reads its edge count to the host, so the device
+                # is done with it when the span ends.
+                with span("dynamic.apply") as apply_span:
+                    graph, touched = apply_edge_batch(
+                        graph, batch, grow=grow_capacity,
+                        backend=apply_backend)
+                with span("dynamic.update") as update_span:
+                    frontier = None
+                    if screen_mode is not None:
+                        frontier = affected_frontier(
+                            touched, torch.from_numpy(membership).to(dev),
+                            graph.n_valid, screen_mode)
+                    res: LouvainResult = louvain(graph, config,
+                                                 init_membership=membership,
+                                                 init_frontier=frontier)
+                with span("dynamic.pad", host=True):
+                    membership = pad_membership(res.membership, n_cap)
+                    n_comms = res.n_communities
+                    touched_counts.append(touched.sum())
+                    first = res.passes[0] if res.passes else None
+                    stats.append(BatchUpdateStats(
+                        batch_size=batch.b_valid,
+                        n_touched=-1,  # filled from touched_counts below
+                        frontier_size=first.frontier_size if first else 0,
+                        n_vertices=graph.n_valid,
+                        n_communities=n_comms,
+                        apply_seconds=apply_span.seconds,
+                        update_seconds=update_span.seconds,
+                        modularity=(membership_modularity(graph,
+                                                          res.membership)
+                                    if track_modularity else None),
+                        scan_backend=first.scan_backend if first else None))
+        with span("dynamic.finish", host=True):
+            if touched_counts:
+                for s, cnt in zip(stats,
+                                  torch.stack(touched_counts).tolist()):
+                    s.n_touched = int(cnt)
+            n = graph.n_valid
+            membership = membership[:n].copy()
+    return DynamicResult(graph=graph, membership=membership,
                          n_communities=n_comms, batch_stats=stats,
-                         total_seconds=time.perf_counter() - t_start)
+                         total_seconds=call.seconds)

@@ -22,6 +22,7 @@ from repro_torch.core.engine import (ConstrainedScanner, EngineConfig,
                                      mask_cross_outer_slots, sanitize_outer)
 from repro_torch.core.graph import CSRGraph, scatter_slots, segment_sum
 from repro_torch.core.modularity import delta_modularity
+from repro_torch.core.spans import count
 
 _NEG_INF = float("-inf")
 
@@ -130,12 +131,16 @@ def compact_best_moves(graph: CSRGraph, comm, sigma, k, frontier, m,
     ``(work_cap,)`` buffer; when they exceed the cap, the full scan runs
     instead.  The reference's ``lax.cond`` is a host branch here: one sync
     per round.  Returns (best_c, best_dq, overflowed); the first two are
-    bit-identical to ``best_moves`` either way.
+    bit-identical to ``best_moves`` either way.  Counts each call in
+    ``scan.compact_rounds`` and each fallback in ``scan.compact_fallbacks``
+    (``core/spans.py``).
     """
     c_src, c_dst, c_w, overflow = gather_frontier_slots(graph, frontier,
                                                         work_cap)
     overflowed = bool(overflow)
+    count("scan.compact_rounds")
     if overflowed:
+        count("scan.compact_fallbacks")
         best_c, best_dq = best_moves(graph, comm, sigma, k, frontier, m)
     else:
         best_c, best_dq = best_moves_slots(c_src, c_dst, c_w, comm, sigma, k,

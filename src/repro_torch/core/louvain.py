@@ -16,7 +16,6 @@ the graph it is given.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -35,6 +34,7 @@ from repro_torch.core.graph import (CSRGraph, FleetGraph, rebucket_capacity,
                                     stack_graphs)
 from repro_torch.core.local_move import move_phase
 from repro_torch.core.modularity import community_weights, modularity
+from repro_torch.core.spans import span
 from repro_torch.kernels.louvain_scan.louvain_scan import check_ell_width
 
 _INT_MAX = 2 ** 31 - 1
@@ -303,22 +303,25 @@ def louvain(graph: CSRGraph, config: LouvainConfig = LouvainConfig(), *,
     Memberships equal the reference's ``louvain()`` element for element on
     every scanner and aggregation backend.
     """
-    t_start = time.perf_counter()
+    with span("louvain") as call:
+        with span("louvain.start", host=True):
+            start = _start(graph, init_membership, init_frontier)
+        membership, passes, levels = _passes(graph, config, *start)
+        with span("louvain.finish", host=True):
+            n_communities = int(len(np.unique(membership)))
+    return LouvainResult(membership=membership, n_communities=n_communities,
+                         passes=passes, total_seconds=call.seconds,
+                         levels=levels)
+
+
+def _start(graph: CSRGraph, init_membership, init_frontier):
+    """The start of pass 0: (warm, fr, frontier_size0), ``warm`` the
+    (comm0, sigma0, frontier0) of a warm or screened start (None for the
+    singleton start), ``fr`` the screened frontier at capacity (or None)
+    and ``frontier_size0`` its size on the host."""
     dev = graph.device
     n_cap = graph.n_cap
-    n = graph.n_valid
-    global_comm = torch.arange(n_cap, dtype=torch.int32, device=dev)
-
-    g = graph
-    tol = float(config.initial_tolerance)
-    passes: List[PassStats] = []
-    agg_backend = resolve_agg_backend(config.agg_backend, dev)
-    levels: List[np.ndarray] = []
-    refine_on = config.refine == "leiden"
-    leiden_warm = None     # the outer partition on the next coarse graph
-
-    warm = None            # (comm0, sigma0, frontier0) of pass 0
-    frontier_size0 = None
+    warm = None
     fr = None
     if init_frontier is not None:
         # Device-resident frontiers (delta screening) stay on the device.
@@ -332,102 +335,127 @@ def louvain(graph: CSRGraph, config: LouvainConfig = LouvainConfig(), *,
         if len(mem) < n_cap + 1:   # pad (n,) / (n_cap,) inputs to capacity
             mem = np.concatenate(
                 [mem, np.full(n_cap + 1 - len(mem), n_cap, np.int32)])
-        warm = warm_init(g, torch.from_numpy(mem), fr)
+        warm = warm_init(graph, torch.from_numpy(mem), fr)
     elif fr is not None:
         # A screened frontier over a cold singleton start is honoured too.
-        comm0, sigma0, frontier0_all = singleton_init(g)
+        comm0, sigma0, frontier0_all = singleton_init(graph)
         warm = (comm0, sigma0, fr & frontier0_all)
-    if warm is not None:
-        frontier_size0 = int(warm[2].sum())
+    frontier_size0 = int(warm[2].sum()) if warm is not None else None
+    return warm, fr, frontier_size0
+
+
+def _passes(graph: CSRGraph, config: LouvainConfig, warm, fr,
+            frontier_size0):
+    """The pass loop of ``louvain()`` from ``_start``'s pass-0 start:
+    (membership, passes, levels)."""
+    dev = graph.device
+    n_cap = graph.n_cap
+    n = graph.n_valid
+    global_comm = torch.arange(n_cap, dtype=torch.int32, device=dev)
+
+    g = graph
+    tol = float(config.initial_tolerance)
+    passes: List[PassStats] = []
+    agg_backend = resolve_agg_backend(config.agg_backend, dev)
+    levels: List[np.ndarray] = []
+    refine_on = config.refine == "leiden"
+    leiden_warm = None     # the outer partition on the next coarse graph
 
     for p in range(config.max_passes):
-        t0 = time.perf_counter()
-        if p == 0 and warm is not None:
-            comm0, sigma0, frontier0 = warm
-            pass_frontier = frontier_size0
-        elif leiden_warm is not None:
-            comm0, sigma0, frontier0 = warm_init(g, leiden_warm)
-            pass_frontier = None
-        else:
-            comm0, sigma0, frontier0 = singleton_init(g)
-            pass_frontier = None
-        # A screened frontier is active only on pass 0 with init_frontier;
-        # warm-only starts re-scan all vertices, so compaction buys nothing.
-        frontier_frac = (frontier_size0 / max(n, 1)
-                         if p == 0 and fr is not None else None)
-        backend = resolve_scan_backend(config.scan_backend,
-                                       use_ell_kernel=config.use_ell_kernel,
-                                       frontier_frac=frontier_frac)
-        comm, iters, dq_sum = _move_phase(g, comm0, sigma0, frontier0, tol,
-                                          config=config, backend=backend)
-        _sync(dev)
-        t1a = time.perf_counter()
+        with span("louvain.pass", **{"pass": p}) as pass_span:
+            with span("louvain.move") as move_span:
+                if p == 0 and warm is not None:
+                    comm0, sigma0, frontier0 = warm
+                    pass_frontier = frontier_size0
+                elif leiden_warm is not None:
+                    comm0, sigma0, frontier0 = warm_init(g, leiden_warm)
+                    pass_frontier = None
+                else:
+                    comm0, sigma0, frontier0 = singleton_init(g)
+                    pass_frontier = None
+                # A screened frontier is active only on pass 0 with
+                # init_frontier; warm-only starts re-scan all vertices, so
+                # compaction buys nothing.
+                frontier_frac = (frontier_size0 / max(n, 1)
+                                 if p == 0 and fr is not None else None)
+                backend = resolve_scan_backend(
+                    config.scan_backend, use_ell_kernel=config.use_ell_kernel,
+                    frontier_frac=frontier_frac)
+                comm, iters, dq_sum = _move_phase(g, comm0, sigma0, frontier0,
+                                                  tol, config=config,
+                                                  backend=backend)
+                _sync(dev)
 
-        refine_iters = None
-        if refine_on:
-            if backend in ("ell", "ell_fused"):
-                refined, refine_iters, _ = move_phase_ell(
-                    g, *singleton_init(g), tol,
-                    max_iterations=config.max_iterations,
-                    use_pruning=config.use_pruning,
-                    gate_fraction=config.gate_fraction,
-                    widths=config.ell_widths, fused=backend == "ell_fused",
-                    refine_outer=comm)
-            else:
-                refined, refine_iters, _ = _refine_phase(
-                    g, comm, tol, max_iterations=config.max_iterations,
-                    use_pruning=config.use_pruning,
-                    gate_fraction=config.gate_fraction)
-            _sync(dev)
-        t1 = time.perf_counter()
-
-        if refine_on:
-            # Two folds off the same pre-pass global_comm: the outer fold is
-            # what the pass reports, the refined fold is what aggregation
-            # and the dendrogram chain follow.
-            outer_ren, n_report, level = _renumber_and_fold_one(
-                comm, g.n_valid, global_comm)
-            comm_ren, n_comms, folded = _renumber_and_fold_one(
-                refined, g.n_valid, global_comm)
-        else:
-            comm_ren, n_comms, folded = _renumber_and_fold_one(
-                comm, g.n_valid, global_comm)
-            level, n_report = folded, n_comms
-        global_comm = folded
-        n_verts = g.n_valid
-        levels.append(level[:n].cpu().numpy())
-        t2 = time.perf_counter()
-
-        q_now = (float(modularity(graph, torch.cat(
-            [level, torch.tensor([n_cap], dtype=torch.int32, device=dev)])))
-            if config.track_modularity else None)
-
-        converged = iters <= 1                                    # line 7
-        low_shrink = n_report / max(n_verts, 1) > config.aggregation_tolerance
-
-        pass_caps = (g.n_cap, g.e_cap)
-        if not (converged or low_shrink or p == config.max_passes - 1):
-            g = _aggregate_phase(stack_graphs([g]), comm_ren[None],
-                                 [n_comms], backend=agg_backend,
-                                 use_ladder=config.use_ladder).stream(0)
+            refine_iters = refine_span = None
             if refine_on:
-                warm_flat = _leiden_warm_membership(comm_ren, outer_ren,
-                                                    n_verts, n_comms)
-                leiden_warm = torch.full((g.n_cap + 1,), g.n_cap,
-                                         dtype=torch.int32, device=dev)
-                leiden_warm[:n_comms] = warm_flat[:n_comms]
-            _sync(dev)
-            agg_s = time.perf_counter() - t2
-        else:
-            agg_s = 0.0
+                with span("louvain.refine") as refine_span:
+                    if backend in ("ell", "ell_fused"):
+                        refined, refine_iters, _ = move_phase_ell(
+                            g, *singleton_init(g), tol,
+                            max_iterations=config.max_iterations,
+                            use_pruning=config.use_pruning,
+                            gate_fraction=config.gate_fraction,
+                            widths=config.ell_widths,
+                            fused=backend == "ell_fused", refine_outer=comm)
+                    else:
+                        refined, refine_iters, _ = _refine_phase(
+                            g, comm, tol, max_iterations=config.max_iterations,
+                            use_pruning=config.use_pruning,
+                            gate_fraction=config.gate_fraction)
+                    _sync(dev)
 
-        phase_seconds = {"local_move": t1a - t0, "other": t2 - t1,
-                         "aggregate": agg_s}
+            with span("louvain.fold") as fold_span:
+                if refine_on:
+                    # Two folds off the same pre-pass global_comm: the outer
+                    # fold is what the pass reports, the refined fold is
+                    # what aggregation and the dendrogram chain follow.
+                    outer_ren, n_report, level = _renumber_and_fold_one(
+                        comm, g.n_valid, global_comm)
+                    comm_ren, n_comms, folded = _renumber_and_fold_one(
+                        refined, g.n_valid, global_comm)
+                else:
+                    comm_ren, n_comms, folded = _renumber_and_fold_one(
+                        comm, g.n_valid, global_comm)
+                    level, n_report = folded, n_comms
+                global_comm = folded
+                n_verts = g.n_valid
+            with span("louvain.level", host=True) as level_span:
+                levels.append(level[:n].cpu().numpy())
+
+            q_now = (float(modularity(graph, torch.cat(
+                [level, torch.tensor([n_cap], dtype=torch.int32,
+                                     device=dev)])))
+                if config.track_modularity else None)
+
+            converged = iters <= 1                                # line 7
+            low_shrink = (n_report / max(n_verts, 1)
+                          > config.aggregation_tolerance)
+
+            pass_caps = (g.n_cap, g.e_cap)
+            agg_span = None
+            if not (converged or low_shrink or p == config.max_passes - 1):
+                with span("louvain.aggregate") as agg_span:
+                    g = _aggregate_phase(stack_graphs([g]), comm_ren[None],
+                                         [n_comms], backend=agg_backend,
+                                         use_ladder=config.use_ladder
+                                         ).stream(0)
+                    if refine_on:
+                        warm_flat = _leiden_warm_membership(
+                            comm_ren, outer_ren, n_verts, n_comms)
+                        leiden_warm = torch.full((g.n_cap + 1,), g.n_cap,
+                                                 dtype=torch.int32, device=dev)
+                        leiden_warm[:n_comms] = warm_flat[:n_comms]
+                    _sync(dev)
+
+        phase_seconds = {
+            "local_move": move_span.seconds,
+            "other": fold_span.seconds + level_span.seconds,
+            "aggregate": agg_span.seconds if agg_span is not None else 0.0}
         if refine_on:
-            phase_seconds["refine"] = t1 - t1a
+            phase_seconds["refine"] = refine_span.seconds
         passes.append(PassStats(
             iterations=iters, n_communities=n_report, n_vertices=n_verts,
-            dq_sum=float(dq_sum), seconds=time.perf_counter() - t0,
+            dq_sum=float(dq_sum), seconds=pass_span.seconds,
             phase_seconds=phase_seconds, modularity=q_now,
             frontier_size=(pass_frontier if pass_frontier is not None
                            else n_verts),
@@ -441,11 +469,7 @@ def louvain(graph: CSRGraph, config: LouvainConfig = LouvainConfig(), *,
     # With refinement global_comm follows the refined partitions; the
     # reported membership is the last pass's outer level.
     membership = levels[-1] if levels else global_comm[:n].cpu().numpy()
-    return LouvainResult(
-        membership=membership,
-        n_communities=int(len(np.unique(membership))),
-        passes=passes, total_seconds=time.perf_counter() - t_start,
-        levels=levels)
+    return membership, passes, levels
 
 
 def membership_modularity(graph: CSRGraph, membership) -> float:
