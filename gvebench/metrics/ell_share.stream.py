@@ -1,0 +1,28 @@
+"""The move phase's rounds through the fused ELL kernel K1 in the stream's
+warm passes (``core/ell_move.py``): 100 x ``scan.ell_rounds`` /
+(``scan.ell_rounds`` + ``scan.full_rounds`` + ``scan.compact_rounds``) over
+the traced window, in per cent.  Read from the program's counters
+(``repro_torch.core.spans``); None unless every batch of the window is
+found in the span store (by its ``dynamic.apply`` span, whose ``seconds``
+is the batch's ``apply_seconds``), or when no round was counted."""
+
+import sys
+
+from gvebench.metrics import batches
+
+ROUNDS = ("scan.ell_rounds", "scan.full_rounds", "scan.compact_rounds")
+
+
+def read(record):
+    bs = batches(record)
+    spans = sys.modules.get("repro_torch.core.spans")
+    if not bs or spans is None:
+        return None
+    sess = spans.session()
+    if sess.matching("dynamic.apply",
+                     (b["apply_seconds"] for b in bs)) is None:
+        return None
+    rounds = sum(sess.counters.get(name, 0) for name in ROUNDS)
+    if not rounds:
+        return None
+    return 100.0 * sess.counters.get("scan.ell_rounds", 0) / rounds

@@ -66,12 +66,38 @@ def resolve_apply_backend(backend: str, device: torch.device) -> str:
     return _resolve_kernel_backend(backend, device, "apply backend")
 
 
+#: K1 adds each K_{i->c} in float32 in slot order; the sort-reduce scan
+#: adds it in float64 and rounds once.  The two agree bit for bit while
+#: every partial sum is an integer below this, which holds when the weights
+#: are non-negative integers and every vertex weight k_i lies below it (a
+#: partial sum is at most k_i; a float32 k_i below 2^24 is exact).
+FLOAT32_EXACT_SUM = 2 ** 24
+
+
+def sums_exact_in_float32(weights: torch.Tensor, k: torch.Tensor) -> bool:
+    """Whether every K_{i->c} partial sum is exact in float32: the slot
+    weights are non-negative integers and every vertex weight ``k`` lies
+    below ``FLOAT32_EXACT_SUM``.  One host read."""
+    inexact = torch.stack([
+        torch.any((weights != torch.round(weights)) | (weights < 0)),
+        torch.any(k >= FLOAT32_EXACT_SUM)])
+    return not bool(inexact.any())
+
+
 def resolve_scan_backend(backend: str, *, use_ell_kernel: bool = False,
-                         frontier_frac: float | None = None) -> str:
+                         frontier_frac: float | None = None,
+                         device=None, weights: torch.Tensor | None = None,
+                         k: torch.Tensor | None = None) -> str:
     """Map the ``scan_backend`` knob to a concrete scanner for ONE pass:
     one of ``"full" | "compact" | "ell" | "ell_fused"``, by the reference's
     rules (``"auto"`` + ELL family -> the fused kernel; ``"auto"`` + a small
-    active frontier -> ``"compact"``; otherwise the full sort-reduce)."""
+    active frontier -> ``"compact"``; otherwise the full sort-reduce), and
+    one of the port's own: ``"auto"`` with no small frontier takes the
+    fused kernel K1 on a CUDA ``device`` when the pass's slot ``weights``
+    and vertex weights ``k`` keep its float32 sums exact
+    (``sums_exact_in_float32``), so its memberships equal the sort-reduce
+    scan's.  On the CPU, or without ``weights``, ``"auto"`` keeps the
+    reference's rules."""
     if backend not in SCAN_BACKENDS:
         raise ValueError(f"scan_backend must be one of {SCAN_BACKENDS}; "
                          f"got {backend!r}")
@@ -89,6 +115,10 @@ def resolve_scan_backend(backend: str, *, use_ell_kernel: bool = False,
         if (frontier_frac is not None
                 and frontier_frac <= AUTO_COMPACT_MAX_FRONTIER_FRAC):
             return "compact"
+        if (device is not None and torch.device(device).type == "cuda"
+                and weights is not None
+                and sums_exact_in_float32(weights, k)):
+            return "ell_fused"
         return "full"
     return "full"
 

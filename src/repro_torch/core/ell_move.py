@@ -4,8 +4,10 @@ Vertices are degree-bucketed by ELL width (``graph.ell_bucket_rows``), and
 each bucket's best-move scan runs in the CUDA kernels K2 (``ELLScanner``) or
 K1 (``FusedELLScanner``, scan + decision in one launch), which read the
 bucket's CSR rows themselves.  Hub vertices above the widest ELL width take
-the sort-reduce scan.  PyTorch runs eagerly, so the reference's jit cache
-has no counterpart here.
+the sort-reduce scan.  ``scan_backend="auto"``'s route to K1 buckets by
+``AUTO_ELL_WIDTHS``, keeping the tiers that the pass's degree histogram
+fills (``graph.degree_tiers``).  PyTorch runs eagerly, so the reference's
+jit cache has no counterpart here.
 """
 
 from __future__ import annotations
@@ -16,10 +18,20 @@ import torch
 
 from repro_torch.core.engine import (ConstrainedScanner, EngineConfig,
                                      MoveEngine, gated_move_mask, round_gate)
-from repro_torch.core.graph import CSRGraph, ell_bucket_rows
+from repro_torch.core.graph import CSRGraph, degree_tiers, ell_bucket_rows
 from repro_torch.core.local_move import (SortReduceScanner, best_moves_slots,
                                          cross_outer_masked)
+from repro_torch.core.spans import count
 from repro_torch.kernels.louvain_scan import ops as scan_ops
+
+#: The ELL tiers of ``scan_backend="auto"``'s route to K1, from the kernels'
+#: layout bounds: a row per thread up to 16, a row per warp up to 256, a
+#: row per block in shared memory up to 16384 and in global scratch at
+#: 32768.  Rows above the widest take the sort-reduce hub scan.  Timed
+#: alone on graph500-22's first pass (H100), the 4096 and 16384 tiers
+#: take their rows in 3.9 ms where the 32768 tier takes 14.3; a 1024 tier
+#: takes its rows slower than the 2048 tier does.
+AUTO_ELL_WIDTHS = (16, 64, 256, 2048, 4096, 16384, 32768)
 
 
 class ELLScanner(SortReduceScanner):
@@ -42,9 +54,9 @@ class ELLScanner(SortReduceScanner):
             hub = torch.zeros(graph.n_cap + 1, dtype=torch.bool,
                               device=graph.device)
             hub[leftover] = True
-            keep = hub[graph.src]
-            self._hub_slots = (graph.src[keep], graph.indices[keep],
-                               graph.weights[keep])
+            keep = torch.nonzero(hub[graph.src]).flatten()
+            self._hub_slots = tuple(t.index_select(0, keep) for t in (
+                graph.src, graph.indices, graph.weights))
 
     def _hub_scan(self, comm, sigma, frontier):
         src, dst, w = self._hub_slots
@@ -59,6 +71,7 @@ class ELLScanner(SortReduceScanner):
         best_dq = torch.full((n_cap + 1,), float("-inf"), dtype=torch.float32,
                              device=dev)
         g = self.graph
+        count("scan.ell_rounds")
         for width, rows in self.buckets:
             bc, bdq = scan_ops.louvain_scan(
                 rows, g.indptr, g.indices, g.weights, comm, sigma,
@@ -96,6 +109,7 @@ class FusedELLScanner(ELLScanner):
                              device=dev)
         do_move = torch.zeros(n_cap + 1, dtype=torch.bool, device=dev)
         g = self.graph
+        count("scan.ell_rounds")
         for width, rows in self.buckets:
             bc, bdq, mv = scan_ops.louvain_fused(
                 rows, g.indptr, g.indices, g.weights, comm, sigma, sizes,
@@ -122,24 +136,31 @@ class FusedELLScanner(ELLScanner):
 def move_phase_ell(graph: CSRGraph, comm0, sigma0, frontier0,
                    tolerance: float, *, max_iterations: int = 20,
                    use_pruning: bool = True, gate_fraction: int = 2,
-                   widths: Tuple[int, ...] = (16, 64, 256),
+                   widths: Optional[Tuple[int, ...]] = (16, 64, 256),
                    fused: bool = False,
-                   refine_outer: Optional[torch.Tensor] = None):
+                   refine_outer: Optional[torch.Tensor] = None,
+                   k: Optional[torch.Tensor] = None):
     """ELL-kernel local-moving phase from a (C, Sigma, frontier) start;
     returns (comm, iters, dq_sum).
 
     Buckets the graph once per phase, then runs the engine over the scan
     kernel (``fused=False``) or the fused kernel (``fused=True``) — the same
-    memberships either way.  ``refine_outer`` runs Leiden's constrained
-    sweep: the scanners read one cross-outer-masked copy of the CSR's
+    memberships either way.  ``widths=None`` buckets by ``AUTO_ELL_WIDTHS``
+    and keeps only the tiers that hold rows.  ``k`` is the graph's
+    ``vertex_weights()``, computed here when not given.  ``refine_outer``
+    runs Leiden's constrained sweep: the scanners read one
+    cross-outer-masked copy of the CSR's
     ``indices``/``weights`` (``local_move.cross_outer_masked``; the kernels
     and their plain versions build each tile from it, so the tiles are
     masked too) inside a ``ConstrainedScanner``.  The buckets (from
     ``indptr``), ``k`` and ``m`` are the unmasked graph's.
     """
-    rows, leftover = ell_bucket_rows(graph, widths)
-    buckets = list(zip(widths, rows))
-    k = graph.vertex_weights()
+    if widths is None:
+        buckets, leftover = degree_tiers(graph, AUTO_ELL_WIDTHS)
+    else:
+        rows, leftover = ell_bucket_rows(graph, widths)
+        buckets = list(zip(widths, rows))
+    k = graph.vertex_weights() if k is None else k
     m = graph.total_weight()
     if refine_outer is not None:
         outer, graph = cross_outer_masked(graph, refine_outer)

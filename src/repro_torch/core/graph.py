@@ -575,6 +575,33 @@ class ELLBlock:
         return self.cols.shape[1]
 
 
+def _degree_tiers(graph: CSRGraph, widths: Tuple[int, ...],
+                  row_align: int) -> Tuple[List[int], List[torch.Tensor],
+                                           torch.Tensor]:
+    """The degree histogram over ``widths`` and the rows of each tier:
+    (host row counts per tier, each tier's padded rows, leftover ids).  One
+    host read (the histogram), whatever the number of tiers."""
+    if any(b <= a for a, b in zip(widths, widths[1:])):
+        raise ValueError(f"ELL widths must ascend; got {tuple(widths)}")
+    dev = graph.device
+    n, n_cap = graph.n_valid, graph.n_cap
+    deg = graph.indptr[1:n + 1] - graph.indptr[:n]
+    # Tier k holds degrees in (widths[k-1], widths[k]]; len(widths) is the
+    # leftover above the widest.
+    tier = torch.bucketize(deg, torch.tensor(widths, dtype=deg.dtype,
+                                             device=dev))
+    counts = torch.bincount(tier, minlength=len(widths) + 1).tolist()
+    # A stable sort keeps each tier's vertex ids ascending.
+    grouped = torch.argsort(tier, stable=True).to(torch.int32)
+    *parts, leftover = torch.split(grouped, counts)
+    buckets = []
+    for n_sel, sel in zip(counts, parts):
+        n_rows = int(math.ceil(max(n_sel, 1) / row_align) * row_align)
+        buckets.append(torch.cat([sel, torch.full(
+            (n_rows - n_sel,), n_cap, dtype=torch.int32, device=dev)]))
+    return counts[:-1], buckets, leftover
+
+
 def ell_bucket_rows(graph: CSRGraph,
                     widths: Tuple[int, ...] = (16, 64, 256, 1024), *,
                     row_align: int = 8
@@ -585,26 +612,21 @@ def ell_bucket_rows(graph: CSRGraph,
     ids): each bucket's (n_rows,) int32 vertex ids in ascending order,
     padded with ``n_cap`` to a multiple of ``row_align``, and the vertices
     above the largest width.  The ELL scan kernels take these rows and read
-    the CSR themselves; ``to_ell_blocks`` adds the padded matrices."""
-    dev = graph.device
-    n, n_cap = graph.n_valid, graph.n_cap
-    deg = graph.indptr[1:n + 1] - graph.indptr[:n]
-    assigned = torch.zeros(n, dtype=torch.bool, device=dev)
-    buckets = []
-    lo = 0
-    for width in widths:
-        sel_mask = (deg <= width if width == widths[0]
-                    else (deg > lo) & (deg <= width))
-        lo = width
-        sel = torch.nonzero(sel_mask).flatten()
-        n_sel = sel.numel()
-        n_rows = int(math.ceil(max(n_sel, 1) / row_align) * row_align)
-        rows = torch.full((n_rows,), n_cap, dtype=torch.int32, device=dev)
-        rows[:n_sel] = sel.to(torch.int32)
-        assigned |= sel_mask
-        buckets.append(rows)
-    leftover = torch.nonzero(~assigned).flatten().to(torch.int32)
+    the CSR themselves; ``to_ell_blocks`` adds the padded matrices.
+    ``widths`` ascend; one host read."""
+    _, buckets, leftover = _degree_tiers(graph, widths, row_align)
     return buckets, leftover
+
+
+def degree_tiers(graph: CSRGraph, widths: Tuple[int, ...], *,
+                 row_align: int = 8
+                 ) -> Tuple[List[Tuple[int, torch.Tensor]], torch.Tensor]:
+    """``ell_bucket_rows`` keeping only the tiers that hold rows, as the
+    graph's degree histogram shows them: ((width, rows) per such tier,
+    leftover vertex ids above the widest width)."""
+    counts, buckets, leftover = _degree_tiers(graph, widths, row_align)
+    return ([(w, rows) for w, n_sel, rows in zip(widths, counts, buckets)
+             if n_sel], leftover)
 
 
 def ell_block(indptr: torch.Tensor, indices: torch.Tensor,

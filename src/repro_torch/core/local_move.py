@@ -150,7 +150,8 @@ def compact_best_moves(graph: CSRGraph, comm, sigma, k, frontier, m,
 
 class SortReduceScanner(ReplicatedScannerBase):
     """Engine backend: CSR sort-reduce scan on a single device, of a
-    ``CSRGraph`` or of a whole fleet's ``FleetView``."""
+    ``CSRGraph`` or of a whole fleet's ``FleetView``.  Counts each round in
+    ``scan.full_rounds`` (``core/spans.py``)."""
 
     def __init__(self, graph: CSRGraph, k: torch.Tensor, m: torch.Tensor):
         super().__init__(graph.n_cap, graph.n_valid, k, graph.n_streams)
@@ -158,6 +159,7 @@ class SortReduceScanner(ReplicatedScannerBase):
         self.m = m
 
     def scan(self, comm, sigma, frontier):
+        count("scan.full_rounds")
         return best_moves(self.graph, comm, sigma, self.k_local, frontier,
                           self.m)
 
@@ -221,9 +223,11 @@ def _move_engine(graph: CSRGraph, k, m, *, max_iterations: int,
 def move_phase(graph: CSRGraph, comm0, sigma0, frontier0, tolerance: float,
                *, max_iterations: int = 20, use_pruning: bool = True,
                gate_fraction: int = 2, work_cap: int = 0,
-               refine_outer: Optional[torch.Tensor] = None):
+               refine_outer: Optional[torch.Tensor] = None,
+               k: Optional[torch.Tensor] = None):
     """One local-moving phase on the sort-reduce backend from an arbitrary
-    (C, Sigma, frontier) start; returns (comm, iters, dq_sum).
+    (C, Sigma, frontier) start; returns (comm, iters, dq_sum).  ``k`` is
+    the graph's ``vertex_weights()``, computed here when not given.
 
     ``work_cap > 0`` runs the frontier-compacted scanner with that
     work-buffer capacity (bit-identical results, frontier-proportional
@@ -237,7 +241,8 @@ def move_phase(graph: CSRGraph, comm0, sigma0, frontier0, tolerance: float,
     (``MoveEngine.run``), and ``iters`` and ``dq_sum`` are per stream.
     """
     st = _move_engine(
-        graph, graph.vertex_weights(), graph.total_weight(),
+        graph, graph.vertex_weights() if k is None else k,
+        graph.total_weight(),
         max_iterations=max_iterations, use_pruning=use_pruning,
         gate_fraction=gate_fraction, work_cap=work_cap,
         refine_outer=refine_outer).run(comm0, sigma0, frontier0, tolerance)

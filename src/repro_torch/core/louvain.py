@@ -7,10 +7,11 @@ The single-device loop: the singleton or warm start
 (``init_membership``/``init_frontier``, which ``core/dynamic.py`` builds
 on), local-moving on the sort-reduce scanner (``"full"``), its
 frontier-compacted form (``"compact"``) or the ELL kernels (``"ell"``,
-``"ell_fused"``), with ``refine="leiden"`` a constrained refinement sweep
-after each local-moving phase, renumber-and-fold, aggregation by the sort
-chain or the kernel K3, and the capacity ladder.  It runs on the device of
-the graph it is given.
+``"ell_fused"``; ``"auto"`` takes the fused kernel K1 for full scans on
+CUDA while its float32 sums are exact), with ``refine="leiden"`` a
+constrained refinement sweep after each local-moving phase,
+renumber-and-fold, aggregation by the sort chain or the kernel K3, and the
+capacity ladder.  It runs on the device of the graph it is given.
 """
 
 from __future__ import annotations
@@ -196,31 +197,41 @@ def _renumber_and_fold_one(comm: torch.Tensor, n_valid: int,
     return comm_new[0], int(n_comms[0]), folded[0]
 
 
+def _ell_widths(config: LouvainConfig):
+    """The ELL widths of a pass: ``config.ell_widths`` for an explicit ELL
+    request; None on ``"auto"``'s own route to K1, which buckets by the
+    pass's degree histogram (``ell_move.move_phase_ell``)."""
+    explicit = config.use_ell_kernel or config.scan_backend != "auto"
+    return config.ell_widths if explicit else None
+
+
 def _move_phase(graph, comm0, sigma0, frontier0, tolerance, *,
-                config: LouvainConfig, backend: str):
+                config: LouvainConfig, backend: str, k=None):
     """One local-moving phase on the scanner ``backend`` (``"full"``,
     ``"compact"``, ``"ell"`` or ``"ell_fused"``) from a (C, Sigma,
     frontier) start; returns (comm, iters, dq_sum).  ``graph`` may be a
     fleet's ``FleetView`` with one tolerance per stream (the batched
-    driver, ``core/multistream.py``, on the sort-reduce scanners)."""
+    driver, ``core/multistream.py``, on the sort-reduce scanners).  ``k``
+    is the graph's ``vertex_weights()``, computed by the phase when not
+    given."""
     if backend in ("ell", "ell_fused"):
         return move_phase_ell(
             graph, comm0, sigma0, frontier0, tolerance,
             max_iterations=config.max_iterations,
             use_pruning=config.use_pruning,
-            gate_fraction=config.gate_fraction, widths=config.ell_widths,
-            fused=backend == "ell_fused")
+            gate_fraction=config.gate_fraction, widths=_ell_widths(config),
+            fused=backend == "ell_fused", k=k)
     return move_phase(
         graph, comm0, sigma0, frontier0, tolerance,
         max_iterations=config.max_iterations, use_pruning=config.use_pruning,
         gate_fraction=config.gate_fraction,
         work_cap=(compact_work_cap(graph.e_cap, config.compact_cap_frac)
-                  if backend == "compact" else 0))
+                  if backend == "compact" else 0), k=k)
 
 
 def _refine_phase(graph: CSRGraph, outer: torch.Tensor, tolerance: float,
                   *, max_iterations: int, use_pruning: bool,
-                  gate_fraction: int = 2):
+                  gate_fraction: int = 2, k=None):
     """Leiden refinement on the sort-reduce scanner: from singletons, the
     constrained sweep (``move_phase(refine_outer=outer)``) yields a
     partition that refines ``outer``; returns (comm, iters, dq_sum).
@@ -230,7 +241,7 @@ def _refine_phase(graph: CSRGraph, outer: torch.Tensor, tolerance: float,
     comm0, sigma0, frontier0 = singleton_init(graph)
     return move_phase(graph, comm0, sigma0, frontier0, tolerance,
                       max_iterations=max_iterations, use_pruning=use_pruning,
-                      gate_fraction=gate_fraction, refine_outer=outer)
+                      gate_fraction=gate_fraction, refine_outer=outer, k=k)
 
 
 def _aggregate_phase(fleet: FleetGraph, comm_ren: torch.Tensor, n_comms,
@@ -298,7 +309,8 @@ def louvain(graph: CSRGraph, config: LouvainConfig = LouvainConfig(), *,
     graph; with ``refine="leiden"`` they start from the outer partition on
     the coarse graph (``_leiden_warm_membership``).  With an active seed
     frontier, ``scan_backend="auto"`` scans through the frontier-compacted
-    scanner when |F|/n <= 10%.
+    scanner when |F|/n <= 10%; otherwise, on a CUDA graph whose weights
+    keep K1's float32 sums exact, through K1 over the pass's degree tiers.
 
     Memberships equal the reference's ``louvain()`` element for element on
     every scanner and aggregation backend.
@@ -378,12 +390,14 @@ def _passes(graph: CSRGraph, config: LouvainConfig, warm, fr,
                 # compaction buys nothing.
                 frontier_frac = (frontier_size0 / max(n, 1)
                                  if p == 0 and fr is not None else None)
+                k = g.vertex_weights()
                 backend = resolve_scan_backend(
                     config.scan_backend, use_ell_kernel=config.use_ell_kernel,
-                    frontier_frac=frontier_frac)
+                    frontier_frac=frontier_frac, device=dev,
+                    weights=g.weights, k=k)
                 comm, iters, dq_sum = _move_phase(g, comm0, sigma0, frontier0,
                                                   tol, config=config,
-                                                  backend=backend)
+                                                  backend=backend, k=k)
                 _sync(dev)
 
             refine_iters = refine_span = None
@@ -395,13 +409,14 @@ def _passes(graph: CSRGraph, config: LouvainConfig, warm, fr,
                             max_iterations=config.max_iterations,
                             use_pruning=config.use_pruning,
                             gate_fraction=config.gate_fraction,
-                            widths=config.ell_widths,
-                            fused=backend == "ell_fused", refine_outer=comm)
+                            widths=_ell_widths(config),
+                            fused=backend == "ell_fused", refine_outer=comm,
+                            k=k)
                     else:
                         refined, refine_iters, _ = _refine_phase(
                             g, comm, tol, max_iterations=config.max_iterations,
                             use_pruning=config.use_pruning,
-                            gate_fraction=config.gate_fraction)
+                            gate_fraction=config.gate_fraction, k=k)
                     _sync(dev)
 
             with span("louvain.fold") as fold_span:

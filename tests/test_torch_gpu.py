@@ -702,6 +702,53 @@ def test_louvain_dynamic_on_the_card_reproduces_sbm_stream_golden(cuda):
         assert resolve.resolve_groups.launches == before + len(batches)
 
 
+def _rmat_with_hubs(dev, scale, hubs):
+    """R-MAT at ``scale`` (edge factor 16) with each (vertex, leaves) of
+    ``hubs`` joined to that many new leaf vertices: rows above the R-MAT's
+    own degrees, up to above the widest degree tier."""
+    from repro_torch.data.graphs import rmat_graph
+    base = rmat_graph(scale, 16, seed=3, device=dev)
+    e, n = base.e_valid, base.n_valid
+    src, dst = [base.src[:e].cpu().numpy()], [base.indices[:e].cpu().numpy()]
+    for hub, leaves in hubs:
+        src.append(np.full(leaves, hub, np.int32))
+        dst.append(np.arange(n, n + leaves, dtype=np.int32))
+        n += leaves
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    return build_csr(src, dst, np.ones(len(src), np.float32), n,
+                     symmetrize=True, device=dev)
+
+
+def test_auto_scan_takes_k1_for_full_scans_and_equals_the_full_scan(cuda):
+    """``scan_backend="auto"`` on a CUDA graph of unit weights scans through
+    K1 over the pass's degree tiers, hub rows above the widest tier
+    through the sort-reduce fallback, and gives ``scan_backend="full"``'s
+    memberships label for label; a float-weighted copy keeps pass 0 on the
+    sort-reduce scan."""
+    from repro_torch.core.ell_move import AUTO_ELL_WIDTHS
+    from repro_torch.core.graph import degree_tiers
+    g = _rmat_with_hubs(cuda, 14, [(7, 3000), (9, 10000), (13, 20000),
+                                    (11, 40000)])
+    tiers, leftover = degree_tiers(g, AUTO_ELL_WIDTHS)
+    assert tuple(w for w, _ in tiers) == AUTO_ELL_WIDTHS
+    assert leftover.numel() == 1
+    for refine in ("none", "leiden"):
+        before = ops.louvain_fused.launches
+        got = louvain(g, LouvainConfig(refine=refine))
+        assert got.passes[0].scan_backend == "ell_fused"
+        assert ops.louvain_fused.launches > before
+        want = louvain(g, LouvainConfig(refine=refine, scan_backend="full"))
+        np.testing.assert_array_equal(got.membership, want.membership)
+        for a, b in zip(got.levels, want.levels, strict=True):
+            np.testing.assert_array_equal(a, b)
+    w = torch.where(g.src < g.n_cap, g.weights * 1.5, g.weights)
+    gf = type(g)(**{**g.__dict__, "weights": w})
+    got = louvain(gf, LouvainConfig())
+    assert got.passes[0].scan_backend == "full"
+    want = louvain(gf, LouvainConfig(scan_backend="full"))
+    np.testing.assert_array_equal(got.membership, want.membership)
+
+
 # -- batched multi-stream serving: K3/K4 once per fleet operation -----------
 
 def _sbm_fleet(dev):
